@@ -1,0 +1,257 @@
+"""User-facing API for distributed (block-sparse) matrix multiplication.
+
+``DistributedMatmul`` is a thin front-end over the ``core.plan`` planner:
+every call — dense, block-sparse, one-sided mask — resolves to one cached
+``MatmulPlan`` (keyed by shapes + mask content + strategy) that
+``core.summa.execute_plan`` interprets on this rank's tiles.  The
+front-end pads the global operands to the plan's shapes, cuts this
+rank's tiles, runs the plan, gathers C over the grid and crops it.
+
+The port of ``repro.core.api``.  ``NonuniformMatmul`` (ROADMAP A5), the
+rank-sparse factor route (A2), ``contract``/``contract_chain`` (A6) and
+the schedule tuner behind ``tune=True`` (A1) are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import summa as sm
+from repro_torch.core.grid import Grid
+from repro_torch.core.plan import MatmulPlan, mask_key, plan_matmul, rank_key
+from repro_torch.core.sparsity import BlockRankMap, RankCSR, norms_key
+
+__all__ = ["DistributedMatmul", "pad_to_multiple"]
+
+
+def pad_to_multiple(x: torch.Tensor, multiples: tuple[int, ...]) -> torch.Tensor:
+    """Zero-pad each dim of ``x`` up to the next multiple."""
+    return _pad_to_shape(
+        x, tuple(-(-d // m) * m for d, m in zip(x.shape, multiples))
+    )
+
+
+def _pad_to_shape(x: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    pads = [t - d for d, t in zip(x.shape, shape)]
+    if not any(pads):
+        return x
+    flat = []
+    for p in reversed(pads):  # F.pad lists the last dim first
+        flat += [0, p]
+    return F.pad(x, flat)
+
+
+@dataclasses.dataclass
+class DistributedMatmul:
+    """C = A @ B on a 2-D ``Grid``, task-based SUMMA under the hood.
+
+    Example::
+
+        mm = DistributedMatmul(Grid.local("cuda"), strategy="taskbased",
+                               k_blocks=8, local_matmul="pallas")
+        c = mm(a, b)                       # dense
+        c = mm(a, b, a_mask=am, b_mask=bm) # block-sparse
+        c = mm(a, b, b_mask=bm)            # one-sided block structure
+
+    Operands are global (M, K) / (K, N) tensors or numpy arrays on any
+    device; each rank moves its own tiles to ``grid.device`` and every
+    rank returns the whole C there.  Each distinct (shapes, masks,
+    strategy) builds its ``MatmulPlan`` once.
+    """
+
+    grid: Grid
+    row_axis: str = "data"
+    col_axis: str = "model"
+    strategy: str = "taskbased"
+    k_blocks: int | None = None
+    lookahead: int | None = None
+    accum_dtype: torch.dtype = torch.float32
+    local_matmul: str = "xla"
+    _plan_cache: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False
+    )
+    _cache_stats: dict = dataclasses.field(
+        default_factory=lambda: {"plan_hits": 0, "plan_misses": 0},
+        repr=False, compare=False,
+    )
+
+    def config(self, strategy: str | None = None) -> sm.SummaConfig:
+        return sm.SummaConfig(
+            grid=self.grid,
+            row_axis=self.row_axis,
+            col_axis=self.col_axis,
+            strategy=strategy or self.strategy,  # type: ignore[arg-type]
+            k_blocks=self.k_blocks,
+            lookahead=self.lookahead,
+            accum_dtype=self.accum_dtype,
+            local_matmul=self.local_matmul,  # type: ignore[arg-type]
+        )
+
+    # -- planning ------------------------------------------------------------
+
+    def plan(
+        self,
+        m: int,
+        k: int,
+        n: int,
+        *,
+        a_mask: np.ndarray | None = None,
+        b_mask: np.ndarray | None = None,
+        a_ranks: BlockRankMap | None = None,
+        b_ranks: BlockRankMap | None = None,
+        c_mask: np.ndarray | None = None,
+        strategy: str | None = None,
+        itemsize: int = 4,
+        tune: bool = False,
+        lookahead: int | None = None,
+        comm_mode: str = "broadcast",
+        stationarity: str = "C",
+        a_norms: np.ndarray | None = None,
+        b_norms: np.ndarray | None = None,
+        filter_eps: float = 0.0,
+        k_blocks: int | None = None,
+    ) -> MatmulPlan:
+        """The (cached) execution plan for a (M, K) x (K, N) product.
+
+        Takes the reference's planning inputs (see ``core.plan.
+        plan_matmul``).  A ``BlockRankMap`` in ``a_ranks``/``b_ranks``
+        refines the cost model only; a ``RankCSR`` factor payload and
+        ``tune=True`` raise ``NotImplementedError``.
+        """
+        if tune:
+            raise NotImplementedError(
+                "tune=True needs the schedule tuner (repro.sched), which is "
+                "not ported yet (ROADMAP A1)"
+            )
+        if isinstance(a_ranks, RankCSR) or isinstance(b_ranks, RankCSR):
+            raise NotImplementedError(
+                "RankCSR factor payloads: the rank-sparse route is not "
+                "ported yet (ROADMAP A2)"
+            )
+        key = (
+            m, k, n, mask_key(a_mask), mask_key(b_mask), rank_key(a_ranks),
+            strategy or self.strategy, itemsize, lookahead,
+            rank_key(b_ranks), mask_key(c_mask), comm_mode, stationarity,
+        )
+        if k_blocks is not None:
+            key = key + ("k_blocks", int(k_blocks))
+        if filter_eps > 0.0:
+            key = key + (
+                float(filter_eps), norms_key(a_norms), norms_key(b_norms),
+            )
+        plan = self._plan_cache.get(key)
+        if plan is None:
+            self._cache_stats["plan_misses"] += 1
+            cfg = self.config(strategy)
+            if k_blocks is not None:
+                cfg = dataclasses.replace(cfg, k_blocks=int(k_blocks))
+            plan = plan_matmul(
+                m, k, n, cfg,
+                a_mask=a_mask, b_mask=b_mask, a_ranks=a_ranks,
+                b_ranks=b_ranks, c_mask=c_mask, rank_payload=False,
+                comm_mode=comm_mode, stationarity=stationarity,
+                itemsize=itemsize, a_norms=a_norms, b_norms=b_norms,
+                filter_eps=filter_eps,
+            )
+            if lookahead is not None:
+                plan = dataclasses.replace(plan, lookahead=int(lookahead))
+            self._plan_cache[key] = plan
+        else:
+            self._cache_stats["plan_hits"] += 1
+        return plan
+
+    # -- observability -------------------------------------------------------
+
+    def cache_stats(self) -> dict:
+        """Hit/miss counters of the ``MatmulPlan`` cache on this instance."""
+        s = self._cache_stats
+        return {
+            "plan": {
+                "size": len(self._plan_cache),
+                "hits": s["plan_hits"], "misses": s["plan_misses"],
+            },
+        }
+
+    def reset_cache_stats(self) -> None:
+        """Zero the counters (cache *contents* are kept)."""
+        for k in self._cache_stats:
+            self._cache_stats[k] = 0
+
+    # -- call paths ----------------------------------------------------------
+
+    def __call__(
+        self,
+        a,
+        b,
+        *,
+        a_mask: np.ndarray | None = None,
+        b_mask: np.ndarray | None = None,
+        a_ranks: BlockRankMap | None = None,
+        b_ranks: BlockRankMap | None = None,
+        c_mask: np.ndarray | None = None,
+        strategy: str | None = None,
+        tune: bool = False,
+        lookahead: int | None = None,
+        comm_mode: str = "broadcast",
+        stationarity: str = "C",
+        a_norms: np.ndarray | None = None,
+        b_norms: np.ndarray | None = None,
+        filter_eps: float = 0.0,
+    ) -> torch.Tensor:
+        """C = A @ B, on ``grid.device``.  ``a_mask``/``b_mask`` give block
+        structure, ``c_mask`` filters the output block grid, and
+        ``a_norms``/``b_norms`` with ``filter_eps > 0`` screen small
+        products, all as in the reference.  ``a`` must be dense-stored."""
+        if a is None:
+            raise NotImplementedError(
+                "a=None takes a RankCSR factor payload: the rank-sparse "
+                "route is not ported yet (ROADMAP A2)"
+            )
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        m, k = a.shape
+        k2, n = b.shape
+        if k != k2:
+            raise ValueError(
+                f"contraction mismatch {tuple(a.shape)} @ {tuple(b.shape)}"
+            )
+        plan = self.plan(
+            m, k, n, a_mask=a_mask, b_mask=b_mask, a_ranks=a_ranks,
+            b_ranks=b_ranks, c_mask=c_mask, strategy=strategy,
+            itemsize=a.element_size(), tune=tune, lookahead=lookahead,
+            comm_mode=comm_mode, stationarity=stationarity,
+            a_norms=a_norms, b_norms=b_norms, filter_eps=filter_eps,
+        )
+        (mp, kp), (_, np_) = plan.padded_shapes
+        a_loc = self._tile(_pad_to_shape(a, (mp, kp)))
+        b_loc = self._tile(_pad_to_shape(b, (kp, np_)))
+        c_loc = sm.execute_plan(a_loc, b_loc, plan)
+        del a_loc, b_loc
+        c = self.grid.all_gather(
+            self.grid.all_gather(c_loc, self.col_axis, dim=1),
+            self.row_axis, dim=0,
+        )
+        return c[:m, :n]
+
+    def _tile(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's (row, col) tile of a padded global operand, on the
+        grid's device."""
+        g = self.grid
+        p_row, p_col = g.shape[self.row_axis], g.shape[self.col_axis]
+        i, j = g.axis_index(self.row_axis), g.axis_index(self.col_axis)
+        r, c = x.shape[0] // p_row, x.shape[1] // p_col
+        return x[i * r:(i + 1) * r, j * c:(j + 1) * c].to(g.device).contiguous()
+
+    def contract(self, spec: str, x, y, **kwargs):
+        """Einsum-style block-sparse contraction (``repro.core.contract``)."""
+        raise NotImplementedError(
+            "contract is not ported yet (ROADMAP A6)"
+        )
+
+    def contract_chain(self, steps, **kwargs):
+        """Jointly scheduled chain of contractions."""
+        raise NotImplementedError(
+            "contract_chain is not ported yet (ROADMAP A6)"
+        )

@@ -1,0 +1,132 @@
+"""The kernel modules: plain versions and wrappers against the reference.
+
+On the CPU the wrappers in ``repro_torch.kernels.ops`` run each kernel's
+plain PyTorch version; they are held against the reference's
+``repro.kernels.ops`` run in interpret mode, on a trimmed sweep of
+``tests/test_kernels.py`` with its tolerances.  The CUDA kernels
+themselves run only on a card: the tests marked ``gpu`` compare them with
+their plain versions there (``tests/test_torch_kernels_gpu.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.sparsity import random_block_mask
+from repro.kernels import ops as ref_ops
+from repro_torch.kernels import ops
+from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain
+from repro_torch.kernels.tiled_matmul import tiled_matmul_cuda, tiled_matmul_plain
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tol(name):
+    return 2e-2 if name == "bfloat16" else 1e-4
+
+
+def _operands(shapes, name, seed):
+    """The same numpy draws as (jax, torch) arrays of one dtype."""
+    jdt, tdt = DTYPES[name]
+    rng = np.random.default_rng(seed)
+    out = []
+    for shape in shapes:
+        x = rng.normal(size=shape).astype(np.float32)
+        out.append((jnp.asarray(x, jdt), torch.from_numpy(x).to(tdt)))
+    return out
+
+
+def _close(got, want, name, k):
+    np.testing.assert_allclose(
+        got.float().numpy(), np.asarray(want, np.float32),
+        rtol=_tol(name), atol=_tol(name) * k ** 0.5,
+    )
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (96, 160, 224), (100, 60, 36)])
+def test_tiled_matmul_matches_reference(m, k, n, name):
+    (ja, ta), (jb, tb) = _operands([(m, k), (k, n)], name, seed=m + k + n)
+    got = ops.tiled_matmul(ta, tb, bm=64, bk=64, bn=64)
+    assert got.shape == (m, n) and got.dtype == ta.dtype
+    _close(got, ref_ops.tiled_matmul(ja, jb, bm=64, bk=64, bn=64), name, k)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("fill", [0.1, 1.0])
+@pytest.mark.parametrize("mb,kb", [(4, 8), (8, 4)])
+def test_bsmm_matches_reference(fill, mb, kb, name):
+    m, k, n = mb * 32, kb * 32, 96
+    (ja, ta), (jb, tb) = _operands([(m, k), (k, n)], name, seed=mb * kb)
+    mask = random_block_mask(mb, kb, fill, seed=int(fill * 10) + mb)
+    got = ops.bsmm(ta, tb, mask, bn=32)
+    assert got.shape == (m, n) and got.dtype == ta.dtype
+    _close(got, ref_ops.bsmm(ja, jb, mask, bn=32), name, k)
+
+
+def test_bsmm_empty_rows_give_zero():
+    mask = np.zeros((4, 4), dtype=bool)
+    mask[0, 0] = True  # only one live block
+    (ja, ta), (jb, tb) = _operands([(128, 128), (128, 64)], "float32", seed=3)
+    out = ops.bsmm(ta, tb, mask, bn=32)
+    assert torch.all(out[32:] == 0.0)
+    assert torch.any(out[:32] != 0.0)
+    _close(out, ref_ops.bsmm(ja, jb, mask, bn=32), "float32", 128)
+
+
+@pytest.mark.parametrize("dim", [1, 7, 8, 36, 60, 64, 100, 255, 256, 300, 1000])
+@pytest.mark.parametrize("pref", [64, 256])
+def test_pick_tile_matches_reference(dim, pref):
+    assert ops._pick_tile(dim, pref) == ref_ops._pick_tile(dim, pref)
+
+
+def test_plain_versions_on_views_and_sentinels():
+    """The plain versions take strided panel views, and the bsmm plain
+    version reads a column map the way the kernel does: up to the first
+    -1 of each row."""
+    rng = np.random.default_rng(1)
+    wide = torch.from_numpy(rng.normal(size=(40, 96)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(32, 24)).astype(np.float32))
+    panel = wide[:, 32:64]  # row stride 96, like a SUMMA A panel
+    np.testing.assert_allclose(
+        tiled_matmul_plain(panel, b).numpy(),
+        panel.numpy() @ b.numpy(), rtol=1e-5, atol=1e-5,
+    )
+    a = torch.from_numpy(rng.normal(size=(16, 32)).astype(np.float32))
+    cols = torch.tensor([[1, -1, 0], [-1, -1, -1]], dtype=torch.int32)
+    got = bsmm_plain(a, b, cols, bm=8, bk=16, bn=8)
+    want = a[:8, 16:].numpy() @ b[16:].numpy()
+    np.testing.assert_allclose(got[:8].numpy(), want, rtol=1e-5, atol=1e-5)
+    assert torch.all(got[8:] == 0)
+
+
+def test_wrappers_route_by_device():
+    x = torch.zeros((8, 8), device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.tiled_matmul(x, x)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.bsmm_cols(x, x, torch.zeros((1, 1), dtype=torch.int32),
+                      bm=8, bk=8, bn=8)
+    before = (tiled_matmul_cuda.launches, bsmm_cuda.launches)
+    ops.tiled_matmul(torch.ones(8, 8), torch.ones(8, 8))
+    ops.bsmm(torch.ones(8, 8), torch.ones(8, 8), np.ones((1, 1), bool))
+    # the CPU path never counts a kernel launch
+    assert (tiled_matmul_cuda.launches, bsmm_cuda.launches) == before
+
+
+def test_kernel_wrappers_reject_cpu_tensors():
+    a = torch.ones(8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tiled_matmul_cuda(a, a)
+    with pytest.raises(ValueError, match="CUDA"):
+        bsmm_cuda(a, a, torch.zeros((1, 1), dtype=torch.int32),
+                  bm=8, bk=8, bn=8)

@@ -1,0 +1,288 @@
+"""The slice as a whole: the port's ``DistributedMatmul`` against the
+reference's, in process on the 1x1 grid, and on a 2x2 grid of gloo
+processes against the float64 oracle.
+
+The operands come from ``conftest.oracle_case`` (numpy, seeded) and go
+to both packages; both sides are held to ``ORACLE_ATOL``/``ORACLE_RTOL``.
+"""
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import ORACLE_ATOL, ORACLE_RTOL, SRC, oracle_case
+from repro.core import DistributedMatmul as RefDistributedMatmul
+from repro.launch.mesh import make_host_mesh
+from repro_torch.core import DistributedMatmul, Grid, plan_matmul
+from repro_torch.core.sparsity import (
+    BlockRankMap,
+    random_block_mask,
+    synthesize_rank_csr,
+)
+from repro_torch.core.summa import (
+    SummaConfig,
+    _apply_block_mask,
+    execute_plan,
+    reference_blocksparse_matmul,
+    reference_matmul,
+)
+
+FAMILIES = ("dense", "random", "banded", "decay", "one_sided")
+STRATEGIES = ("procedural", "taskbased", "allgather")
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def reference_results():
+    """Memo of the reference's 1x1 results by (family, strategy, route)."""
+    return {}
+
+
+def _reference(memo, case, strategy, local_matmul):
+    key = (case["family"], strategy, local_matmul)
+    if key not in memo:
+        mm = RefDistributedMatmul(
+            make_host_mesh(1, 1), strategy=strategy, local_matmul=local_matmul
+        )
+        memo[key] = np.asarray(mm(
+            jnp.asarray(case["a"]), jnp.asarray(case["b"]),
+            a_mask=case["a_mask"], b_mask=case["b_mask"],
+        ))
+    return memo[key]
+
+
+@pytest.mark.parametrize("local_matmul", ["xla", "pallas"])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("family", FAMILIES)
+def test_distributed_matmul_matches_reference_1x1(
+    reference_results, family, strategy, local_matmul
+):
+    case = oracle_case(family, seed=7)
+    mm = DistributedMatmul(
+        Grid.local("cpu"), strategy=strategy, local_matmul=local_matmul
+    )
+    got = mm(case["a"], case["b"], a_mask=case["a_mask"],
+             b_mask=case["b_mask"])
+    assert got.shape == case["ref"].shape and got.dtype == torch.float32
+    assert got.device.type == "cpu"
+    plan = mm.plan(*case["shape"], a_mask=case["a_mask"],
+                   b_mask=case["b_mask"])
+    if family != "dense":
+        assert plan.local_impl == ("bsmm" if local_matmul == "pallas"
+                                   else "masked")
+    want = _reference(reference_results, case, strategy, local_matmul)
+    np.testing.assert_allclose(got.numpy(), want, atol=ORACLE_ATOL,
+                               rtol=ORACLE_RTOL)
+    np.testing.assert_allclose(got.numpy(), case["ref"], atol=ORACLE_ATOL,
+                               rtol=ORACLE_RTOL)
+
+
+@pytest.mark.parametrize("local_matmul", ["xla", "pallas"])
+def test_c_mask_filter_and_padding_match_reference(local_matmul):
+    """Output filter, norm screening and ragged shapes through both."""
+    rng = np.random.default_rng(3)
+    m, k, n = 60, 100, 44  # pads to the block and grid multiples
+    a = rng.normal(size=(m, k)).astype(np.float32)
+    b = rng.normal(size=(k, n)).astype(np.float32)
+    a_mask = random_block_mask(6, 10, 0.5, seed=1)
+    b_mask = random_block_mask(10, 4, 0.6, seed=2)
+    c_mask = np.ones((6, 4), bool)
+    c_mask[1, 2] = c_mask[4, 0] = False
+    kw = dict(a_mask=a_mask, b_mask=b_mask, c_mask=c_mask,
+              a_norms=rng.uniform(0.1, 1.0, (6, 10)) * a_mask,
+              b_norms=rng.uniform(0.1, 1.0, (10, 4)) * b_mask,
+              filter_eps=0.05)
+    port = DistributedMatmul(Grid.local("cpu"), local_matmul=local_matmul)
+    ref = RefDistributedMatmul(make_host_mesh(1, 1), local_matmul=local_matmul)
+    got = port(a, b, **kw).numpy()
+    want = np.asarray(ref(jnp.asarray(a), jnp.asarray(b), **kw))
+    np.testing.assert_allclose(got, want, atol=ORACLE_ATOL, rtol=ORACLE_RTOL)
+    assert np.all(got[10:20, 22:33] == 0) and np.all(got[40:50, :11] == 0)
+    dense = DistributedMatmul(Grid.local("cpu"), k_blocks=4,
+                              local_matmul=local_matmul)
+    np.testing.assert_allclose(
+        dense(a, b).numpy(), a.astype(np.float64) @ b, atol=ORACLE_ATOL,
+        rtol=ORACLE_RTOL,
+    )
+
+
+def test_plan_cache_and_bfloat16_operands():
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.normal(size=(32, 64)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(64, 16)).astype(np.float32))
+    mm = DistributedMatmul(Grid.local("cpu"), k_blocks=4,
+                           local_matmul="pallas")
+    mm(a, b)
+    mm(a, b)
+    assert mm.cache_stats()["plan"] == {"size": 1, "hits": 1, "misses": 1}
+    c = mm(a.bfloat16(), b.bfloat16())
+    assert c.dtype == torch.bfloat16  # a new plan: itemsize 2
+    assert mm.cache_stats()["plan"]["size"] == 2
+    want = reference_matmul(a.bfloat16(), b.bfloat16())
+    np.testing.assert_allclose(c.float().numpy(), want.float().numpy(),
+                               rtol=2e-2, atol=2e-2 * 64 ** 0.5)
+    mm.reset_cache_stats()
+    assert mm.cache_stats()["plan"]["hits"] == 0
+
+
+def test_reference_oracles_and_block_mask():
+    case = oracle_case("random", seed=2)
+    a, b = torch.from_numpy(case["a"]), torch.from_numpy(case["b"])
+    got = reference_blocksparse_matmul(a, b, case["a_mask"], case["b_mask"])
+    np.testing.assert_allclose(got.numpy(), case["ref"], atol=ORACLE_ATOL,
+                               rtol=ORACLE_RTOL)
+    x = torch.ones(6, 8)
+    mask = np.array([[True, False], [False, True]])
+    full = _apply_block_mask(x, mask)
+    assert full[:3, :4].all() and not full[:3, 4:].any()
+    # a tile at (3, 4) of a matrix blocked (3, 4): only block (1, 1)
+    tile = _apply_block_mask(torch.ones(3, 4), mask, (3, 4), origin=(3, 4))
+    assert tile.all()
+    with pytest.raises(ValueError):
+        _apply_block_mask(torch.ones(5, 8), mask)
+
+
+def test_unported_routes_raise():
+    mm = DistributedMatmul(Grid.local("cpu"))
+    a = np.ones((16, 16), np.float32)
+    mask = np.eye(2, dtype=bool)
+    with pytest.raises(NotImplementedError, match="A1"):
+        mm(a, a, tune=True)
+    with pytest.raises(NotImplementedError, match="A7"):
+        mm(a, a, a_mask=mask, b_mask=mask, comm_mode="pull")
+    with pytest.raises(NotImplementedError, match="A7"):
+        mm(a, a, a_mask=mask, b_mask=mask, stationarity="A")
+    rank_csr = synthesize_rank_csr(
+        BlockRankMap(ranks=np.ones((2, 2), np.int32), bm=8, bk=8), seed=0
+    )
+    with pytest.raises(NotImplementedError, match="A2"):
+        mm(None, a, a_ranks=rank_csr)
+    with pytest.raises(NotImplementedError, match="A2"):
+        mm.plan(16, 16, 16, a_ranks=rank_csr)
+    with pytest.raises(NotImplementedError, match="A6"):
+        mm.contract("ab,bc->ac", a, a)
+    # a dense-stored rank map plans rank-aware and runs the masked DAG
+    got = mm(a, a, a_ranks=BlockRankMap(
+        ranks=np.eye(2, dtype=np.int32) * 3, bm=8, bk=8))
+    np.testing.assert_allclose(got.numpy(), (a * np.kron(np.eye(2), np.ones((8, 8)))) @ a)
+
+
+def test_grid_geometry_and_local_collectives():
+    g = Grid.local("cpu")
+    assert g.shape == {"data": 1, "model": 1} and g.coords == (0, 0)
+    x = torch.arange(6.0).reshape(2, 3)
+    out, work = g.broadcast(x, 0, "model")
+    assert out is x and work is None
+    assert g.all_gather(x, "data", dim=0) is x
+    planning = Grid(sizes=(2, 4))
+    assert planning.shape == {"data": 2, "model": 4}
+    assert planning.axis_index("model") == 0
+    with pytest.raises(RuntimeError, match="process group"):
+        planning.broadcast(x, 1, "model")
+    with pytest.raises(ValueError, match="not a grid axis"):
+        planning.axis_index("pod")
+    assert planning.fingerprint() != Grid(sizes=(4, 2)).fingerprint()
+    with pytest.raises(RuntimeError, match="not initialised"):
+        Grid.from_process_group(1, 1, device="cpu")
+    # the grid sets the entry point's device: no silent CPU fallback
+    assert Grid.local().device.type == "cuda"
+    assert Grid().device.type == "cuda" and planning.device.type == "cuda"
+    cfg = SummaConfig(grid=Grid(sizes=(2, 2)))
+    plan = plan_matmul(8, 8, 8, cfg)
+    with pytest.raises(ValueError, match="tiles"):
+        execute_plan(torch.ones(8, 8), torch.ones(8, 8), plan)
+
+
+def test_grid_without_device_never_computes_on_the_cpu():
+    """A grid built without a device is on cuda: CPU operands are moved to
+    the card, and where there is none the move raises; the product never
+    runs on the CPU."""
+    mm = DistributedMatmul(Grid(), local_matmul="pallas")
+    a = torch.ones(8, 8)
+    if torch.cuda.is_available():
+        assert mm(a, a).device.type == "cuda"
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            mm(a, a)
+
+
+# ---------------------------------------------------------------------------
+# 2x2 grid of gloo processes
+# ---------------------------------------------------------------------------
+
+_RANK_PROGRAM = r"""
+import sys
+import numpy as np
+import torch
+import torch.distributed as dist
+from repro_torch.core import DistributedMatmul, Grid
+
+rank, rdv, data = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", init_method="file://" + rdv, rank=rank,
+                        world_size=4)
+grid = Grid.from_process_group(2, 2, device="cpu")
+case = np.load(data)
+masks = {name: case[name] for name in ("a_mask", "b_mask")
+         if name in case.files}
+out = {}
+for route, strategy in (("xla", "taskbased"), ("pallas", "taskbased"),
+                        ("xla", "procedural"), ("xla", "allgather")):
+    mm = DistributedMatmul(grid, strategy=strategy, k_blocks=8,
+                           local_matmul=route)
+    plan = mm.plan(64, 128, 96, **masks)
+    c = mm(case["a"], case["b"], **masks)
+    out[f"{route}-{strategy}"] = c.numpy()
+    out[f"{route}-{strategy}-impl"] = np.array(plan.local_impl)
+if rank == 0:
+    np.savez(data.replace("case", "out"), **out)
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("family", ["dense", "banded"])
+def test_2x2_gloo_grid_matches_oracle(tmp_path, family):
+    """Four gloo processes form the 2x2 grid: panel broadcasts along grid
+    rows and columns, the all-gather strategy, and the per-rank BSMM maps
+    (banded masks give each rank its own CSR map)."""
+    case = oracle_case(family, seed=7)
+    data = tmp_path / "case.npz"
+    masks = {} if case["a_mask"] is None else dict(
+        a_mask=case["a_mask"], b_mask=case["b_mask"])
+    np.savez(data, a=case["a"], b=case["b"], **masks)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", _RANK_PROGRAM, str(rank),
+             str(tmp_path / "rdv"), str(data)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True,
+        )
+        for rank in range(4)
+    ]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
+    out = np.load(tmp_path / "out.npz")
+    for key in ("xla-taskbased", "pallas-taskbased", "xla-procedural",
+                "xla-allgather"):
+        np.testing.assert_allclose(out[key], case["ref"], atol=ORACLE_ATOL,
+                                   rtol=ORACLE_RTOL, err_msg=key)
+    want_impl = "dense" if family == "dense" else "bsmm"
+    assert str(out["pallas-taskbased-impl"]) == want_impl
