@@ -12,7 +12,8 @@ checks every hand-written kernel against its plain PyTorch version.
 Phases, in order — any failure raises, so the script exits non-zero:
 
 1. device: the card's name and power limit; TF32 off;
-2. build: both CUDA kernels from the checkout's sources (nvcc, sm_90a);
+2. build: the three CUDA kernels from the checkout's sources (nvcc,
+   sm_90a), with ptxas' register and spill report;
 3. kernel vs plain version on the card, at the reference test shapes and
    at the shapes the main path gives each kernel, fp32 and bf16;
 4. main path, dense: 128 K panels through the ``tiled_matmul`` kernel,
@@ -21,8 +22,16 @@ Phases, in order — any failure raises, so the script exits non-zero:
    plan's CSR map, checked against ``reference_blocksparse_matmul`` and
    against ``torch.matmul`` of operands masked here, independently of the
    port's own masking;
-6. times of each kernel at the main path's shapes beside its plain
-   version, ``torch.matmul`` and the card's bound.
+6. main path, rank-sparse: A as low-rank block factors
+   (``make_rank_factors``: 2342 of 16384 blocks, ranks up to 64, r_pad
+   64), ``DistributedMatmul(None, b, a_ranks=rcsr)`` with stage 1 through
+   the ``grouped_gemm`` kernel once per chunk of block rows, checked
+   against ``torch.matmul`` of an A densified here from the factors;
+   then the same product on the ``local_matmul="xla"`` route (torch
+   products only), and a small case past the dense crossover (r_pad 136
+   > r* = 128) whose panels all go through ``tiled_matmul``;
+7. times of each kernel at the main path's shapes beside its plain
+   version, one library call and the card's bound.
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -47,14 +56,23 @@ from repro_torch.configs.paper_mm import (  # noqa: E402
     COMMODITY_BLOCK,
     COMMODITY_N,
     make_case,
+    make_rank_factors,
 )
 from repro_torch.core.sparsity import (  # noqa: E402
     block_csr_from_mask,
     random_block_mask,
 )
-from repro_torch.core.summa import reference_blocksparse_matmul  # noqa: E402
+from repro_torch.core.summa import (  # noqa: E402
+    RANK_CHUNK_BYTES,
+    rank_operands,
+    reference_blocksparse_matmul,
+)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain  # noqa: E402
+from repro_torch.kernels.grouped_gemm import (  # noqa: E402
+    grouped_gemm_cuda,
+    grouped_gemm_plain,
+)
 from repro_torch.kernels.tiled_matmul import (  # noqa: E402
     tiled_matmul_cuda,
     tiled_matmul_plain,
@@ -63,6 +81,8 @@ from repro_torch.kernels.tiled_matmul import (  # noqa: E402
 N, BLOCK = COMMODITY_N, COMMODITY_BLOCK
 K_PANELS = N // BLOCK  # 128 K panels of width 256
 SPARSE_FILL = 0.3
+MAX_RANK = 64  # the rank-sparse case: r_pad 64, below r* = 128
+FALLBACK_N, FALLBACK_RANK = 4096, 136  # r_pad 136 > r*: dense panels
 SEED = 0
 #: published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12
@@ -174,7 +194,7 @@ def phase_build() -> None:
             log("  " + line.strip())
 
 
-def phase_kernels(sparse_plan) -> dict:
+def phase_kernels(sparse_plan, rank_plan, r_pad) -> dict:
     """Each kernel against its plain version; returns the main-shape fp32
     errors by kernel name."""
     log("[3 kernels vs plain versions]")
@@ -231,7 +251,58 @@ def phase_kernels(sparse_plan) -> dict:
             errs["bsmm"] = err
         del a_g, b_g, got
         torch.cuda.empty_cache()
+
+        # the reference's shapes, tiles of 8 and 24 rows, a ragged F
+        for t, d, f, e, bt in ((256, 64, 96, 4, 64), (512, 128, 64, 8, 128),
+                               (64, 32, 40, 3, 8), (72, 48, 100, 5, 24)):
+            x, w = randn((t, d), dtype, gen), randn((e, d, f), dtype, gen)
+            te = torch.randint(0, e, (t // bt,), generator=gen,
+                               device=DEVICE, dtype=torch.int32)
+            got = grouped_gemm_cuda(x, w, te, bt=bt)
+            torch.cuda.synchronize()
+            compare(got, grouped_gemm_plain(x, w, te, bt=bt), d, dtype,
+                    f"grouped_gemm {dtype} T={t} D={d} F={f} E={e} bt={bt}")
+        # one launch of the main path: a chunk of block rows' V tokens,
+        # B's K-panels read in place as the experts
+        x, w, te = _grouped_operands(rank_plan, r_pad, dtype, gen)
+        got = grouped_gemm_cuda(x, w, te, bt=r_pad)
+        torch.cuda.synchronize()
+        err = compare(got, grouped_gemm_plain(x, w, te, bt=r_pad),
+                      x.shape[1], dtype,
+                      f"grouped_gemm {dtype} main T={x.shape[0]} "
+                      f"D={x.shape[1]} F={w.shape[2]} E={w.shape[0]} "
+                      f"bt={r_pad}")
+        if dtype == torch.float32:
+            errs["grouped_gemm"] = err
+        del x, w, te, got
+        torch.cuda.empty_cache()
     return errs
+
+
+def _rank_chunks(plan, r_pad) -> tuple[int, int]:
+    """(block rows per chunk, chunks) of the grouped rank route for
+    ``plan`` on the 1x1 grid, from the byte budget the executor states."""
+    live = len(plan.live_panels)
+    mb = plan.a_ranks.shape[0]
+    per_row = live * r_pad * plan.n_pad * 4
+    rows = max(1, min(mb, RANK_CHUNK_BYTES // per_row))
+    return rows, -(-mb // rows)
+
+
+def _grouped_operands(plan, r_pad, dtype, gen, b=None):
+    """Operands of one main-path ``grouped_gemm`` launch: V tokens of one
+    chunk of block rows ordered (block row, panel, rank), the experts
+    B (k_pad, n_pad) viewed (K panels, bk, n) and their tile map."""
+    rows, _ = _rank_chunks(plan, r_pad)
+    live = len(plan.live_panels)
+    bk = plan.kb_width
+    x = randn((rows * live * r_pad, bk), dtype, gen)
+    if b is None:
+        b = randn((plan.k_pad, plan.n_pad), dtype, gen)
+    w = b.view(plan.k_steps, bk, plan.n_pad)
+    te = torch.as_tensor(np.tile(np.asarray(plan.live_panels, np.int32), rows),
+                         device=DEVICE)
+    return x, w, te
 
 
 def _cols(mask: np.ndarray) -> torch.Tensor:
@@ -253,7 +324,8 @@ def _bsmm_operands(plan, dtype, gen):
 def run_path(mm, a, b, kernel_of_path, **masks):
     """One product through ``mm`` with every launch count set to 0 just
     before and read just after; returns (C, wall seconds, counts)."""
-    counters = {"tiled_matmul": tiled_matmul_cuda, "bsmm": bsmm_cuda}
+    counters = {"tiled_matmul": tiled_matmul_cuda, "bsmm": bsmm_cuda,
+                "grouped_gemm": grouped_gemm_cuda}
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -263,7 +335,7 @@ def run_path(mm, a, b, kernel_of_path, **masks):
     wall = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in counters.items()}
     log(f"  launches {counts}; wall {wall:.3f} s")
-    if counts[kernel_of_path] == 0:
+    if kernel_of_path is not None and counts[kernel_of_path] == 0:
         raise AssertionError(f"the path never launched {kernel_of_path}")
     return c, wall, counts
 
@@ -306,9 +378,92 @@ def phase_sparse(mm, a, b, a_mask, b_mask) -> tuple[int, float]:
     return counts["bsmm"], wall
 
 
-def phase_times(a, b, sparse_plan) -> dict:
-    """Each kernel at the main path's shapes, on the main path's data."""
-    log("[6 times] CUDA events, mean over repeated launches after a warm-up")
+def densify_here(rcsr) -> torch.Tensor:
+    """The dense A of a ``RankCSR``, built on the card from its factors:
+    every stored block's ``u[s] @ v[s]`` written at (block row, column)
+    of the CSR, sharing no code with the port's ``to_dense`` or
+    ``rank_operands``."""
+    csr = rcsr.csr
+    bm, bk = rcsr.bm, rcsr.bk
+    blocks = torch.bmm(torch.as_tensor(rcsr.u, device=DEVICE),
+                       torch.as_tensor(rcsr.v, device=DEVICE))
+    rows = np.repeat(np.arange(csr.m_blocks), np.diff(csr.row_ptr))
+    a = torch.zeros((csr.m_blocks * bm, csr.n_blocks * bk), device=DEVICE)
+    a4 = a.view(csr.m_blocks, bm, csr.n_blocks, bk)
+    a4[torch.as_tensor(rows, device=DEVICE), :,
+       torch.as_tensor(csr.col_idx, device=DEVICE, dtype=torch.int64), :] = (
+        blocks)
+    return a
+
+
+def phase_rank(rcsr, b) -> dict:
+    """The rank-sparse product on the grouped (main) and xla routes."""
+    out = {}
+    for route in ("pallas", "xla"):
+        mm = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                               k_blocks=K_PANELS, local_matmul=route)
+        plan = mm.plan(N, N, N, a_ranks=rcsr)
+        rows, chunks = _rank_chunks(plan, rcsr.r_pad)
+        log(f"[6 main path, rank-sparse, local_matmul={route}] local_impl="
+            f"{plan.local_impl}, nnz {rcsr.nnz}/{(N // BLOCK) ** 2} blocks, "
+            f"mean rank {rcsr.rank_map().mean_rank:.2f}, r_pad {rcsr.r_pad}, "
+            f"live panels {len(plan.live_panels)}, useful FLOPs "
+            f"{plan.cost.flops_sparse:.4g} (dense {plan.cost.flops_dense:.4g})"
+            + (f", {chunks} chunks of {rows} block rows" if route == "pallas"
+               else ""))
+        if plan.local_impl != "ranksparse":
+            raise AssertionError(f"local_impl={plan.local_impl!r}")
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        c, wall, counts = run_path(
+            mm, None, b, "grouped_gemm" if route == "pallas" else None,
+            a_ranks=rcsr,
+        )
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  peak device memory {peak / 2**30:.2f} GiB "
+            f"({resident / 2**30:.2f} GiB resident before the call)")
+        want_grouped = chunks if route == "pallas" else 0
+        if counts["grouped_gemm"] != want_grouped or counts["tiled_matmul"]:
+            raise AssertionError(
+                f"expected {want_grouped} grouped_gemm and 0 tiled_matmul "
+                f"launches, got {counts}")
+        if c.shape != (N, N) or c.dtype != torch.float32:
+            raise AssertionError(f"rank C is {tuple(c.shape)} {c.dtype}")
+        want = torch.matmul(densify_here(rcsr), b)
+        compare(c, want, N, torch.float32,
+                "rank-sparse C vs torch.matmul of A densified from factors")
+        del c, want
+        out[route] = dict(wall=wall, peak=peak, resident=resident,
+                          launches=counts["grouped_gemm"])
+    return out
+
+
+def phase_rank_fallback() -> None:
+    """Ranks past the crossover: every panel densified, tiled_matmul only."""
+    rcsr = make_rank_factors(FALLBACK_N, BLOCK, FALLBACK_RANK, seed=SEED)
+    mm = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                           k_blocks=FALLBACK_N // BLOCK, local_matmul="pallas")
+    plan = mm.plan(FALLBACK_N, FALLBACK_N, FALLBACK_N, a_ranks=rcsr)
+    live = len(plan.live_panels)
+    log(f"[6 rank-sparse past the crossover] N={FALLBACK_N}, r_pad "
+        f"{rcsr.r_pad} > r* = {BLOCK // 2}, live panels {live}")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    b = randn((FALLBACK_N, FALLBACK_N), torch.float32, gen)
+    c, _, counts = run_path(mm, None, b, "tiled_matmul", a_ranks=rcsr)
+    if counts["tiled_matmul"] != live or counts["grouped_gemm"]:
+        raise AssertionError(
+            f"expected {live} tiled_matmul and 0 grouped_gemm launches, got "
+            f"{counts}")
+    compare(c, torch.matmul(densify_here(rcsr), b), FALLBACK_N,
+            torch.float32, "fallback C vs torch.matmul of A densified here")
+
+
+def phase_times(a, b, sparse_plan, rank_plan, r_pad) -> dict:
+    """Each kernel at the main path's shapes, on the main path's data (the
+    rank case's B is make_case's A)."""
+    b_rank = a
+    log("[7 times] CUDA events, mean over repeated launches after a warm-up")
     out = {}
     a_panel, b_panel = a[:, :BLOCK], b[:BLOCK, :]
     flops = 2.0 * N * BLOCK * N
@@ -348,7 +503,39 @@ def phase_times(a, b, sparse_plan) -> dict:
         f"kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
         f"{plain_ms:.3f} ms, torch.matmul (dense, masked operands) "
         f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({by})")
+    del a_g, b_g
+    torch.cuda.empty_cache()
+    out["grouped_gemm"] = _time_grouped(rank_plan, r_pad, b_rank)
     return out
+
+
+def _time_grouped(plan, r_pad, b) -> dict:
+    """One main-path launch of ``grouped_gemm``: a chunk's V tokens against
+    the rank case's B panels; the library call is one ``torch.bmm`` over
+    the same work grouped by expert (every live panel has one tile per
+    block row of the chunk)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    x, w, te = _grouped_operands(plan, r_pad, torch.float32, gen, b=b)
+    bt = r_pad
+    t, d = x.shape
+    e, _, f = w.shape
+    live = len(plan.live_panels)
+    flops = 2.0 * t * d * f
+    nbytes = 4.0 * (t * d + live * d * f + t * f) + te.numel() * 4
+    ms = cuda_ms(lambda: grouped_gemm_cuda(x, w, te, bt=bt), 5)
+    plain_ms = cuda_ms(lambda: grouped_gemm_plain(x, w, te, bt=bt), 3)
+    rows = t // (live * bt)
+    x_by_expert = (x.view(rows, live, bt, d).transpose(0, 1)
+                   .reshape(live, rows * bt, d))
+    w_live = w[torch.as_tensor(plan.live_panels, device=DEVICE)]
+    lib_ms = cuda_ms(lambda: torch.bmm(x_by_expert, w_live), 5)
+    bound_ms, by = bound(flops, nbytes)
+    log(f"  grouped_gemm T={t} D={d} F={f} experts {live} bt={bt} fp32: "
+        f"kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+        f"{plain_ms:.3f} ms, torch.bmm (grouped by expert) {lib_ms:.3f} ms, "
+        f"bound {bound_ms:.3f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=by, flops=flops)
 
 
 def main() -> None:
@@ -357,14 +544,24 @@ def main() -> None:
     t0 = time.perf_counter()
     # make_case's operands do not depend on the fill: one call gives the
     # dense instance (fill 1.0 masks are all-live and unused) and the masks
-    # of the block-sparse one
+    # of the block-sparse one; its A is also make_rank_case's B
     a_h, b_h, a_mask, b_mask = make_case(N, BLOCK, SPARSE_FILL, seed=SEED)
     log(f"[data] make_case({N}, {BLOCK}, fill={SPARSE_FILL}, seed={SEED}) "
         f"on the host: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rcsr = make_rank_factors(N, BLOCK, MAX_RANK, seed=SEED)
     mm = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
                            k_blocks=K_PANELS, local_matmul="pallas")
     sparse_plan = mm.plan(N, N, N, a_mask=a_mask, b_mask=b_mask)
-    errs = phase_kernels(sparse_plan)
+    rank_plan = mm.plan(N, N, N, a_ranks=rcsr)
+    log(f"[data] make_rank_factors({N}, {BLOCK}, {MAX_RANK}, seed={SEED}) "
+        f"on the host: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rank_operands(rcsr, rank_plan)  # the factor layout, memoized on rcsr
+    layout_s = time.perf_counter() - t0
+    log(f"[data] the factors' layout on the host (rank_operands, memoized on "
+        f"rcsr; a caller's first product pays it): {layout_s:.3f} s")
+    errs = phase_kernels(sparse_plan, rank_plan, rcsr.r_pad)
     torch.cuda.reset_peak_memory_stats()
     a = torch.from_numpy(a_h).to(DEVICE)
     b = torch.from_numpy(b_h).to(DEVICE)
@@ -374,15 +571,27 @@ def main() -> None:
     sparse_launches, sparse_wall = phase_sparse(mm, a, b, a_mask, b_mask)
     torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated()
-    times = phase_times(a, b, sparse_plan)
+    rank = phase_rank(rcsr, a)
+    phase_rank_fallback()
+    torch.cuda.empty_cache()
+    times = phase_times(a, b, sparse_plan, rank_plan, rcsr.r_pad)
     log(f"  whole products (host clock, ending in synchronize): dense "
         f"{dense_wall:.3f} s, block-sparse {sparse_wall:.3f} s; peak device "
         f"memory over the two products {peak / 2**30:.2f} GiB")
-    launches = {"tiled_matmul": dense_launches, "bsmm": sparse_launches}
+    log(f"  rank-sparse product, factor layout already cached: grouped "
+        f"route {rank['pallas']['wall']:.3f} s "
+        f"(peak {rank['pallas']['peak'] / 2**30:.2f} GiB), xla route "
+        f"{rank['xla']['wall']:.3f} s "
+        f"(peak {rank['xla']['peak'] / 2**30:.2f} GiB); a first product "
+        f"adds the layout's {layout_s:.3f} s")
+    launches = {"tiled_matmul": dense_launches, "bsmm": sparse_launches,
+                "grouped_gemm": rank["pallas"]["launches"]}
     sources = {"tiled_matmul": ("src/repro_torch/csrc/tiled_matmul.cu",
                                 "src/repro/kernels/tiled_matmul.py:32"),
                "bsmm": ("src/repro_torch/csrc/bsmm.cu",
-                        "src/repro/kernels/bsmm.py:30")}
+                        "src/repro/kernels/bsmm.py:30"),
+               "grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
+                                "src/repro/kernels/grouped_gemm.py:28")}
     kernels = []
     for name, (source, replaces) in sources.items():
         t = times[name]

@@ -6,9 +6,10 @@ scaling used N=32768 with block size 256 (uniform) and average 256
 (nonuniform).  Copied from ``repro.configs.paper_mm``.
 
 The system multiplies data rather than running a model, so it has no
-weights: :func:`make_case` stands in for them.  It builds the operands and
-block masks of one product from a seed with numpy, so the tests can hand
-the same arrays to the JAX package and to this one.
+weights: :func:`make_case` and :func:`make_rank_case` stand in for them.
+They build the operands and block structure of one product from a seed
+with numpy, so the tests can hand the same arrays to the JAX package and
+to this one.
 """
 from __future__ import annotations
 
@@ -16,7 +17,12 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.core.sparsity import random_block_mask
+from repro_torch.core.sparsity import (
+    RankCSR,
+    decay_rank_map,
+    random_block_mask,
+    synthesize_rank_csr,
+)
 
 __all__ = [
     "PAPER_MATRIX_SIZES",
@@ -24,6 +30,8 @@ __all__ = [
     "COMMODITY_BLOCK",
     "MMConfig",
     "make_case",
+    "make_rank_factors",
+    "make_rank_case",
 ]
 
 PAPER_MATRIX_SIZES = (32_768, 65_536, 98_304, 256_000)
@@ -64,3 +72,40 @@ def make_case(
     a_mask = random_block_mask(nb, nb, fill, seed=seed + 1)
     b_mask = random_block_mask(nb, nb, fill, seed=seed + 2)
     return a, b, a_mask, b_mask
+
+
+def make_rank_factors(
+    n: int, block: int, max_rank: int, seed: int = 0
+) -> RankCSR:
+    """A square ``n x n`` block-rank-sparse A stored as its factors.
+
+    Block ranks decay away from the diagonal,
+    ``decay_rank_map(n/block, n/block, block, block, max_rank=max_rank,
+    decay=0.5, threshold=1e-2)`` (blocks below the threshold are absent),
+    and ``synthesize_rank_csr(..., seed=seed)`` draws factors of exactly
+    those ranks.  At the paper's commodity size (n = 32768, block 256,
+    max_rank 64) 2342 of 16384 blocks are present, of mean rank 14.4.
+    """
+    if n % block:
+        raise ValueError(f"n={n} is not a multiple of block={block}")
+    nb = n // block
+    rank_map = decay_rank_map(
+        nb, nb, block, block, max_rank=max_rank, decay=0.5, threshold=1e-2
+    )
+    return synthesize_rank_csr(rank_map, seed=seed)
+
+
+def make_rank_case(
+    n: int, block: int, max_rank: int, seed: int = 0
+) -> tuple[RankCSR, np.ndarray]:
+    """Operands of one rank-sparse product: ``(a_ranks, b)``.
+
+    ``a_ranks`` is :func:`make_rank_factors`; ``b`` is a float32
+    standard-normal ``n x n`` matrix, the first draw of
+    ``np.random.default_rng(seed)`` — the same array as :func:`make_case`'s
+    A for that seed, so a caller that holds those operands can reuse it
+    instead of drawing it again.
+    """
+    a_ranks = make_rank_factors(n, block, max_rank, seed)
+    b = np.random.default_rng(seed).standard_normal((n, n), dtype=np.float32)
+    return a_ranks, b

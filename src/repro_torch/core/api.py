@@ -7,9 +7,13 @@ every call — dense, block-sparse, one-sided mask — resolves to one cached
 front-end pads the global operands to the plan's shapes, cuts this
 rank's tiles, runs the plan, gathers C over the grid and crops it.
 
-The port of ``repro.core.api``.  ``NonuniformMatmul`` (ROADMAP A5), the
-rank-sparse factor route (A2), ``contract``/``contract_chain`` (A6) and
-the schedule tuner behind ``tune=True`` (A1) are not ported yet.
+A ``RankCSR`` in ``a_ranks`` with ``a=None`` is the rank-sparse factor
+route: A is multiplied as its block factors U·V (``core.summa.
+execute_rank_plan``).
+
+The port of ``repro.core.api``.  ``NonuniformMatmul`` (ROADMAP A5),
+``contract``/``contract_chain`` (A6) and the schedule tuner behind
+``tune=True`` (A1) are not ported yet.
 """
 from __future__ import annotations
 
@@ -22,7 +26,12 @@ import torch.nn.functional as F
 from repro_torch.core import summa as sm
 from repro_torch.core.grid import Grid
 from repro_torch.core.plan import MatmulPlan, mask_key, plan_matmul, rank_key
-from repro_torch.core.sparsity import BlockRankMap, RankCSR, norms_key
+from repro_torch.core.sparsity import (
+    BlockRankMap,
+    RankCSR,
+    norms_key,
+    rank_csr_norms,
+)
 
 __all__ = ["DistributedMatmul", "pad_to_multiple"]
 
@@ -55,6 +64,7 @@ class DistributedMatmul:
         c = mm(a, b)                       # dense
         c = mm(a, b, a_mask=am, b_mask=bm) # block-sparse
         c = mm(a, b, b_mask=bm)            # one-sided block structure
+        c = mm(None, b, a_ranks=rcsr)      # A as low-rank block factors
 
     Operands are global (M, K) / (K, N) tensors or numpy arrays on any
     device; each rank moves its own tiles to ``grid.device`` and every
@@ -100,8 +110,8 @@ class DistributedMatmul:
         *,
         a_mask: np.ndarray | None = None,
         b_mask: np.ndarray | None = None,
-        a_ranks: BlockRankMap | None = None,
-        b_ranks: BlockRankMap | None = None,
+        a_ranks: BlockRankMap | RankCSR | None = None,
+        b_ranks: BlockRankMap | RankCSR | None = None,
         c_mask: np.ndarray | None = None,
         strategy: str | None = None,
         itemsize: int = 4,
@@ -117,23 +127,21 @@ class DistributedMatmul:
         """The (cached) execution plan for a (M, K) x (K, N) product.
 
         Takes the reference's planning inputs (see ``core.plan.
-        plan_matmul``).  A ``BlockRankMap`` in ``a_ranks``/``b_ranks``
-        refines the cost model only; a ``RankCSR`` factor payload and
-        ``tune=True`` raise ``NotImplementedError``.
+        plan_matmul``).  A ``RankCSR`` in ``a_ranks`` plans the factor
+        route (``local_impl="ranksparse"`` where the grid allows); a
+        ``BlockRankMap`` refines the cost model of a dense-stored A only.
+        The two are keyed apart, so one structure given both ways gets two
+        plans.  ``tune=True`` raises ``NotImplementedError``.
         """
         if tune:
             raise NotImplementedError(
                 "tune=True needs the schedule tuner (repro.sched), which is "
                 "not ported yet (ROADMAP A1)"
             )
-        if isinstance(a_ranks, RankCSR) or isinstance(b_ranks, RankCSR):
-            raise NotImplementedError(
-                "RankCSR factor payloads: the rank-sparse route is not "
-                "ported yet (ROADMAP A2)"
-            )
+        rank_payload = isinstance(a_ranks, RankCSR)
         key = (
             m, k, n, mask_key(a_mask), mask_key(b_mask), rank_key(a_ranks),
-            strategy or self.strategy, itemsize, lookahead,
+            rank_payload, strategy or self.strategy, itemsize, lookahead,
             rank_key(b_ranks), mask_key(c_mask), comm_mode, stationarity,
         )
         if k_blocks is not None:
@@ -150,8 +158,11 @@ class DistributedMatmul:
                 cfg = dataclasses.replace(cfg, k_blocks=int(k_blocks))
             plan = plan_matmul(
                 m, k, n, cfg,
-                a_mask=a_mask, b_mask=b_mask, a_ranks=a_ranks,
-                b_ranks=b_ranks, c_mask=c_mask, rank_payload=False,
+                a_mask=a_mask, b_mask=b_mask,
+                a_ranks=a_ranks.rank_map() if rank_payload else a_ranks,
+                b_ranks=(b_ranks.rank_map() if isinstance(b_ranks, RankCSR)
+                         else b_ranks),
+                c_mask=c_mask, rank_payload=rank_payload,
                 comm_mode=comm_mode, stationarity=stationarity,
                 itemsize=itemsize, a_norms=a_norms, b_norms=b_norms,
                 filter_eps=filter_eps,
@@ -189,8 +200,8 @@ class DistributedMatmul:
         *,
         a_mask: np.ndarray | None = None,
         b_mask: np.ndarray | None = None,
-        a_ranks: BlockRankMap | None = None,
-        b_ranks: BlockRankMap | None = None,
+        a_ranks: BlockRankMap | RankCSR | None = None,
+        b_ranks: BlockRankMap | RankCSR | None = None,
         c_mask: np.ndarray | None = None,
         strategy: str | None = None,
         tune: bool = False,
@@ -204,12 +215,33 @@ class DistributedMatmul:
         """C = A @ B, on ``grid.device``.  ``a_mask``/``b_mask`` give block
         structure, ``c_mask`` filters the output block grid, and
         ``a_norms``/``b_norms`` with ``filter_eps > 0`` screen small
-        products, all as in the reference.  ``a`` must be dense-stored."""
-        if a is None:
-            raise NotImplementedError(
-                "a=None takes a RankCSR factor payload: the rank-sparse "
-                "route is not ported yet (ROADMAP A2)"
+        products, all as in the reference.  ``a_ranks`` plans A
+        block-rank-sparse:
+
+        * a ``RankCSR`` is the A operand itself — pass ``a=None`` — and
+          execution multiplies its factors (``_call_ranksparse``);
+        * a ``BlockRankMap`` refines the plan only: ``a`` is dense-stored
+          and runs the masked DAG over the ``rank > 0`` mask.
+        """
+        if a_mask is not None and a_ranks is not None:
+            raise ValueError("pass either a_mask or a_ranks for A, not both")
+        if isinstance(a_ranks, RankCSR):
+            if a is not None:
+                # the factors may be a lossy truncation of a dense twin:
+                # make the caller choose one representation
+                raise ValueError(
+                    "pass a=None when a_ranks is a RankCSR: the "
+                    "factorization is the A operand (use "
+                    "RankCSR.to_dense() if you meant the dense product)"
+                )
+            return self._call_ranksparse(
+                a_ranks, b, b_mask=b_mask, b_ranks=b_ranks, c_mask=c_mask,
+                strategy=strategy, tune=tune, lookahead=lookahead,
+                comm_mode=comm_mode, stationarity=stationarity,
+                a_norms=a_norms, b_norms=b_norms, filter_eps=filter_eps,
             )
+        if a is None:
+            raise ValueError("a=None requires a_ranks to be a RankCSR")
         a, b = torch.as_tensor(a), torch.as_tensor(b)
         m, k = a.shape
         k2, n = b.shape
@@ -229,11 +261,67 @@ class DistributedMatmul:
         b_loc = self._tile(_pad_to_shape(b, (kp, np_)))
         c_loc = sm.execute_plan(a_loc, b_loc, plan)
         del a_loc, b_loc
-        c = self.grid.all_gather(
+        return self._gather(c_loc)[:m, :n]
+
+    def _call_ranksparse(
+        self,
+        a_ranks: RankCSR,
+        b,
+        *,
+        b_mask: np.ndarray | None = None,
+        b_ranks: BlockRankMap | RankCSR | None = None,
+        c_mask: np.ndarray | None = None,
+        strategy: str | None = None,
+        tune: bool = False,
+        lookahead: int | None = None,
+        comm_mode: str = "broadcast",
+        stationarity: str = "C",
+        a_norms: np.ndarray | None = None,
+        b_norms: np.ndarray | None = None,
+        filter_eps: float = 0.0,
+    ) -> torch.Tensor:
+        b = torch.as_tensor(b)
+        m, k = a_ranks.shape
+        k2, n = b.shape
+        if k != k2:
+            raise ValueError(
+                f"contraction mismatch {a_ranks.shape} @ {tuple(b.shape)}"
+            )
+        if filter_eps > 0.0 and a_norms is None:
+            # the factor payload carries its own norms, exact from U and V
+            a_norms = rank_csr_norms(a_ranks)
+        plan = self.plan(
+            m, k, n, b_mask=b_mask, b_ranks=b_ranks, c_mask=c_mask,
+            a_ranks=a_ranks, strategy=strategy,
+            itemsize=b.element_size(), tune=tune, lookahead=lookahead,
+            comm_mode=comm_mode, stationarity=stationarity,
+            a_norms=a_norms, b_norms=b_norms, filter_eps=filter_eps,
+        )
+        (mp, kp), (_, np_) = plan.padded_shapes
+        b_loc = self._tile(_pad_to_shape(b, (kp, np_)))
+        if plan.local_impl != "ranksparse":
+            # the factor layout does not fit this grid: densify and run the
+            # planned masked DAG (mask-level pruning only); B is promoted
+            # to the factors' type, as JAX promotes the mixed product
+            a = torch.from_numpy(a_ranks.to_dense())
+            b_loc = b_loc.to(torch.promote_types(a.dtype, b_loc.dtype))
+            a_loc = self._tile(_pad_to_shape(a, (mp, kp)))
+            c_loc = sm.execute_plan(a_loc, b_loc, plan)
+        else:
+            u_all, v_all = sm.rank_operands(a_ranks, plan)
+            c_loc = sm.execute_rank_plan(
+                self._tile(torch.from_numpy(u_all)),
+                self._tile(torch.from_numpy(v_all)), b_loc, plan,
+            )
+        del b_loc
+        return self._gather(c_loc)[:m, :n]
+
+    def _gather(self, c_loc: torch.Tensor) -> torch.Tensor:
+        """The whole C from every rank's tile, on every rank."""
+        return self.grid.all_gather(
             self.grid.all_gather(c_loc, self.col_axis, dim=1),
             self.row_axis, dim=0,
         )
-        return c[:m, :n]
 
     def _tile(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's (row, col) tile of a padded global operand, on the

@@ -32,10 +32,29 @@ cut into ``p_row x p_col`` tiles; rank ``(i, j)`` holds tile ``(i, j)``
 of each.  The K dimension is split into ``k_blocks`` panels, each inside
 one rank's shard.
 
+The rank-sparse factor route (``execute_rank_plan``) multiplies A given
+as low-rank block factors U·V (``core.sparsity.RankCSR`` laid out by
+``rank_operands``):
+
+* ``_exec_ranksparse`` — ``local_matmul="xla"``: per live panel a
+  width-``r_k`` U panel and V rows are broadcast, with the reference's two
+  per-panel fallbacks to a dense panel; the factored panels resolve as
+  ``U·(V·B)`` in batched products.
+* ``_exec_ranksparse_grouped`` — ``local_matmul="pallas"``: stage 1,
+  every block's ``V·B_panel``, runs through the grouped-GEMM CUDA kernel
+  (kernels/grouped_gemm.py); stage 2 applies U in one batched product.
+* ``_exec_ranksparse_pull`` — ``comm_mode="pull"``: the factors are
+  all-gathered and read per panel; arithmetic identical to
+  ``_exec_ranksparse``, so the two agree bitwise.
+
+Both factored stages run over chunks of local block rows whose stage-1
+output stays within ``RANK_CHUNK_BYTES``: at the paper's size the whole
+stage-1 output of one card would be 128 GiB.
+
 Routes of the reference not ported yet raise ``NotImplementedError``
 naming their ROADMAP item: A-/B-stationary schedules and the one-sided
-pull route (A7), the rank-sparse factor route (A2), ``summa_25d_matmul``
-and the digest-keyed executable cache (A3).
+pull route of mask plans (A7), ``summa_25d_matmul`` and the digest-keyed
+executable cache (A3).
 """
 from __future__ import annotations
 
@@ -55,7 +74,10 @@ __all__ = [
     "resolve_multi_issue",
     "reference_matmul",
     "reference_blocksparse_matmul",
+    "reference_ranksparse_matmul",
     "execute_plan",
+    "rank_operands",
+    "execute_rank_plan",
 ]
 
 Strategy = Literal["procedural", "taskbased", "allgather"]
@@ -169,6 +191,23 @@ def reference_blocksparse_matmul(
         _apply_block_mask(a, a_mask), _apply_block_mask(b, b_mask),
         accum_dtype,
     )
+
+
+def reference_ranksparse_matmul(
+    a_ranks,
+    b: torch.Tensor,
+    b_mask: np.ndarray | None = None,
+    accum_dtype=torch.float32,
+) -> torch.Tensor:
+    """Oracle for rank-sparse matmul: densify the ``RankCSR``, then matmul
+    (optionally with B's block mask applied)."""
+    a = torch.as_tensor(a_ranks.to_dense(), device=b.device).to(b.dtype)
+    if b_mask is not None:
+        mb, kb = a_ranks.rank_map().ranks.shape
+        return reference_blocksparse_matmul(
+            a, b, np.ones((mb, kb), dtype=bool), b_mask, accum_dtype
+        )
+    return reference_matmul(a, b, accum_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -327,7 +366,9 @@ def _exec_sparse_bsmm(a_loc, b_loc, cols_loc, plan):
 
     Gathers the globally-live panels (same broadcast traffic as the DAG
     executor), then runs ONE kernel over the gathered operands with this
-    rank's CSR column map: blocks dead for this grid row/column are never
+    rank's CSR column map (the planner's numpy ``plan.local_cols`` entry,
+    checked on the host by ``bsmm_cols``): blocks dead for this grid
+    row/column are never
     loaded nor multiplied, so local FLOPs follow the per-device fill-in
     the planner computed.
     """
@@ -342,6 +383,293 @@ def _exec_sparse_bsmm(a_loc, b_loc, cols_loc, plan):
     return bsmm_cols(
         a_g, b_g, cols_loc, bm=bm, bk=bk, bn=bn, out_dtype=cfg.accum_dtype
     )
+
+
+# ---------------------------------------------------------------------------
+# Rank-sparse executors (A given as block factors U·V)
+# ---------------------------------------------------------------------------
+
+#: bytes of stage-1 output (V·B rows) one chunk of local block rows may
+#: hold.  At the paper's size (N = 32768, 128 live panels of r_pad 64) one
+#: block row's stage-1 output is 1 GiB, so a chunk takes 8 block rows.
+RANK_CHUNK_BYTES = 8 << 30
+
+
+def _rank_row_chunk(mb_loc: int, bytes_per_row: int) -> int:
+    """Local block rows per chunk of the factored stages."""
+    return max(1, min(mb_loc, RANK_CHUNK_BYTES // max(bytes_per_row, 1)))
+
+
+def _rank_panel_widths(plan) -> dict[int, int]:
+    """Static per-live-panel factor width: the max block rank in that
+    panel's (padded) column of the rank grid (>= 1 on live panels)."""
+    return {
+        kk: max(int(plan.a_ranks[:, kk].max()), 1)
+        for kk in plan.live_panels
+    }
+
+
+def _densify(u3: torch.Tensor, v3: torch.Tensor, cfg) -> torch.Tensor:
+    """The dense ``(mb·bm, bk)`` A panel of block factors ``u3`` (mb, bm, r)
+    and ``v3`` (mb, r, bk), in ``accum_dtype``, cast to ``u3``'s dtype.
+    Both factors are made contiguous first, so every route that densifies
+    the same values gets the same bits."""
+    a = torch.bmm(u3.contiguous().to(cfg.accum_dtype),
+                  v3.contiguous().to(cfg.accum_dtype))
+    return a.reshape(-1, v3.shape[2]).to(u3.dtype)
+
+
+def _rank_update(dense, factored, m_loc, n_loc, cfg, device):
+    """This rank's C from its resolved panels.
+
+    ``dense`` lists ``(a_panel, b_panel)`` pairs, each a rank-k update
+    through ``_local_dot``; ``factored`` lists ``(u3, v3, b_panel)``
+    triples (U (mb, bm, r_k), V (mb, r_k, bk)), resolved as ``U·(V·B)``:
+    per chunk of local block rows, every panel's ``V·B`` lands in one
+    ``(rows, Σr_k, n_loc)`` buffer and one batched product over the
+    concatenated rank axis adds ``U_cat·W`` to C's rows.  The chunking
+    reorders the reference's sum over (panel, rank) only by rows, so the
+    result agrees with it within the fp32 tolerance.
+    """
+    acc = cfg.accum_dtype
+    c = torch.zeros((m_loc, n_loc), dtype=acc, device=device)
+    for a_panel, b_panel in dense:
+        _local_dot(a_panel, b_panel, c, cfg)
+    if not factored:
+        return c
+    mb_loc, bm = factored[0][0].shape[:2]
+    widths = [v3.shape[1] for _, v3, _ in factored]
+    r_sum = sum(widths)
+    u_cat = torch.cat([u3.to(acc) for u3, _, _ in factored], dim=2)
+    b_parts = [b_panel.contiguous().to(acc) for _, _, b_panel in factored]
+    step = _rank_row_chunk(mb_loc, r_sum * n_loc * c.element_size())
+    for i0 in range(0, mb_loc, step):
+        i1 = min(i0 + step, mb_loc)
+        w = torch.empty((i1 - i0, r_sum, n_loc), dtype=acc, device=device)
+        off = 0
+        for (_, v3, _), b_p, r in zip(factored, b_parts, widths):
+            w[:, off:off + r] = torch.matmul(
+                v3[i0:i1].contiguous().to(acc), b_p
+            )
+            off += r
+        c[i0 * bm:i1 * bm] += torch.bmm(u_cat[i0:i1], w).reshape(-1, n_loc)
+        del w  # the next chunk's buffer is not allocated beside this one
+    return c
+
+
+def _rank_geometry(u_loc, v_loc, b_loc, plan, r_pad):
+    """``(bk, m_loc, n_loc, mb_loc, bm, t_a, t_b)`` of a rank execution."""
+    bk = plan.kb_width
+    m_loc, n_loc = u_loc.shape[0], b_loc.shape[1]
+    mb_loc = v_loc.shape[0] // r_pad
+    t_a = plan.k_steps // max(plan.cfg.p_col, 1) or 1
+    return bk, m_loc, n_loc, mb_loc, m_loc // mb_loc, t_a, b_loc.shape[0] // bk
+
+
+def _exec_ranksparse(u_loc, v_loc, b_loc, plan, *, r_pad: int):
+    """Block-rank-sparse rank-k updates from factorized A panels.
+
+    For live panel ``kk`` this broadcasts a width-``r_k`` U panel, the
+    matching V rows and B's dense panel, then evaluates every local block
+    row as ``U @ (V @ B)``, FLOPs following the panel rank.  Two
+    per-panel fallbacks, as in the reference (and the planner's model):
+
+    * comm — past r* = bm·bk/(bm+bk) the factors outweigh the dense
+      panel, so the owner column reconstructs it and the dense panel is
+      broadcast instead;
+    * compute — near the threshold the dense dot beats the two-stage
+      contraction (``RANK_COMPUTE_MARGIN``); the factors travel and the
+      receivers reconstruct.
+
+    Every broadcast is issued before any is waited on.  Rank raggedness
+    within a panel is carried by zero factor columns (the executed width
+    is the panel max).
+    """
+    from repro_torch.core.sparsity import (
+        rank_panel_factored_comm,
+        rank_panel_factored_compute,
+    )
+
+    cfg = plan.cfg
+    grid = cfg.grid
+    bk, m_loc, n_loc, mb_loc, bm, t_a, t_b = _rank_geometry(
+        u_loc, v_loc, b_loc, plan, r_pad
+    )
+    col = grid.axis_index(cfg.col_axis)
+    widths = _rank_panel_widths(plan)
+    issued = []
+    for kk in plan.live_panels:
+        r_k = min(widths[kk], r_pad)
+        owner_col, owner_row = kk // t_a, kk // t_b
+        s = kk % t_a
+        u3 = u_loc[:, s * r_pad:s * r_pad + r_k].reshape(mb_loc, bm, r_k)
+        v3 = v_loc[:, s * bk:(s + 1) * bk].reshape(mb_loc, r_pad, bk)[:, :r_k]
+        b_panel = b_loc[(kk % t_b) * bk:(kk % t_b + 1) * bk]
+        b_bc = _bcast_panel(b_panel, owner_row, cfg.row_axis, grid,
+                            async_op=True)
+        if rank_panel_factored_comm(r_k, bm, bk):
+            factors = (
+                _bcast_panel(u3, owner_col, cfg.col_axis, grid, async_op=True),
+                _bcast_panel(v3, owner_col, cfg.col_axis, grid, async_op=True),
+            )
+            compute = rank_panel_factored_compute(r_k, bm, bk, n_loc)
+            issued.append(("factored" if compute else "densify", factors,
+                           b_bc))
+        else:
+            a_panel = (
+                _densify(u3, v3, cfg) if col == owner_col else
+                torch.empty((m_loc, bk), dtype=u_loc.dtype,
+                            device=u_loc.device)
+            )
+            a_bc = _bcast_panel(a_panel, owner_col, cfg.col_axis, grid,
+                                async_op=True)
+            issued.append(("dense", (a_bc,), b_bc))
+    dense, factored = [], []
+    for kind, parts, (b_p, b_work) in issued:
+        _wait(b_work, *(work for _, work in parts))
+        tensors = [t for t, _ in parts]
+        if kind == "factored":
+            factored.append((*tensors, b_p))
+        elif kind == "densify":
+            dense.append((_densify(*tensors, cfg), b_p))
+        else:
+            dense.append((tensors[0], b_p))
+    return _rank_update(dense, factored, m_loc, n_loc, cfg, u_loc.device)
+
+
+def _exec_ranksparse_pull(u_loc, v_loc, b_loc, plan, *, r_pad: int):
+    """One-sided pull of *factorized* A panels (``comm_mode="pull"``).
+
+    Emulates the gets as the reference does: one all-gather per factor
+    operand along the grid, then indexed reads of exactly the live
+    panels.  The per-panel decisions and the arithmetic are those of
+    ``_exec_ranksparse`` term for term (same panels, same order, same
+    ``_rank_update``), so pull equals the broadcast rank path bitwise.
+    """
+    from repro_torch.core.sparsity import (
+        rank_panel_factored_comm,
+        rank_panel_factored_compute,
+    )
+
+    cfg = plan.cfg
+    grid = cfg.grid
+    bk, m_loc, n_loc, mb_loc, bm, _, _ = _rank_geometry(
+        u_loc, v_loc, b_loc, plan, r_pad
+    )
+    widths = _rank_panel_widths(plan)
+    u_full = grid.all_gather(u_loc, cfg.col_axis, dim=1)
+    v_full = grid.all_gather(v_loc, cfg.col_axis, dim=1)
+    b_full = grid.all_gather(b_loc, cfg.row_axis, dim=0)
+    dense, factored = [], []
+    for kk in plan.live_panels:
+        r_k = min(widths[kk], r_pad)
+        u3 = u_full[:, kk * r_pad:kk * r_pad + r_k].reshape(mb_loc, bm, r_k)
+        v3 = v_full[:, kk * bk:(kk + 1) * bk].reshape(
+            mb_loc, r_pad, bk)[:, :r_k]
+        b_panel = b_full[kk * bk:(kk + 1) * bk]
+        if rank_panel_factored_comm(r_k, bm, bk) and (
+            rank_panel_factored_compute(r_k, bm, bk, n_loc)
+        ):
+            factored.append((u3, v3, b_panel))
+        else:
+            dense.append((_densify(u3, v3, cfg), b_panel))
+    return _rank_update(dense, factored, m_loc, n_loc, cfg, u_loc.device)
+
+
+def _exec_ranksparse_grouped(u_loc, v_loc, b_loc, plan, *, r_pad: int):
+    """Rank-sparse update through the grouped-GEMM CUDA kernel.
+
+    Broadcasts the live factor panels at full ``r_pad`` width (the kernel
+    wants uniform tiles).  Stage 1, every block's ``V @ B_panel``, is the
+    grouped GEMM: V rows are the tokens, each ``r_pad``-row tile's expert
+    is its panel's B.  Stage 2 applies U per local block row as one
+    batched product.  Panels past the comm crossover
+    (``rank_panel_factored_comm`` at width ``r_pad``) are densified
+    owner-side and run as dense dots, as in the reference.
+
+    Unlike the reference's single launch, stage 1 runs once per chunk of
+    local block rows (``RANK_CHUNK_BYTES``), with tokens ordered (block
+    row, panel, rank): a chunk's output is then already the
+    ``(rows, L·r_pad, n_loc)`` right factor of stage 2, whose left factor
+    is the chunk's U panels side by side, and C's rows are written once.
+    This reorders the sum over (panel, rank) against the reference, so
+    the two agree within the fp32 tolerance, not bitwise.  Where B's
+    panels are this rank's own (a grid with one row), the kernel reads
+    them in place from ``b_loc`` as ``(t_b, bk, n_loc)`` experts; else
+    the broadcast panels are stacked.
+    """
+    from repro_torch.core.sparsity import rank_panel_factored_comm
+    from repro_torch.kernels import ops as kops
+
+    cfg = plan.cfg
+    grid = cfg.grid
+    acc = cfg.accum_dtype
+    bk, m_loc, n_loc, mb_loc, bm, t_a, t_b = _rank_geometry(
+        u_loc, v_loc, b_loc, plan, r_pad
+    )
+    col = grid.axis_index(cfg.col_axis)
+    factored_comm = rank_panel_factored_comm(r_pad, bm, bk)
+    issued = []
+    for kk in plan.live_panels:
+        owner_col, owner_row = kk // t_a, kk // t_b
+        s = kk % t_a
+        u3 = u_loc[:, s * r_pad:(s + 1) * r_pad].reshape(mb_loc, bm, r_pad)
+        v3 = v_loc[:, s * bk:(s + 1) * bk].reshape(mb_loc, r_pad, bk)
+        b_panel = b_loc[(kk % t_b) * bk:(kk % t_b + 1) * bk]
+        b_bc = _bcast_panel(b_panel, owner_row, cfg.row_axis, grid,
+                            async_op=True)
+        if factored_comm:
+            parts = (
+                _bcast_panel(u3, owner_col, cfg.col_axis, grid, async_op=True),
+                _bcast_panel(v3, owner_col, cfg.col_axis, grid, async_op=True),
+            )
+        else:
+            a_panel = (
+                _densify(u3, v3, cfg) if col == owner_col else
+                torch.empty((m_loc, bk), dtype=u_loc.dtype,
+                            device=u_loc.device)
+            )
+            parts = (_bcast_panel(a_panel, owner_col, cfg.col_axis, grid,
+                                  async_op=True),)
+        issued.append((kk, parts, b_bc))
+    c = torch.zeros((m_loc, n_loc), dtype=acc, device=u_loc.device)
+    panels, u_parts, v_parts, b_parts = [], [], [], []
+    for kk, parts, (b_p, b_work) in issued:
+        _wait(b_work, *(work for _, work in parts))
+        if factored_comm:
+            panels.append(kk)
+            u_parts.append(parts[0][0])
+            v_parts.append(parts[1][0])
+            b_parts.append(b_p)
+        else:
+            _local_dot(parts[0][0], b_p, c, cfg)
+    if not panels:
+        return c
+    live = len(panels)
+    if cfg.p_row == 1:  # B's panels are views of b_loc: read them in place
+        w = b_loc.reshape(t_b, bk, n_loc)
+        experts = np.asarray([kk % t_b for kk in panels], np.int32)
+    else:
+        w = torch.stack(b_parts)
+        experts = np.arange(live, dtype=np.int32)
+    del b_parts
+    step = _rank_row_chunk(mb_loc, live * r_pad * n_loc * c.element_size())
+    tile_expert = np.tile(experts, step)
+    for i0 in range(0, mb_loc, step):
+        i1 = min(i0 + step, mb_loc)
+        rows = i1 - i0
+        # tokens ordered (block row, panel, rank): tile (i, l) is panel l
+        x = torch.stack([v3[i0:i1] for v3 in v_parts], dim=1)
+        y = kops.grouped_gemm(
+            x.reshape(rows * live * r_pad, bk), w,
+            tile_expert[:rows * live], bt=r_pad, out_dtype=acc,
+        )
+        u_c = torch.cat([u3[i0:i1] for u3 in u_parts], dim=2).to(acc)
+        c[i0 * bm:i1 * bm] += torch.bmm(
+            u_c, y.view(rows, live * r_pad, n_loc)
+        ).reshape(-1, n_loc)
+        del x, y  # the next chunk's buffers are not allocated beside these
+    return c
 
 
 _EXEC_IMPLS = {
@@ -400,8 +728,7 @@ def execute_plan(
             origin=(row * b_loc.shape[0], col * n_loc),
         )
     if plan.local_impl == "bsmm":
-        cols = torch.as_tensor(plan.local_cols[row, col], device=a_loc.device)
-        c = _exec_sparse_bsmm(a_loc, b_loc, cols, plan)
+        c = _exec_sparse_bsmm(a_loc, b_loc, plan.local_cols[row, col], plan)
     elif plan.local_impl in ("masked", "ranksparse"):
         # Rank plans given dense-stored operands run the masked DAG, as in
         # the reference: without factors there is nothing rank-sized to
@@ -421,6 +748,118 @@ def _check_plan_operands(a_loc, b_loc, plan) -> None:
             f"local operands {tuple(a_loc.shape)} @ {tuple(b_loc.shape)} do "
             f"not match the plan's tiles {want_a} @ {want_b}"
         )
+
+
+def rank_operands(a_ranks, plan) -> tuple[np.ndarray, np.ndarray]:
+    """Lay a ``RankCSR`` out as the dense-stored factor operands the
+    rank-sparse executors consume.
+
+    Returns ``(u_all, v_all)``: ``u_all`` is (m_pad, k_steps·r_pad) with
+    block row ``i``, panel ``kk`` holding ``U[i,kk]`` at column offset
+    ``kk·r_pad`` (zero beyond the true rank); ``v_all`` is
+    (m_blocks·r_pad, k_pad) with ``V[i,kk]`` at row offset ``i·r_pad``,
+    column offset ``kk·bk``.  Both are cut into grid tiles exactly like A,
+    so every U/V panel lives on the rank that owns the matching A panel.
+    Memoized per padded geometry on the (frozen) ``RankCSR``, so repeated
+    calls do not lay the factors out again.
+    """
+    cache_key = ("_rank_operands", plan.m_pad, plan.k_pad, plan.k_steps)
+    cached = a_ranks.__dict__.get(cache_key)
+    if cached is not None:
+        return cached
+    bm, bk = a_ranks.bm, a_ranks.bk
+    r_pad = a_ranks.r_pad
+    csr = a_ranks.csr
+    m_blk_p = plan.m_pad // bm
+    k_steps = plan.k_steps
+    u_all = np.zeros((plan.m_pad, k_steps * r_pad), np.float32)
+    v_all = np.zeros((m_blk_p * r_pad, plan.k_pad), np.float32)
+    for i in range(csr.m_blocks):
+        lo, hi = csr.row_ptr[i], csr.row_ptr[i + 1]
+        for s in range(lo, hi):
+            kk = int(csr.col_idx[s])
+            u_all[i * bm:(i + 1) * bm, kk * r_pad:(kk + 1) * r_pad] = (
+                a_ranks.u[s]
+            )
+            v_all[i * r_pad:(i + 1) * r_pad, kk * bk:(kk + 1) * bk] = (
+                a_ranks.v[s]
+            )
+    a_ranks.__dict__[cache_key] = (u_all, v_all)
+    return u_all, v_all
+
+
+def execute_rank_plan(
+    u_loc: torch.Tensor,
+    v_loc: torch.Tensor,
+    b_loc: torch.Tensor,
+    plan,
+    *,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """This rank's tile of C = A @ B with A given as factor operands.
+
+    ``u_loc``/``v_loc`` are this rank's tiles of ``rank_operands``'
+    arrays and ``b_loc`` its tile of B padded to the plan's (k_pad,
+    n_pad), all on one device.  Requires ``plan.local_impl ==
+    "ranksparse"`` (the planner guarantees the factor layout fits the
+    grid).  ``comm_mode="pull"`` runs ``_exec_ranksparse_pull``; else
+    ``local_matmul="pallas"`` runs stage 1 through the grouped-GEMM kernel
+    (``_exec_ranksparse_grouped``) and ``"xla"`` through torch products
+    (``_exec_ranksparse``).  B is cast to the factors' type first, as
+    JAX promotes fp32 factors times a bf16 B; the result has ``out_dtype``
+    (default B's dtype).  Runs eagerly (the executable cache is A3).
+    """
+    cfg = plan.cfg
+    r_pad = _check_rank_operands(u_loc, v_loc, b_loc, plan)
+    out_dtype = out_dtype or b_loc.dtype
+    row = cfg.grid.axis_index(cfg.row_axis)
+    col = cfg.grid.axis_index(cfg.col_axis)
+    m_loc, n_loc = u_loc.shape[0], b_loc.shape[1]
+    # a rank plan carries B's mask even when every block is live; masking
+    # then only copies B (4 GiB at N = 32768)
+    if plan.b_mask is not None and not plan.b_mask.all():
+        b_loc = _apply_block_mask(
+            b_loc, plan.b_mask, _block_of(plan.b_mask, plan.k_pad, plan.n_pad),
+            origin=(row * b_loc.shape[0], col * n_loc),
+        )
+    dtype = torch.promote_types(u_loc.dtype, b_loc.dtype)
+    u_loc, v_loc, b_loc = u_loc.to(dtype), v_loc.to(dtype), b_loc.to(dtype)
+    if plan.comm_mode == "pull":
+        local = _exec_ranksparse_pull
+    elif cfg.local_matmul == "pallas":
+        local = _exec_ranksparse_grouped
+    else:
+        local = _exec_ranksparse
+    c = local(u_loc, v_loc, b_loc, plan, r_pad=r_pad)
+    return _filter_c(c.to(out_dtype), plan, origin=(row * m_loc, col * n_loc))
+
+
+def _check_rank_operands(u_loc, v_loc, b_loc, plan) -> int:
+    """Raise unless the factor tiles fit ``plan``; returns ``r_pad``."""
+    if plan.local_impl != "ranksparse":
+        raise ValueError(
+            f"plan.local_impl={plan.local_impl!r}: not a rank-sparse plan "
+            "(factor layout needs M blocks aligned to the grid rows; "
+            "densify with RankCSR.to_dense() and use execute_plan)"
+        )
+    k_r = u_loc.shape[1] * plan.p_col
+    if k_r % plan.k_steps:
+        raise ValueError(
+            f"U width {k_r} must be k_steps={plan.k_steps} factor panels"
+        )
+    r_pad = k_r // plan.k_steps
+    (mp, kp), (_, np_) = plan.padded_shapes
+    m_blk_p = plan.a_ranks.shape[0]  # the padded block rows
+    want_u = (mp // plan.p_row, k_r // plan.p_col)
+    want_v = (m_blk_p * r_pad // plan.p_row, kp // plan.p_col)
+    want_b = (kp // plan.p_row, np_ // plan.p_col)
+    got = (tuple(u_loc.shape), tuple(v_loc.shape), tuple(b_loc.shape))
+    if got != (want_u, want_v, want_b):
+        raise ValueError(
+            f"factor tiles u{got[0]}/v{got[1]}/b{got[2]} do not match the "
+            f"plan's tiles u{want_u}/v{want_v}/b{want_b}"
+        )
+    return r_pad
 
 
 def _block_of(mask: np.ndarray, rows: int, cols: int) -> tuple[int, int]:

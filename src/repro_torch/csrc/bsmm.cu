@@ -7,7 +7,8 @@
 // row i, padded with -1.  The TPU kernel gets cols through scalar prefetch
 // and walks S as a sequential grid axis; here each thread block owns one
 // 64-row sub-tile of one block row and one 64-column tile of C, reads its
-// row of cols itself and walks it until the first -1.  Only live
+// row of cols itself and walks it until the first entry that is not a block
+// column of A (-1, or one at or past K/bk, which is never read).  Only live
 // (bm x bk) . (bk x N-tile) products are loaded and multiplied; a block row
 // with no live block writes zeros.
 //
@@ -26,8 +27,8 @@ template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads)
     bsmm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
                 const int* __restrict__ cols, TOut* __restrict__ c, int64_t m,
-                int64_t n, int64_t lda, int64_t ldb, int s_steps, int bm,
-                int bk, int sub_tiles) {
+                int64_t n, int64_t lda, int64_t ldb, int s_steps,
+                int k_blocks, int bm, int bk, int sub_tiles) {
   __shared__ TileSmem sm;
   float acc[4][4] = {};
   const int64_t block_row = blockIdx.y / sub_tiles;
@@ -39,7 +40,7 @@ __global__ void __launch_bounds__(kThreads)
   const int* row_cols = cols + block_row * s_steps;
   for (int s = 0; s < s_steps; ++s) {
     const int kk = row_cols[s];  // the same for every thread of the block
-    if (kk < 0) break;
+    if (kk < 0 || kk >= k_blocks) break;
     const int64_t k0 = static_cast<int64_t>(kk) * bk;
     accumulate_tile(a, lda, b, ldb, row0, row_end, col0, n, k0, k0 + bk, sm,
                     acc);
@@ -49,11 +50,12 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename TIn, typename TOut>
 void launch(const void* a, const void* b, const int* cols, void* c, int64_t m,
-            int64_t n, int64_t lda, int64_t ldb, int s_steps, int bm, int bk,
-            int sub_tiles, dim3 grid, cudaStream_t stream) {
+            int64_t n, int64_t lda, int64_t ldb, int s_steps, int k_blocks,
+            int bm, int bk, int sub_tiles, dim3 grid, cudaStream_t stream) {
   bsmm_kernel<TIn, TOut><<<grid, kThreads, 0, stream>>>(
       static_cast<const TIn*>(a), static_cast<const TIn*>(b), cols,
-      static_cast<TOut*>(c), m, n, lda, ldb, s_steps, bm, bk, sub_tiles);
+      static_cast<TOut*>(c), m, n, lda, ldb, s_steps, k_blocks, bm, bk,
+      sub_tiles);
 }
 
 }  // namespace
@@ -62,13 +64,14 @@ void launch(const void* a, const void* b, const int* cols, void* c, int64_t m,
 using namespace repro_torch;
 
 // C (M x N, contiguous) = blocks of A (M x K, row stride lda) named by cols
-// (M/bm x S int32, contiguous) . B (K x N, row stride ldb).  M must be a
-// multiple of bm and every live column index below K/bk.  Returns the
-// cudaError_t of the launch (0 on success).
+// (M/bm x S int32, contiguous) . B (K x N, row stride ldb), where A has
+// k_blocks block columns.  M must be a multiple of bm; each row's walk ends
+// at its first entry outside [0, k_blocks).  Returns the cudaError_t of the
+// launch (0 on success).
 extern "C" int bsmm_launch(const void* a, const void* b, const void* cols,
                            void* c, int64_t m, int64_t n, int64_t lda,
-                           int64_t ldb, int s_steps, int bm, int bk,
-                           int in_dtype, int out_dtype, void* stream) {
+                           int64_t ldb, int s_steps, int k_blocks, int bm,
+                           int bk, int in_dtype, int out_dtype, void* stream) {
   if (m <= 0 || n <= 0) return cudaSuccess;
   if (bm <= 0 || bk <= 0 || m % bm) return cudaErrorInvalidValue;
   const int sub_tiles = (bm + kTileM - 1) / kTileM;
@@ -82,17 +85,18 @@ extern "C" int bsmm_launch(const void* a, const void* b, const void* cols,
   const int* cmap = static_cast<const int*>(cols);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == kFloat32 && out_dtype == kFloat32) {
-    launch<float, float>(a, b, cmap, c, m, n, lda, ldb, s_steps, bm, bk,
-                         sub_tiles, grid, s);
+    launch<float, float>(a, b, cmap, c, m, n, lda, ldb, s_steps, k_blocks, bm,
+                         bk, sub_tiles, grid, s);
   } else if (in_dtype == kFloat32 && out_dtype == kBFloat16) {
-    launch<float, __nv_bfloat16>(a, b, cmap, c, m, n, lda, ldb, s_steps, bm,
-                                 bk, sub_tiles, grid, s);
+    launch<float, __nv_bfloat16>(a, b, cmap, c, m, n, lda, ldb, s_steps,
+                                 k_blocks, bm, bk, sub_tiles, grid, s);
   } else if (in_dtype == kBFloat16 && out_dtype == kFloat32) {
-    launch<__nv_bfloat16, float>(a, b, cmap, c, m, n, lda, ldb, s_steps, bm,
-                                 bk, sub_tiles, grid, s);
+    launch<__nv_bfloat16, float>(a, b, cmap, c, m, n, lda, ldb, s_steps,
+                                 k_blocks, bm, bk, sub_tiles, grid, s);
   } else if (in_dtype == kBFloat16 && out_dtype == kBFloat16) {
     launch<__nv_bfloat16, __nv_bfloat16>(a, b, cmap, c, m, n, lda, ldb,
-                                         s_steps, bm, bk, sub_tiles, grid, s);
+                                         s_steps, k_blocks, bm, bk, sub_tiles,
+                                         grid, s);
   } else {
     return cudaErrorInvalidValue;
   }

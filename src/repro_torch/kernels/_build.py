@@ -27,7 +27,7 @@ import torch
 __all__ = ["build", "load", "check", "dtype_code", "stream_handle"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("tiled_matmul.cu", "bsmm.cu")
+SOURCES = ("tiled_matmul.cu", "bsmm.cu", "grouped_gemm.cu")
 HEADERS = ("tile.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
@@ -42,7 +42,9 @@ _SIGNATURES = {
     "tiled_matmul_launch": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64,
                             _int, _int, _ptr],
     "bsmm_launch": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _int,
-                    _int, _int, _int, _int, _ptr],
+                    _int, _int, _int, _int, _int, _ptr],
+    "grouped_gemm_launch": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64,
+                            _i64, _i64, _int, _int, _int, _int, _ptr],
 }
 
 _lib: ctypes.CDLL | None = None

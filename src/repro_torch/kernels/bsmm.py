@@ -10,8 +10,10 @@ CSR column map ``cols`` of shape (M/bm, S), int32, each row padded with
 The kernel (``csrc/bsmm.cu``) gives each block of 256 threads one 64-row
 sub-tile of one block row and one 64-column tile of C.  It reads that
 block row's entries of ``cols`` itself — in place of the TPU's scalar
-prefetch — and walks them until the first -1, multiplying only live
-blocks; a block row with no live block writes zeros.  Accumulation is
+prefetch — and walks them until the first entry that is not a block
+column of A (-1, or one at or past K/bk, which is never read),
+multiplying only live blocks; a block row with no live block writes
+zeros.  Accumulation is
 fp32 FMA, inputs fp32 or bf16.  Its FLOPs follow the live blocks
 (2 bm bk N each): at the main path's shapes (bm = bk = 256, N = 32768,
 fill 0.3) it is bound by the card's 67 TFLOP/s of fp32 FMA.  Besides what
@@ -43,10 +45,11 @@ def _check_shapes(a, b, cols, bm, bk, bn) -> None:
         )
 
 
-def _live_prefix(cols: torch.Tensor) -> torch.Tensor:
+def _live_prefix(cols: torch.Tensor, k_blocks: int) -> torch.Tensor:
     """Which entries of ``cols`` the kernel reads: those before the first
-    -1 of their row."""
-    return (cols >= 0).to(torch.int32).cumprod(dim=1).bool()
+    entry of their row outside [0, k_blocks)."""
+    ok = (cols >= 0) & (cols < k_blocks)
+    return ok.to(torch.int32).cumprod(dim=1).bool()
 
 
 def bsmm_plain(a: torch.Tensor, b: torch.Tensor, cols: torch.Tensor, *,
@@ -57,7 +60,7 @@ def bsmm_plain(a: torch.Tensor, b: torch.Tensor, cols: torch.Tensor, *,
     _check_shapes(a, b, cols, bm, bk, bn)
     m, k = a.shape
     cols = cols.to(a.device, torch.int64)
-    live = _live_prefix(cols)
+    live = _live_prefix(cols, k // bk)
     rows = torch.arange(m // bm, device=a.device)[:, None].expand_as(cols)
     mask = torch.zeros((m // bm, k // bk), dtype=torch.bool, device=a.device)
     mask[rows[live], cols[live]] = True
@@ -73,8 +76,11 @@ def bsmm_cuda(a: torch.Tensor, b: torch.Tensor, cols: torch.Tensor, *,
 
     ``a`` (M, K) and ``b`` (K, N) are contiguous float32 or bfloat16 CUDA
     tensors of one dtype; ``cols`` is a contiguous int32 (M/bm, S) map on
-    the same device whose live entries are below K/bk.  ``bn`` only has to
-    divide N (the reference's tile contract); the kernel tiles N by 64.
+    the same device.  Each row's walk ends at its first entry outside
+    [0, K/bk), in the kernel, so a launch never waits on the card to check
+    the map (``kernels.ops.bsmm_cols`` refuses such a map on the host).
+    ``bn`` only has to divide N (the reference's tile contract); the
+    kernel tiles N by 64.
     """
     out_dtype = out_dtype or a.dtype
     _check_shapes(a, b, cols, bm, bk, bn)
@@ -89,14 +95,12 @@ def bsmm_cuda(a: torch.Tensor, b: torch.Tensor, cols: torch.Tensor, *,
         )
     if not (a.is_contiguous() and b.is_contiguous() and cols.is_contiguous()):
         raise ValueError("bsmm_cuda needs contiguous a, b and cols")
-    m, k = a.shape
-    if cols.numel() and int(cols.max()) >= k // bk:  # would read past A
-        raise ValueError(f"col map names a block column >= K/bk={k // bk}")
+    m = a.shape[0]
     n = b.shape[1]
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     err = _build.load().bsmm_launch(
         a.data_ptr(), b.data_ptr(), cols.data_ptr(), c.data_ptr(), m, n,
-        a.stride(0), b.stride(0), cols.shape[1], bm, bk,
+        a.stride(0), b.stride(0), cols.shape[1], a.shape[1] // bk, bm, bk,
         _build.dtype_code(a.dtype), _build.dtype_code(out_dtype),
         _build.stream_handle(a.device),
     )

@@ -1,0 +1,114 @@
+"""Grouped GEMM: the CUDA kernel and its plain PyTorch version.
+
+Replaces the TPU kernel ``repro/kernels/grouped_gemm.py::
+grouped_gemm_kernel`` (driven by ``grouped_gemm_pallas``): tokens ``x``
+(T, D) arrive sorted into ``bt``-row tiles, each owned by one expert, and
+``y[tile] = x[tile] . w[tile_expert[tile]]`` for expert weights ``w``
+(E, D, F), accumulated in fp32 and cast to ``out_dtype``.  On the
+rank-sparse route the tokens are rows of the V factors, a tile is one
+block's ``r_pad`` rows, and the experts are the K-panels of B
+(``core.summa._exec_ranksparse_grouped``, ``kernels.ops.ranksparse_matmul``).
+
+The kernel (``csrc/grouped_gemm.cu``, tiles in ``csrc/tile.cuh``) gives
+each block of 256 threads one 64-row sub-tile of one token tile and one
+64-column tile of y; the block reads its tile's expert itself, in place of
+the TPU's scalar prefetch, and loops over D.  A tile shorter than 64 rows
+(``bt`` = 8, 16, 24) has a block of its own, so no block mixes experts.
+``w`` is read through its expert and row strides, so the K-panels of one
+row-major B serve as experts without a copy.  On the main path
+(``bt`` = 64, D = 256, F = 32768, fp32) the work is 2 T D F FLOP against
+4 (T D + E D F + T F) bytes: bound by the card's 67 TFLOP/s of fp32 FMA.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["grouped_gemm_cuda", "grouped_gemm_plain"]
+
+
+def _check_shapes(x, w, tile_expert, bt) -> None:
+    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
+        raise ValueError(
+            f"contraction mismatch: {tuple(x.shape)} @ {tuple(w.shape)}"
+        )
+    if bt <= 0 or x.shape[0] % bt:
+        raise ValueError(f"token count {x.shape[0]} must divide tile {bt}")
+    if tuple(tile_expert.shape) != (x.shape[0] // bt,):
+        raise ValueError(
+            f"tile_expert {tuple(tile_expert.shape)} must have one entry per "
+            f"token tile ({x.shape[0] // bt})"
+        )
+
+
+def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
+                       tile_expert: torch.Tensor, *, bt: int,
+                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``y[tile] = x[tile] @ w[tile_expert[tile]]`` in fp32, cast to
+    ``out_dtype`` (default ``x.dtype``).
+
+    The tiles of one expert are multiplied together, one ``torch.matmul``
+    per expert present, which is ``einsum("tbd,tdf->tbf", x_tiles,
+    w[tile_expert])`` without materialising the gathered weights.
+    """
+    _check_shapes(x, w, tile_expert, bt)
+    t, d = x.shape
+    xt = x.reshape(t // bt, bt, d).float()
+    te = tile_expert.to(x.device, torch.int64)
+    y = torch.empty((t // bt, bt, w.shape[2]), dtype=torch.float32,
+                    device=x.device)
+    for e in torch.unique(te).tolist():
+        sel = (te == e).nonzero().squeeze(1)
+        y[sel] = torch.matmul(xt[sel], w[e].float())
+    return y.reshape(t, -1).to(out_dtype or x.dtype)
+
+
+def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
+                      tile_expert: torch.Tensor, *, bt: int,
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The grouped product through the CUDA kernel; counts its launches.
+
+    ``x`` (T, D) and ``w`` (E, D, F) are float32 or bfloat16 CUDA tensors
+    of one dtype with unit last stride (any row and expert strides);
+    ``tile_expert`` is a contiguous int32 (T/bt,) tensor on the same
+    device whose entries lie in [0, E) — the caller checks that where it
+    builds the map (``kernels.ops.grouped_gemm`` checks it on the host);
+    a tile naming no expert is never read and gives zeros.  The result is
+    a new contiguous (T, F) tensor of ``out_dtype`` (default ``x.dtype``).
+    """
+    out_dtype = out_dtype or x.dtype
+    _check_shapes(x, w, tile_expert, bt)
+    if x.dtype != w.dtype:
+        raise TypeError(f"operand dtypes differ: {x.dtype} vs {w.dtype}")
+    if tile_expert.dtype != torch.int32:
+        raise TypeError(f"tile_expert must be int32, got {tile_expert.dtype}")
+    if not (x.is_cuda and w.device == x.device
+            and tile_expert.device == x.device):
+        raise ValueError(
+            "grouped_gemm_cuda needs x, w and tile_expert on one CUDA device, "
+            f"got {x.device}, {w.device} and {tile_expert.device}"
+        )
+    if (x.stride(1) != 1 and x.shape[1] > 1) or (
+            w.stride(2) != 1 and w.shape[2] > 1) or (
+            not tile_expert.is_contiguous()):
+        raise ValueError(
+            "grouped_gemm_cuda needs unit last strides of x and w and a "
+            f"contiguous tile_expert (got strides {x.stride()}, {w.stride()})"
+        )
+    t, d = x.shape
+    e, _, f = w.shape
+    y = torch.empty((t, f), dtype=out_dtype, device=x.device)
+    err = _build.load().grouped_gemm_launch(
+        x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(), y.data_ptr(),
+        t, f, d, x.stride(0), w.stride(0), w.stride(1), bt, e,
+        _build.dtype_code(x.dtype), _build.dtype_code(out_dtype),
+        _build.stream_handle(x.device),
+    )
+    _build.check(err, "grouped_gemm kernel launch")
+    grouped_gemm_cuda.launches += 1
+    return y
+
+
+#: kernel launches so far (a plain integer; set it to 0 to start a count)
+grouped_gemm_cuda.launches = 0

@@ -6,11 +6,14 @@ goes to the CUDA kernel (which raises if it cannot run), a CPU tensor to
 the kernel's plain PyTorch version — the counterpart of the reference's
 interpret mode, so the CPU tests check the same wrapper logic.
 
-Operands are zero-padded to the tiles ``_pick_tile`` picks and the result
-is cut back, exactly as the reference's ``repro.kernels.ops`` does; the
-kernels then run their own 64 x 64 tiling and mask whatever edge is left.
-``grouped_gemm``, ``ranksparse_matmul`` and ``flash_attention`` are not
-ported yet (ROADMAP, queue B).
+The CUDA kernels run their own 64 x 64 tiling and mask every ragged
+edge, so a CUDA operand goes to its kernel unpadded.  On the CPU route
+``tiled_matmul`` and ``bsmm`` zero-pad to the tiles ``_pick_tile`` picks
+and cut the result back, exactly as the reference's ``repro.kernels.ops``
+does.  Index maps (``bsmm``'s column map, ``grouped_gemm``'s tile
+experts) are taken as host arrays, checked there, and moved to the
+operands' device, so a launch never waits on the card to check them.
+``flash_attention`` is not ported yet (ROADMAP B4).
 """
 from __future__ import annotations
 
@@ -20,12 +23,18 @@ import torch.nn.functional as F
 
 from repro_torch.core.sparsity import block_csr_from_mask
 from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain
+from repro_torch.kernels.grouped_gemm import (
+    grouped_gemm_cuda,
+    grouped_gemm_plain,
+)
 from repro_torch.kernels.tiled_matmul import (
     tiled_matmul_cuda,
     tiled_matmul_plain,
 )
 
-__all__ = ["tiled_matmul", "bsmm", "bsmm_cols"]
+__all__ = [
+    "tiled_matmul", "bsmm", "bsmm_cols", "grouped_gemm", "ranksparse_matmul",
+]
 
 
 def _route(x: torch.Tensor, kernel, plain):
@@ -61,14 +70,16 @@ def tiled_matmul(
     accum_dtype=torch.float32,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
-    """C = A @ B through the tiled kernel, auto-padded."""
+    """C = A @ B through the tiled kernel (auto-padded on the CPU route)."""
     del accum_dtype  # the kernel always accumulates fp32
+    run = _route(a, tiled_matmul_cuda, tiled_matmul_plain)
+    if run is tiled_matmul_cuda:  # the kernel masks its ragged edges
+        return run(a, b, out_dtype)
     m, k = a.shape
     _, n = b.shape
     bm = _pick_tile(m, bm)
     bk = _pick_tile(k, bk)
     bn = _pick_tile(n, bn)
-    run = _route(a, tiled_matmul_cuda, tiled_matmul_plain)
     c = run(_pad2(a, (bm, bk)), _pad2(b, (bk, bn)), out_dtype)
     return c[:m, :n]
 
@@ -76,7 +87,7 @@ def tiled_matmul(
 def bsmm_cols(
     a: torch.Tensor,
     b: torch.Tensor,
-    cols: torch.Tensor,
+    cols: np.ndarray,
     *,
     bm: int,
     bk: int,
@@ -84,9 +95,17 @@ def bsmm_cols(
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Block-sparse C = A @ B over a padded CSR column map (the call
-    ``core.summa._exec_sparse_bsmm`` makes with ``plan.local_cols``)."""
+    ``core.summa._exec_sparse_bsmm`` makes with ``plan.local_cols``).
+
+    ``cols`` is a host array (numpy or a CPU tensor); it is checked here,
+    on the host, and moved to ``a``'s device."""
     run = _route(a, bsmm_cuda, bsmm_plain)
-    return run(a, b, cols, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+    cols = np.asarray(cols, dtype=np.int32)
+    k_blocks = a.shape[1] // bk
+    if cols.size and int(cols.max()) >= k_blocks:  # would read past A
+        raise ValueError(f"col map names a block column >= K/bk={k_blocks}")
+    return run(a, b, torch.as_tensor(cols, device=a.device), bm=bm, bk=bk,
+               bn=bn, out_dtype=out_dtype)
 
 
 def bsmm(
@@ -112,13 +131,87 @@ def bsmm(
         )
     bm_sz, bk_sz = m // mb, k // kb
     csr = block_csr_from_mask(mask)
-    cols = torch.as_tensor(
-        csr.padded_cols(max(csr.max_row_nnz, 1)), dtype=torch.int32,
-        device=a.device,
-    )
+    cols = csr.padded_cols(max(csr.max_row_nnz, 1))
     bn = _pick_tile(n, bn)
     c = bsmm_cols(
         a, _pad2(b, (bk_sz, bn)), cols, bm=bm_sz, bk=bk_sz, bn=bn,
         out_dtype=out_dtype,
     )
     return c[:, :n]
+
+
+def grouped_gemm(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    tile_expert,
+    *,
+    bt: int = 256,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Tile-aligned grouped GEMM: ``y[tile] = x[tile] @ w[tile_expert[tile]]``
+    over ``bt``-row tiles of ``x`` (T, D), experts ``w`` (E, D, F).
+
+    ``tile_expert`` is a host array (numpy or a CPU tensor) of T/bt expert
+    indices; it is checked here and moved to ``x``'s device.  The
+    reference's ``bk``/``bn`` tile choices have no counterpart: the kernel
+    tiles D and F itself and masks their edges, so nothing is padded.
+    """
+    t = x.shape[0]
+    if t % bt:
+        raise ValueError(f"token count {t} must divide tile {bt}")
+    run = _route(x, grouped_gemm_cuda, grouped_gemm_plain)
+    te = np.asarray(tile_expert, dtype=np.int32)
+    if te.size and (int(te.min()) < 0 or int(te.max()) >= w.shape[0]):
+        raise ValueError(
+            f"tile_expert names an expert outside [0, {w.shape[0]})"
+        )
+    return run(x, w, torch.as_tensor(te, device=x.device), bt=bt,
+               out_dtype=out_dtype)
+
+
+def ranksparse_matmul(
+    a_ranks,
+    b: torch.Tensor,
+    *,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Local C = A @ B with A block-rank-sparse (a ``RankCSR``).
+
+    Stage 1, every stored block's ``V[s] @ B_panel[col_idx[s]]``, is ONE
+    grouped-GEMM launch: the stacked V rows are the tokens, each
+    ``r_pad``-row tile's expert is its block's K panel, read in place from
+    B viewed ``(K/bk, bk, N)``.  Stage 2 applies the U factors per block
+    and sums the partial products into C's block rows (``index_add_``, the
+    reference's ``segment_sum``).  FLOPs scale with ``nnz · r_pad``, not
+    the dense shape.  B is promoted to the factors' type, as JAX promotes
+    fp32 factors times a bf16 B; the result has ``out_dtype`` (default
+    B's dtype).
+    """
+    k, n = b.shape
+    bm, bk = a_ranks.bm, a_ranks.bk
+    csr = a_ranks.csr
+    if k != csr.n_blocks * bk:
+        raise ValueError(f"B rows {k} != rank structure K {csr.n_blocks * bk}")
+    out_dtype = out_dtype or b.dtype
+    m = csr.m_blocks * bm
+    if csr.nnz == 0:
+        return torch.zeros((m, n), dtype=out_dtype, device=b.device)
+    r_pad = a_ranks.r_pad
+    v = torch.as_tensor(a_ranks.v, device=b.device)
+    u = torch.as_tensor(a_ranks.u, device=b.device)
+    b_panels = b.to(torch.promote_types(v.dtype, b.dtype)).reshape(
+        csr.n_blocks, bk, n
+    )
+    y = grouped_gemm(
+        v.to(b_panels.dtype).reshape(csr.nnz * r_pad, bk), b_panels,
+        csr.col_idx, bt=r_pad, out_dtype=torch.float32,
+    )
+    partials = torch.bmm(u.float(), y.view(csr.nnz, r_pad, n))
+    row_ids = torch.as_tensor(
+        np.repeat(np.arange(csr.m_blocks), csr.row_lengths()),
+        device=b.device,
+    )
+    c = torch.zeros((csr.m_blocks, bm, n), dtype=torch.float32,
+                    device=b.device)
+    c.index_add_(0, row_ids, partials)
+    return c.reshape(m, n).to(out_dtype)

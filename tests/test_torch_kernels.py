@@ -92,7 +92,7 @@ def test_pick_tile_matches_reference(dim, pref):
 def test_plain_versions_on_views_and_sentinels():
     """The plain versions take strided panel views, and the bsmm plain
     version reads a column map the way the kernel does: up to the first
-    -1 of each row."""
+    entry of each row that is -1 or at or past K/bk."""
     rng = np.random.default_rng(1)
     wide = torch.from_numpy(rng.normal(size=(40, 96)).astype(np.float32))
     b = torch.from_numpy(rng.normal(size=(32, 24)).astype(np.float32))
@@ -105,6 +105,10 @@ def test_plain_versions_on_views_and_sentinels():
     cols = torch.tensor([[1, -1, 0], [-1, -1, -1]], dtype=torch.int32)
     got = bsmm_plain(a, b, cols, bm=8, bk=16, bn=8)
     want = a[:8, 16:].numpy() @ b[16:].numpy()
+    np.testing.assert_allclose(got[:8].numpy(), want, rtol=1e-5, atol=1e-5)
+    assert torch.all(got[8:] == 0)
+    past = torch.tensor([[1, 2, 0], [2, 0, -1]], dtype=torch.int32)
+    got = bsmm_plain(a, b, past, bm=8, bk=16, bn=8)  # walk ends at K/bk = 2
     np.testing.assert_allclose(got[:8].numpy(), want, rtol=1e-5, atol=1e-5)
     assert torch.all(got[8:] == 0)
 

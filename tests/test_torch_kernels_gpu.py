@@ -13,9 +13,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.sparsity import block_csr_from_mask, random_block_mask
+from repro_torch.core.sparsity import (
+    block_csr_from_mask,
+    decay_rank_map,
+    random_block_mask,
+    synthesize_rank_csr,
+)
 from repro_torch.kernels import ops
 from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain
+from repro_torch.kernels.grouped_gemm import grouped_gemm_cuda, grouped_gemm_plain
 from repro_torch.kernels.tiled_matmul import tiled_matmul_cuda, tiled_matmul_plain
 
 pytestmark = pytest.mark.gpu
@@ -87,8 +93,72 @@ def test_bsmm_kernel_empty_rows_and_bad_maps(cuda):
     assert torch.all(out[32:] == 0) and torch.any(out[:32] != 0)
     bad = torch.tensor([[4], [-1], [-1], [-1]], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="block column"):
-        bsmm_cuda(a, b, bad, bm=32, bk=32, bn=32)
+        ops.bsmm_cols(a, b, bad.cpu().numpy(), bm=32, bk=32, bn=32)
+    # the kernel itself ends a row's walk at a column past K/bk: row 0 sums
+    # block 0 only, row 1 nothing, and nothing past A is read
+    past = torch.tensor([[0, 4, 1], [7, 0, -1], [2, -1, -1], [-1, -1, -1]],
+                        dtype=torch.int32, device=cuda)
+    kept = torch.tensor([[0, -1, -1], [-1, -1, -1], [2, -1, -1],
+                         [-1, -1, -1]], dtype=torch.int32, device=cuda)
+    got = bsmm_cuda(a, b, past, bm=32, bk=32, bn=32)
+    _close(got, bsmm_plain(a, b, kept, bm=32, bk=32, bn=32), "float32", 128)
+    _close(bsmm_plain(a, b, past, bm=32, bk=32, bn=32),
+           bsmm_plain(a, b, kept, bm=32, bk=32, bn=32), "float32", 128)
+    assert torch.all(got[32:64] == 0) and torch.all(got[96:] == 0)
     with pytest.raises(ValueError, match="contiguous"):
         bsmm_cuda(a.t(), b, bad.clamp(max=0), bm=32, bk=32, bn=32)
     with pytest.raises(ValueError, match="unit column stride"):
         tiled_matmul_cuda(a.t(), b)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize(
+    "t,d,f,e,bt",
+    [(256, 64, 96, 4, 64), (512, 128, 64, 8, 128), (64, 32, 40, 3, 8),
+     (72, 48, 100, 5, 24)],
+)
+def test_grouped_gemm_kernel_matches_plain(cuda, t, d, f, e, bt, name):
+    """The reference's shapes, tiles of 8 and 24 rows (shorter than the
+    kernel's 64-row tile) and a ragged F."""
+    x, w = _rand((t, d), name, t, cuda), _rand((e, d, f), name, e, cuda)
+    te = np.random.default_rng(bt).integers(0, e, size=t // bt)
+    te_dev = torch.as_tensor(te, dtype=torch.int32, device=cuda)
+    before = grouped_gemm_cuda.launches
+    got = grouped_gemm_cuda(x, w, te_dev, bt=bt)
+    assert grouped_gemm_cuda.launches == before + 1
+    assert got.shape == (t, f) and got.dtype == x.dtype
+    want = grouped_gemm_plain(x, w, te_dev, bt=bt)
+    _close(got, want, name, d)
+    _close(ops.grouped_gemm(x, w, te, bt=bt), want, name, d)
+
+
+def test_grouped_gemm_kernel_strided_experts_and_bad_maps(cuda):
+    """Experts read in place as the K-panels of one row-major B, tokens as
+    a column slice; an out-of-range expert map is refused on the host."""
+    b = _rand((4 * 32, 200), "float32", 3, cuda)
+    w = b.view(4, 32, 200)
+    x = _rand((64, 96), "float32", 4, cuda)[:, 40:72]
+    te = np.array([3, 0, 0, 2, 1, 3, 2, 1], np.int32)
+    got = ops.grouped_gemm(x, w, te, bt=8, out_dtype=torch.float32)
+    _close(got, grouped_gemm_plain(x, w, torch.as_tensor(te), bt=8),
+           "float32", 32)
+    with pytest.raises(ValueError, match="expert"):
+        ops.grouped_gemm(x, w, np.full(8, 4, np.int32), bt=8)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        grouped_gemm_cuda(x, w.bfloat16(), torch.as_tensor(te, device=cuda),
+                          bt=8)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_ranksparse_matmul_on_the_card(cuda, name):
+    """The single-launch local rank route against its densified oracle;
+    a bf16 B is promoted to the fp32 factors' type."""
+    rcsr = synthesize_rank_csr(
+        decay_rank_map(4, 4, 32, 32, max_rank=8, decay=0.8), seed=5
+    )
+    b = _rand((128, 96), name, 5, cuda)
+    before = grouped_gemm_cuda.launches
+    got = ops.ranksparse_matmul(rcsr, b)
+    assert grouped_gemm_cuda.launches == before + 1
+    a = torch.from_numpy(rcsr.to_dense()).to(cuda)
+    _close(got, torch.matmul(a, b.float()), name, 128)

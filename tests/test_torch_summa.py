@@ -18,11 +18,7 @@ from conftest import ORACLE_ATOL, ORACLE_RTOL, SRC, oracle_case
 from repro.core import DistributedMatmul as RefDistributedMatmul
 from repro.launch.mesh import make_host_mesh
 from repro_torch.core import DistributedMatmul, Grid, plan_matmul
-from repro_torch.core.sparsity import (
-    BlockRankMap,
-    random_block_mask,
-    synthesize_rank_csr,
-)
+from repro_torch.core.sparsity import BlockRankMap, random_block_mask
 from repro_torch.core.summa import (
     SummaConfig,
     _apply_block_mask,
@@ -163,13 +159,6 @@ def test_unported_routes_raise():
         mm(a, a, a_mask=mask, b_mask=mask, comm_mode="pull")
     with pytest.raises(NotImplementedError, match="A7"):
         mm(a, a, a_mask=mask, b_mask=mask, stationarity="A")
-    rank_csr = synthesize_rank_csr(
-        BlockRankMap(ranks=np.ones((2, 2), np.int32), bm=8, bk=8), seed=0
-    )
-    with pytest.raises(NotImplementedError, match="A2"):
-        mm(None, a, a_ranks=rank_csr)
-    with pytest.raises(NotImplementedError, match="A2"):
-        mm.plan(16, 16, 16, a_ranks=rank_csr)
     with pytest.raises(NotImplementedError, match="A6"):
         mm.contract("ab,bc->ac", a, a)
     # a dense-stored rank map plans rank-aware and runs the masked DAG
