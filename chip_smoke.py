@@ -7,12 +7,14 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``::
 
 It runs the paper's SUMMA engine at the commodity-cluster size of
 ``configs/paper_mm.py`` (N = 32768, block 256) on the 1x1 grid of one
-card, through the entry point a user calls (``DistributedMatmul``), and
-checks every hand-written kernel against its plain PyTorch version.
-Phases, in order — any failure raises, so the script exits non-zero:
+card, through the entry point a user calls (``DistributedMatmul``), then
+the LM forward of llama3.2-1b at its full width and depth through
+``models.model.forward``, and checks every hand-written kernel against
+its plain PyTorch version.  Phases, in order — any failure raises, so the
+script exits non-zero:
 
 1. device: the card's name and power limit; TF32 off;
-2. build: the three CUDA kernels from the checkout's sources (nvcc,
+2. build: the four CUDA kernels from the checkout's sources (nvcc,
    sm_90a), with ptxas' register and spill report;
 3. kernel vs plain version on the card, at the reference test shapes and
    at the shapes the main path gives each kernel, fp32 and bf16;
@@ -31,7 +33,20 @@ Phases, in order — any failure raises, so the script exits non-zero:
    products only), and a small case past the dense crossover (r_pad 136
    > r* = 128) whose panels all go through ``tiled_matmul``;
 7. times of each kernel at the main path's shapes beside its plain
-   version, one library call and the card's bound.
+   version, one library call and the card's bound;
+8. LM forward: llama3.2-1b at full size (16 layers, d_model 2048, 32/8
+   heads, d_ff 8192, vocab 128256, bf16, tied embeddings), weights from
+   ``init_model`` with a seeded generator, 4 prompts x 4096 tokens.  An
+   fp32 twin of the weights with plain attention is the yardstick: the
+   fp32 forward through the kernel, and with ``matmul_strategy="summa"``
+   on ``Grid.local`` (the FFN projections through ``DistributedMatmul``),
+   must match it closely; the bf16 forwards — plain attention, the kernel
+   (the main path: 16 ``flash_attention`` launches; each prompt's greedy
+   next token) and summa — must each be no further from it than the
+   plain one is, within the stated margins.  Then each bf16 forward again,
+   warm, for its wall time and peak memory; one 32768-token prompt
+   through the kernel (finite logits); the kernel's times beside its
+   plain version, ``scaled_dot_product_attention`` and its bound.
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -39,6 +54,7 @@ the rest of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -52,6 +68,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import DistributedMatmul, Grid  # noqa: E402
+from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.configs.paper_mm import (  # noqa: E402
     COMMODITY_BLOCK,
     COMMODITY_N,
@@ -67,8 +84,13 @@ from repro_torch.core.summa import (  # noqa: E402
     rank_operands,
     reference_blocksparse_matmul,
 )
+from repro_torch.dist.context import ParallelCtx  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.grouped_gemm import (  # noqa: E402
     grouped_gemm_cuda,
     grouped_gemm_plain,
@@ -77,6 +99,7 @@ from repro_torch.kernels.tiled_matmul import (  # noqa: E402
     tiled_matmul_cuda,
     tiled_matmul_plain,
 )
+from repro_torch.models.model import LM, forward, init_model  # noqa: E402
 
 N, BLOCK = COMMODITY_N, COMMODITY_BLOCK
 K_PANELS = N // BLOCK  # 128 K panels of width 256
@@ -84,8 +107,34 @@ SPARSE_FILL = 0.3
 MAX_RANK = 64  # the rank-sparse case: r_pad 64, below r* = 128
 FALLBACK_N, FALLBACK_RANK = 4096, 136  # r_pad 136 > r*: dense panels
 SEED = 0
+#: the LM forward: full llama3.2-1b, train_4k's length and prefill_32k's
+LM_ARCH = "llama3.2-1b"
+LM_BATCH, LM_SEQ, LM_LONG_SEQ = 4, 4096, 32768
+#: Tolerances of the whole forward (max |logit difference| / max |logit|,
+#: and the least share of positions whose argmax agrees).  In fp32 the
+#: kernel's forward (and the summa one) must equal the plain-attention
+#: forward closely.  In bf16, rounding differences compound over 16
+#: layers at this model's logit scale (max |logit| ~700) into ~5 % of max
+#: |logit| and ~10 % of argmaxes between two forwards that differ only in
+#: the order of an fp32 sum; so each bf16 forward is held against the
+#: fp32 forward of the same weights, and must be no further from it than
+#: the plain-attention bf16 forward is, within the stated margins.
+LM_FP32_REL_TOL, LM_FP32_AGREE = 1e-3, 0.99
+LM_BF16_REL_RATIO, LM_BF16_AGREE_DROP = 1.5, 0.03
+#: Two bf16 forwards of the same weights that differ only in the order
+#: of fp32 sums, held against each other: the kernel's against the plain
+#: one's, and the summa one's against the xla one's.  Measured on an H100
+#: 80GB HBM3 at 700 W: 4.85 % of max |logit| and 0.901 of argmaxes, and
+#: 5.28 % and 0.889.
+LM_BF16_PAIR_REL, LM_BF16_PAIR_AGREE = 0.08, 0.85
+#: bf16 attention held to the output's scale: the kernel and its plain
+#: version both compute in fp32 and round once to bf16, so they may
+#: differ by one bf16 ulp (at most 2**-7 of |want|) and by fp32 noise,
+#: which the absolute term (a share of rms(want)) covers.
+FA_BF16_ULP_RTOL, FA_BF16_RMS_ATOL = 2.0 ** -7, 2e-2
 #: published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense tensor cores
 PEAK_HBM_BYTES_PER_S = 3.35e12
 DTYPES = (torch.float32, torch.bfloat16)
 DEVICE = "cuda"
@@ -136,9 +185,10 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float,
+          peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
     """Least time in ms on the card, and what sets it."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -321,11 +371,15 @@ def _bsmm_operands(plan, dtype, gen):
     return a_g, b_g, cols, plan.local_block
 
 
+COUNTERS = {"tiled_matmul": tiled_matmul_cuda, "bsmm": bsmm_cuda,
+            "grouped_gemm": grouped_gemm_cuda,
+            "flash_attention": flash_attention_cuda}
+
+
 def run_path(mm, a, b, kernel_of_path, **masks):
     """One product through ``mm`` with every launch count set to 0 just
     before and read just after; returns (C, wall seconds, counts)."""
-    counters = {"tiled_matmul": tiled_matmul_cuda, "bsmm": bsmm_cuda,
-                "grouped_gemm": grouped_gemm_cuda}
+    counters = dict(COUNTERS)
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -538,6 +592,341 @@ def _time_grouped(plan, r_pad, b) -> dict:
                 bound_ms=bound_ms, bound_by=by, flops=flops)
 
 
+
+# ---------------------------------------------------------------------------
+# flash attention and the LM forward
+# ---------------------------------------------------------------------------
+
+#: (h, hkv, s, causal, window): tests/test_kernels.py's shapes, the
+#: window-8 case and a ragged S
+FA_SHAPES = ((4, 2, 256, True, None), (4, 1, 256, True, 64),
+             (2, 2, 128, False, None), (8, 4, 512, True, 128),
+             (2, 2, 256, True, 8), (4, 2, 1000, True, None),
+             (4, 2, 1000, False, 100))
+
+
+def attention_tol(dtype) -> float:
+    """The reference's attention tolerance (tests/test_kernels.py)."""
+    return 2e-2 if dtype == torch.bfloat16 else 2e-3
+
+
+def heads_view(b, s, h, dh, dtype, gen):
+    """A (B, H, S, Dh) transposed view of a (B, S, H, Dh) tensor: the
+    layout the attention layer hands the kernel."""
+    return randn((b, s, h, dh), dtype, gen).transpose(1, 2)
+
+
+def compare_attention(got, want, dtype, what: str) -> float:
+    """Largest |got - want|; raises unless every element is finite and
+    within ``atol = rtol = attention_tol(dtype)`` and, in bf16, also
+    within ``FA_BF16_ULP_RTOL * |want| + FA_BF16_RMS_ATOL * rms(want)``."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
+    t = attention_tol(dtype)
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{what}: non-finite values")
+    diff = (g - w).abs()
+    err = diff.max().item()
+    bad = (diff > t + t * w.abs()).sum().item()
+    log(f"  {what}: max_abs_err={err:.6g} (atol=rtol={t}) -> "
+        f"{'ok' if not bad else f'{bad} elements out of tolerance'}")
+    if bad:
+        raise AssertionError(f"{what}: {bad} elements out of tolerance")
+    if dtype == torch.bfloat16:
+        atol = FA_BF16_RMS_ATOL * w.square().mean().sqrt().item()
+        worst = (diff / (atol + FA_BF16_ULP_RTOL * w.abs())).max().item()
+        log(f"    at the output's scale (atol {FA_BF16_RMS_ATOL} x rms = "
+            f"{atol:.4g}, rtol 2**-7): worst element at {worst:.4g} of its "
+            f"limit -> {'ok' if worst <= 1 else 'OUT OF TOLERANCE'}")
+        if worst > 1:
+            raise AssertionError(f"{what}: out of tolerance at the output's "
+                                 f"scale")
+    return err
+
+
+def attention_operands(cfg, b, s, gen):
+    """Q, K, V of the LM's attention call at batch ``b``, length ``s``."""
+    dh = cfg.resolved_head_dim
+    return (heads_view(b, s, cfg.num_heads, dh, torch.bfloat16, gen),
+            heads_view(b, s, cfg.num_kv_heads, dh, torch.bfloat16, gen),
+            heads_view(b, s, cfg.num_kv_heads, dh, torch.bfloat16, gen))
+
+
+def phase_attention_kernel(cfg) -> float:
+    """flash_attention against its plain version; returns the error at the
+    LM's shape (bf16, causal)."""
+    log("[3 flash_attention vs plain version]")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    for dtype in DTYPES:
+        for h, hkv, s, causal, window in FA_SHAPES:
+            q = heads_view(2, s, h, 64, dtype, gen)
+            k = heads_view(2, s, hkv, 64, dtype, gen)
+            v = heads_view(2, s, hkv, 64, dtype, gen)
+            got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+            torch.cuda.synchronize()
+            compare_attention(
+                got, flash_attention_plain(q, k, v, causal=causal,
+                                           window=window), dtype,
+                f"flash_attention {dtype} h={h} hkv={hkv} S={s} "
+                f"causal={causal} window={window}")
+        for dh in (128, 256):
+            q = heads_view(2, 600, 4, dh, dtype, gen)
+            k = heads_view(2, 600, 1, dh, dtype, gen)
+            v = heads_view(2, 600, 1, dh, dtype, gen)
+            for causal, window in ((True, None), (True, 100)):
+                got = flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window)
+                torch.cuda.synchronize()
+                compare_attention(
+                    got, flash_attention_plain(q, k, v, causal=causal,
+                                               window=window), dtype,
+                    f"flash_attention {dtype} Dh={dh} S=600 causal={causal} "
+                    f"window={window}")
+    q, k, v = attention_operands(cfg, LM_BATCH, LM_SEQ, gen)
+    got = flash_attention_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = compare_attention(
+        got, flash_attention_plain(q, k, v, causal=True), torch.bfloat16,
+        f"flash_attention bf16 main (B={LM_BATCH}, H={cfg.num_heads}, "
+        f"Hkv={cfg.num_kv_heads}, S={LM_SEQ}, Dh={cfg.resolved_head_dim}, "
+        f"causal)")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return err
+
+
+def live_pairs(s: int, causal: bool, window: int | None) -> int:
+    """(query, key) pairs the masks leave live in one head of length s."""
+    q = np.arange(s)
+    lo = np.zeros(s, np.int64) if window is None else np.maximum(
+        q - window + 1, 0)
+    hi = q + 1 if causal else np.full(s, s)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def time_attention(cfg, b, s, iters) -> dict:
+    """The kernel at the LM's attention call beside its plain version,
+    ``scaled_dot_product_attention`` and its bound: 4·B·H·Dh FLOP per
+    live (query, key) pair at the bf16 tensor-core peak, against Q, K, V
+    read once and O written once at the card's memory rate."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    q, k, v = attention_operands(cfg, b, s, gen)
+    pairs = live_pairs(s, True, cfg.window)
+    flops = 4.0 * b * cfg.num_heads * cfg.resolved_head_dim * pairs
+    nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True), iters)
+    out = dict(ms=ms, flops=flops, nbytes=nbytes, pairs=pairs)
+    if s <= LM_SEQ:  # the plain version's scores: 8.6 GB at B=4, S=4096
+        out["plain_ms"] = cuda_ms(
+            lambda: flash_attention_plain(q, k, v, causal=True), iters)
+        out["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), iters)
+    out["bound_ms"], out["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    log(f"  flash_attention B={b} H={cfg.num_heads} Hkv={cfg.num_kv_heads} "
+        f"S={s} Dh={cfg.resolved_head_dim} bf16 causal: kernel {ms:.3f} ms "
+        f"({flops / ms / 1e9:.2f} TFLOP/s), "
+        + (f"plain {out['plain_ms']:.3f} ms, scaled_dot_product_attention "
+           f"{out['library_ms']:.3f} ms, " if "plain_ms" in out else "")
+        + f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
+        f"{flops:.4g} FLOP at {PEAK_BF16_FLOPS:.3g} FLOP/s = "
+        f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms; {nbytes:.4g} bytes at "
+        f"{PEAK_HBM_BYTES_PER_S:.3g} B/s = "
+        f"{nbytes / PEAK_HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_forward(model, tokens, cfg, ctx, *, use_kernel, what):
+    """One forward with every launch count set to 0 just before and read
+    just after; returns (logits, wall seconds, counts, peak bytes)."""
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        logits, _ = forward(model, {"tokens": tokens}, cfg, ctx,
+                            use_kernel=use_kernel)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    log(f"  {what}: launches {counts}; wall {wall:.3f} s; peak device "
+        f"memory {peak / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB resident "
+        f"before the call)")
+    want = cfg.num_layers if use_kernel else 0
+    if counts["flash_attention"] != want or any(
+            n for name, n in counts.items() if name != "flash_attention"):
+        raise AssertionError(
+            f"{what}: expected {want} flash_attention launches and no "
+            f"other kernel, got {counts}")
+    b, s = tokens.shape
+    if logits.shape != (b, s, cfg.vocab_size) or logits.dtype != torch.float32:
+        raise AssertionError(f"{what}: logits {tuple(logits.shape)} "
+                             f"{logits.dtype}")
+    return logits, wall, counts, peak
+
+
+def logit_distance(got, want, what: str) -> tuple[float, float]:
+    """(max |got - want| / max |want|, share of positions whose argmax
+    agrees); raises unless every logit is finite."""
+    diff = scale = 0.0
+    agree = 0
+    for i in range(got.shape[0]):  # one prompt at a time bounds temporaries
+        g, w = got[i], want[i]
+        if not (torch.isfinite(g).all() and torch.isfinite(w).all()):
+            raise AssertionError(f"{what}: non-finite logits")
+        diff = max(diff, (g - w).abs().max().item())
+        scale = max(scale, w.abs().max().item())
+        agree += (g.argmax(-1) == w.argmax(-1)).sum().item()
+    rel = diff / scale
+    share = agree / (got.shape[0] * got.shape[1])
+    log(f"  {what}: max |logit difference| {diff:.6g} = {rel:.6g} of max "
+        f"|logit| {scale:.6g}; argmax agrees at {share:.6f} of positions")
+    return rel, share
+
+
+def hold(ok: bool, what: str) -> None:
+    log(f"    -> {what}: {'ok' if ok else 'OUT OF TOLERANCE'}")
+    if not ok:
+        raise AssertionError(f"{what}: out of tolerance")
+
+
+def fp32_twin(model, cfg):
+    """The model with every parameter widened to fp32 (exact)."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    twin = LM(cfg32, device=DEVICE)
+    params = dict(model.named_parameters())
+    for name, p in twin.named_parameters():
+        p.data.copy_(params[name])
+    return twin, cfg32
+
+
+def phase_lm(cfg) -> dict:
+    """The LM forward at full size; returns its numbers."""
+    n_params = cfg.param_count()
+    log(f"[8 LM forward] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads}/{cfg.num_kv_heads} (Dh "
+        f"{cfg.resolved_head_dim}), d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.dtype}, tied embeddings {cfg.tie_embeddings}; "
+        f"{n_params / 1e9:.3f} B parameters")
+    t0 = time.perf_counter()
+    model = init_model(cfg, generator=torch.Generator(
+        device=DEVICE).manual_seed(SEED), device=DEVICE)
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  init_model on the card: {time.perf_counter() - t0:.2f} s, "
+        f"{weights / 2**30:.2f} GiB of weights")
+    tok_gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=tok_gen, device=DEVICE)
+    out = {}
+    xla = ParallelCtx(None)
+    summa = ParallelCtx(Grid.local(DEVICE), matmul_strategy="summa")
+    # the yardstick: an fp32 twin of the same weights, plain attention
+    model32, cfg32 = fp32_twin(model, cfg)
+    ref32, _, _, _ = run_forward(
+        model32, tokens, cfg32, xla, use_kernel=False,
+        what=f"fp32 forward(use_kernel=False) B={LM_BATCH} S={LM_SEQ}")
+    for ctx, what in ((xla, "fp32 kernel forward vs fp32 plain forward"),
+                      (summa, "fp32 summa kernel forward vs fp32 plain "
+                              "forward")):
+        got, _, _, _ = run_forward(model32, tokens, cfg32, ctx,
+                                   use_kernel=True, what=what.split(" vs")[0])
+        rel, share = logit_distance(got, ref32, what)
+        hold(rel <= LM_FP32_REL_TOL and share >= LM_FP32_AGREE,
+             f"{what} within {LM_FP32_REL_TOL} and at least {LM_FP32_AGREE}")
+        out["fp32_summa" if ctx is summa else "fp32"] = (rel, share)
+        del got
+    del model32
+    torch.cuda.empty_cache()
+    # the bf16 forwards: plain attention, the kernel (the main path), and
+    # the kernel with the FFN projections on the engine
+    plain, _, _, _ = run_forward(
+        model, tokens, cfg, xla, use_kernel=False,
+        what=f"forward(use_kernel=False) B={LM_BATCH} S={LM_SEQ}")
+    rel_p, share_p = logit_distance(plain, ref32,
+                                    "bf16 plain forward vs fp32 forward")
+    logits, _, counts, _ = run_forward(
+        model, tokens, cfg, xla, use_kernel=True,
+        what=f"forward(use_kernel=True) B={LM_BATCH} S={LM_SEQ}")
+    out["launches"] = counts["flash_attention"]
+    greedy = logits[:, -1].argmax(-1).tolist()
+    log(f"  greedy next token of each prompt: {greedy}")
+    out["rel"], out["agree"] = logit_distance(
+        logits, plain, "bf16 kernel forward vs bf16 plain forward")
+    hold(out["rel"] <= LM_BF16_PAIR_REL and out["agree"] >= LM_BF16_PAIR_AGREE,
+         f"bf16 kernel forward vs bf16 plain forward within "
+         f"{LM_BF16_PAIR_REL} and at least {LM_BF16_PAIR_AGREE}")
+    del plain
+    torch.cuda.empty_cache()
+    bf16_bound = (f"no further from the fp32 forward than {LM_BF16_REL_RATIO}"
+                  f" x the plain forward's {rel_p:.6g}, argmax within "
+                  f"{LM_BF16_AGREE_DROP} of its {share_p:.6f}")
+    rel, share = logit_distance(logits, ref32,
+                                "bf16 kernel forward vs fp32 forward")
+    hold(rel <= LM_BF16_REL_RATIO * rel_p
+         and share >= share_p - LM_BF16_AGREE_DROP,
+         f"bf16 kernel forward vs fp32 forward: {bf16_bound}")
+    on_engine, _, _, _ = run_forward(
+        model, tokens, cfg, summa, use_kernel=True,
+        what=f"forward(use_kernel=True, matmul_strategy='summa') "
+             f"B={LM_BATCH} S={LM_SEQ}")
+    stats = summa.matmul().cache_stats()["plan"]
+    log(f"  the engine's plan cache over the forwards: {stats}")
+    out["summa_rel"], out["summa_agree"] = logit_distance(
+        on_engine, logits, "bf16 summa forward vs bf16 xla forward")
+    hold(out["summa_rel"] <= LM_BF16_PAIR_REL
+         and out["summa_agree"] >= LM_BF16_PAIR_AGREE,
+         f"bf16 summa forward vs bf16 xla forward within "
+         f"{LM_BF16_PAIR_REL} and at least {LM_BF16_PAIR_AGREE}")
+    rel, share = logit_distance(on_engine, ref32,
+                                "bf16 summa forward vs fp32 forward")
+    hold(rel <= LM_BF16_REL_RATIO * rel_p
+         and share >= share_p - LM_BF16_AGREE_DROP,
+         f"bf16 summa forward vs fp32 forward: {bf16_bound}")
+    del on_engine, logits, ref32
+    torch.cuda.empty_cache()
+    # walls and peaks: each bf16 forward again, warm, with nothing but
+    # the weights resident
+    for key, ctx, use_kernel in (("", xla, True), ("plain_", xla, False),
+                                 ("summa_", summa, True)):
+        _, out[key + "wall"], _, out[key + "peak"] = run_forward(
+            model, tokens, cfg, ctx, use_kernel=use_kernel,
+            what=f"warm forward(use_kernel={use_kernel}, "
+                 f"matmul_strategy={ctx.matmul_strategy!r}) B={LM_BATCH} "
+                 f"S={LM_SEQ}")
+    # one prompt at prefill_32k's length: no plain yardstick (its scores
+    # would take 137 GB)
+    long_tokens = torch.randint(0, cfg.vocab_size, (1, LM_LONG_SEQ),
+                                generator=tok_gen, device=DEVICE)
+    logits, out["long_wall"], counts, out["long_peak"] = run_forward(
+        model, long_tokens, cfg, xla, use_kernel=True,
+        what=f"forward(use_kernel=True) B=1 S={LM_LONG_SEQ}")
+    for i in range(0, LM_LONG_SEQ, 4096):
+        if not torch.isfinite(logits[0, i:i + 4096]).all():
+            raise AssertionError(f"S={LM_LONG_SEQ} forward: non-finite logits")
+    log(f"  S={LM_LONG_SEQ} forward: all {logits.numel()} logits finite; greedy next "
+        f"token {logits[0, -1].argmax().item()}")
+    out["long_launches"] = counts["flash_attention"]
+    del logits, model
+    torch.cuda.empty_cache()
+    log("[7 times] flash_attention at the LM's attention calls")
+    out["times"] = time_attention(cfg, LM_BATCH, LM_SEQ, 10)
+    out["long_times"] = time_attention(cfg, 1, LM_LONG_SEQ, 2)
+    for key, wall, t in ((f"B={LM_BATCH} S={LM_SEQ}", out["wall"], out["times"]),
+                         (f"B=1 S={LM_LONG_SEQ}", out["long_wall"], out["long_times"])):
+        share = cfg.num_layers * t["ms"] / 1e3 / wall
+        log(f"  forward at {key}: wall {wall:.3f} s, of which "
+            f"{cfg.num_layers} kernel launches {cfg.num_layers * t['ms']:.1f} "
+            f"ms ({share:.3f} of the wall)")
+    return out
+
+
 def main() -> None:
     kind, count = phase_device()
     phase_build()
@@ -562,6 +951,8 @@ def main() -> None:
     log(f"[data] the factors' layout on the host (rank_operands, memoized on "
         f"rcsr; a caller's first product pays it): {layout_s:.3f} s")
     errs = phase_kernels(sparse_plan, rank_plan, rcsr.r_pad)
+    lm_cfg = get_config(LM_ARCH)
+    errs["flash_attention"] = phase_attention_kernel(lm_cfg)
     torch.cuda.reset_peak_memory_stats()
     a = torch.from_numpy(a_h).to(DEVICE)
     b = torch.from_numpy(b_h).to(DEVICE)
@@ -584,14 +975,28 @@ def main() -> None:
         f"{rank['xla']['wall']:.3f} s "
         f"(peak {rank['xla']['peak'] / 2**30:.2f} GiB); a first product "
         f"adds the layout's {layout_s:.3f} s")
+    del a, b
+    torch.cuda.empty_cache()
+    lm = phase_lm(lm_cfg)
+    times["flash_attention"] = lm["times"]
+    log(f"  LM forward (host clock, ending in synchronize): B={LM_BATCH} "
+        f"S={LM_SEQ} {lm['wall']:.3f} s through the kernel (peak "
+        f"{lm['peak'] / 2**30:.2f} GiB), {lm['plain_wall']:.3f} s with plain "
+        f"attention (peak {lm['plain_peak'] / 2**30:.2f} GiB), "
+        f"{lm['summa_wall']:.3f} s with summa FFN projections; B=1 "
+        f"S={LM_LONG_SEQ} {lm['long_wall']:.3f} s (peak "
+        f"{lm['long_peak'] / 2**30:.2f} GiB)")
     launches = {"tiled_matmul": dense_launches, "bsmm": sparse_launches,
-                "grouped_gemm": rank["pallas"]["launches"]}
+                "grouped_gemm": rank["pallas"]["launches"],
+                "flash_attention": lm["launches"]}
     sources = {"tiled_matmul": ("src/repro_torch/csrc/tiled_matmul.cu",
                                 "src/repro/kernels/tiled_matmul.py:32"),
                "bsmm": ("src/repro_torch/csrc/bsmm.cu",
                         "src/repro/kernels/bsmm.py:30"),
                "grouped_gemm": ("src/repro_torch/csrc/grouped_gemm.cu",
-                                "src/repro/kernels/grouped_gemm.py:28")}
+                                "src/repro/kernels/grouped_gemm.py:28"),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:30")}
     kernels = []
     for name, (source, replaces) in sources.items():
         t = times[name]

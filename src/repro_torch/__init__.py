@@ -3,11 +3,20 @@
 A second package beside the JAX reference ``repro``, mirroring it module
 for module (``repro_torch/core/plan.py`` is the port of
 ``repro/core/plan.py``, and so on).  It imports ``torch`` and never
-``jax`` nor ``repro``.  Ported so far: the matmul engine's main path —
-``DistributedMatmul`` -> ``plan_matmul`` -> ``execute_plan`` — dense and
-block-sparse, with the reference's two Pallas kernels on that path
-(``tiled_matmul``, ``bsmm``) rewritten as CUDA kernels for Hopper.
-Entry points run on ``cuda`` unless the caller asks for the CPU.
+``jax`` nor ``repro``.  Ported so far:
+
+* the matmul engine's main path — ``DistributedMatmul`` ->
+  ``plan_matmul`` -> ``execute_plan`` — dense and block-sparse, through
+  the ``tiled_matmul`` and ``bsmm`` kernels;
+* its block-rank-sparse route — ``DistributedMatmul(None, b,
+  a_ranks=RankCSR)`` -> ``execute_rank_plan`` — through ``grouped_gemm``;
+* the LM forward of the dense-attention family — ``models.model.forward``
+  and ``loss_fn`` with ``dist.context.ParallelCtx`` and
+  ``dist.collective_matmul.project`` — through ``flash_attention``.
+
+Each of the reference's four Pallas kernels is a hand-written CUDA kernel
+for Hopper (``csrc/``).  Entry points run on ``cuda`` unless the caller
+asks for the CPU.
 """
 from repro_torch.core import (
     DistributedMatmul,

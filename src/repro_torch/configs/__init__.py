@@ -1,1 +1,2 @@
-"""Experiment configurations (only the paper's matmul sizes so far)."""
+"""Experiment configurations: the paper's matmul sizes (``paper_mm``) and
+the models of the dense-attention family (``registry.get_config``)."""

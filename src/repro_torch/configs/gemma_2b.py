@@ -1,0 +1,31 @@
+"""gemma-2b — dense, GeGLU, MQA, head_dim=256.
+
+[arXiv:2403.08295] 18L d_model=2048 8H (MQA kv=1) d_ff=16384 vocab=256000.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="gemma-2b",
+    family="dense",
+    num_layers=18,
+    d_model=2048,
+    num_heads=8,
+    num_kv_heads=1,
+    head_dim=256,
+    d_ff=16384,
+    vocab_size=256_000,
+    activation="geglu",
+)
+
+SMOKE = ModelConfig(
+    name="gemma-2b-smoke",
+    family="dense",
+    num_layers=2,
+    d_model=64,
+    num_heads=4,
+    num_kv_heads=1,
+    head_dim=32,
+    d_ff=256,
+    vocab_size=512,
+    activation="geglu",
+)

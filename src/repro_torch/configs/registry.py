@@ -1,0 +1,69 @@
+"""Architecture registry: ``--arch <id>`` resolution.
+
+The port of ``repro.configs.registry``, with the reference's ten ids.
+Each ported id maps to a module exporting ``CONFIG`` (the full,
+paper-faithful configuration) and ``SMOKE`` (a reduced variant for CPU
+tests); ``get_config(arch, smoke=...)`` picks one.  The port runs only
+the dense-attention family so far: any other known id raises
+``NotImplementedError`` naming the ROADMAP item its blocks wait for.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["ARCH_IDS", "SKIPS", "cell_skip_reason", "get_config"]
+
+_MODULES = {
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "hubert-xlarge": "hubert_xlarge",
+    "llama3.2-1b": "llama3_2_1b",
+    "gemma-2b": "gemma_2b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "command-r-35b": "command_r_35b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+}
+
+#: ids whose blocks the port cannot run yet -> what they wait for
+_UNPORTED = {
+    "recurrentgemma-9b": "models/recurrent.py (RG-LRU blocks), ROADMAP A9b",
+    "xlstm-1.3b": "models/recurrent.py (mLSTM/sLSTM blocks), ROADMAP A9b",
+    "hubert-xlarge": "the audio frontend, ROADMAP A9d",
+    "mixtral-8x7b": "models/moe.py, ROADMAP A9a",
+    "kimi-k2-1t-a32b": "models/moe.py, ROADMAP A9a",
+    "qwen2-vl-72b": "M-RoPE and the VLM frontend, ROADMAP A9d",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch: str, smoke: bool = False) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    if arch in _UNPORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported yet: it needs {_UNPORTED[arch]}"
+        )
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+# (arch, shape) cells that are skipped, with reasons (README.md §Cell skips)
+SKIPS: dict[tuple[str, str], str] = {
+    ("llama3.2-1b", "long_500k"): "skip(full-attn)",
+    ("gemma-2b", "long_500k"): "skip(full-attn)",
+    ("qwen2.5-32b", "long_500k"): "skip(full-attn)",
+    ("command-r-35b", "long_500k"): "skip(full-attn)",
+    ("kimi-k2-1t-a32b", "long_500k"): "skip(full-attn)",
+    ("qwen2-vl-72b", "long_500k"): "skip(full-attn)",
+    ("hubert-xlarge", "long_500k"): "skip(encoder-only)",
+    ("hubert-xlarge", "decode_32k"): "skip(encoder-only)",
+}
+
+
+def cell_skip_reason(arch: str, shape: str) -> str | None:
+    return SKIPS.get((arch, shape))

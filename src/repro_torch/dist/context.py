@@ -1,0 +1,181 @@
+"""ParallelCtx: the one object that carries parallelism policy.
+
+The port of ``repro.dist.context``.  Every model entry point takes a
+``ParallelCtx``.  It bundles the device grid with the axis roles (which
+grid axis acts as data parallel, which as tensor parallel) and the
+feature switches of the reference that the ported modules read (matmul
+strategy, attention implementation, pure data parallelism, static
+weight sparsity).  The reference's switches of unported modules (mLSTM
+chunking, sLSTM replication: ROADMAP A9b; ZeRO-1: A10; KV-cache
+quantization: A11) are not fields here.  Model code never
+touches the grid directly; it goes through ``ctx.wsc`` and
+``repro_torch.dist.collective_matmul.project``.
+
+The port holds a ``core.grid.Grid`` (or ``None``) where the reference
+holds a ``Mesh``.  Activations are whole on every rank, so ``wsc`` (the
+reference's sharding constraint) is the identity; the port's sharding
+rules wait for ROADMAP A8.  ``matmul()`` wires the paper's engine into
+the LM stack: with ``matmul_strategy="summa"`` it builds a
+``core.api.DistributedMatmul`` over the (dp x tp) grid running the
+task-based multiple-issue schedule, and the FFN projections route
+through it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+from repro_torch.core.grid import Grid
+
+__all__ = ["ParallelCtx"]
+
+#: matmul_strategy -> core.summa strategy actually executed
+_MATMUL_STRATEGIES = {
+    "xla": None,  # plain torch.matmul (the reference's einsum)
+    "summa": "taskbased",  # paper Eq. (1) multiple-issue SUMMA
+    "allgather": "allgather",  # I = K endpoint of Eq. (1)
+    # per-shape pick by the schedule tuner (not ported: ROADMAP A1)
+    "auto": "taskbased",
+}
+
+
+@dataclasses.dataclass
+class ParallelCtx:
+    """Grid + axis roles + parallelism feature switches.
+
+    ``dp_axes`` may name several axes in the reference (a two-pod mesh);
+    a ``Grid`` has two, so the engine takes one data-parallel axis.
+    ``pure_dp=True`` folds the tensor-parallel axis into data
+    parallelism: ``tp_axis`` becomes ``None``.
+    """
+
+    grid: Grid | None
+    dp_axes: tuple[str, ...] = ("data",)
+    tp_axis: str | None = "model"
+    matmul_strategy: str = "xla"  # "xla" | "summa" | "allgather" | "auto"
+    attention_impl: str = "ref"  # "ref" | "chunked"
+    pure_dp: bool = False
+    # Static block-sparsity of projection weights: maps (d_in, d_out) ->
+    # bool block mask.  ``project`` consults it so sparse FFN weights run
+    # the planned block-sparse schedule (and the xla path stays masked for
+    # an identical arithmetic contract).
+    weight_block_masks: Any = None
+
+    def __post_init__(self):
+        if isinstance(self.dp_axes, str):
+            self.dp_axes = (self.dp_axes,)
+        else:
+            self.dp_axes = tuple(self.dp_axes)
+        if self.matmul_strategy not in _MATMUL_STRATEGIES:
+            raise ValueError(
+                f"matmul_strategy={self.matmul_strategy!r}; "
+                f"known: {sorted(_MATMUL_STRATEGIES)}"
+            )
+        # With pure DP there is no tensor-parallel axis: remember the raw
+        # name for SUMMA grid construction but expose tp_axis=None.
+        self._tp_axis_raw = self.tp_axis
+        if self.pure_dp:
+            self.tp_axis = None
+        self._mm_cache = None
+
+    # -- grid geometry -------------------------------------------------------
+
+    @property
+    def has_grid(self) -> bool:
+        return self.grid is not None
+
+    @property
+    def dp(self):
+        """The data-parallel axis entry (name or tuple of names)."""
+        return self.dp_axes if len(self.dp_axes) > 1 else self.dp_axes[0]
+
+    @property
+    def dp_size(self) -> int:
+        if not self.has_grid:
+            return 1
+        return math.prod(self.grid.shape[a] for a in self.dp_axes)
+
+    @property
+    def tp_size(self) -> int:
+        if not self.has_grid or self.tp_axis is None:
+            return 1
+        return self.grid.shape[self.tp_axis]
+
+    # -- sharding helpers ----------------------------------------------------
+
+    def wsc(self, x, *entries):
+        """The reference's sharding constraint: the identity, since every
+        rank holds whole activations (sharding rules: ROADMAP A8)."""
+        del entries
+        return x
+
+    # -- static weight sparsity ----------------------------------------------
+
+    def weight_mask(self, shape) -> Any:
+        """Block mask registered for a (d_in, d_out) weight shape, if any."""
+        if not self.weight_block_masks:
+            return None
+        return self.weight_block_masks.get(tuple(shape))
+
+    # -- the paper's engine --------------------------------------------------
+
+    def matmul(self) -> Any:
+        """Factory: the ``core.api.DistributedMatmul`` realising this ctx's
+        matmul strategy on the (dp x tp) grid.
+
+        Cached — SUMMA configuration is static per context, so every FFN
+        projection of the stack shares one engine and its plan cache.
+        """
+        if self._mm_cache is not None:
+            return self._mm_cache
+        if not self.has_grid:
+            raise ValueError("matmul_strategy needs a grid; got grid=None")
+        strategy = _MATMUL_STRATEGIES[self.matmul_strategy]
+        if strategy is None:
+            raise ValueError("matmul() is not used for the 'xla' strategy")
+        if self._tp_axis_raw is None:
+            raise ValueError("SUMMA needs a tensor-parallel grid axis")
+        if len(self.dp_axes) > 1:
+            raise ValueError(
+                f"a Grid has one data-parallel axis, got {self.dp_axes}"
+            )
+        from repro_torch.core.api import DistributedMatmul  # no cycle
+
+        self._mm_cache = DistributedMatmul(
+            self.grid,
+            row_axis=self.dp,
+            col_axis=self._tp_axis_raw,
+            strategy=strategy,
+        )
+        return self._mm_cache
+
+    def plan_projection(
+        self, m: int, d_in: int, d_out: int, *, itemsize=4, tune=False,
+        stationarity: str = "C", strategy: str | None = None,
+        lookahead: int | None = None, comm_mode: str = "broadcast",
+        k_blocks: int | None = None,
+    ):
+        """Pre-build (and cache) the plan for an (m, d_in)x(d_in, d_out)
+        projection, so the first forward finds it in the engine's plan
+        cache.  No-op (``None``) on the xla path.  ``tune=True`` needs the
+        schedule tuner and raises (ROADMAP A1), as does a stationarity
+        other than ``"C"`` at execution (A7).
+        """
+        if (
+            not self.has_grid
+            or self.matmul_strategy == "xla"
+            or self.pure_dp
+        ):
+            return None
+        return self.matmul().plan(
+            m, d_in, d_out,
+            b_mask=self.weight_mask((d_in, d_out)),
+            itemsize=itemsize,
+            tune=tune,
+            stationarity=stationarity,
+            strategy=strategy,
+            lookahead=lookahead,
+            comm_mode=comm_mode,
+            k_blocks=k_blocks,
+        )

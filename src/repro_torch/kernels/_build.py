@@ -27,7 +27,8 @@ import torch
 __all__ = ["build", "load", "check", "dtype_code", "stream_handle"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("tiled_matmul.cu", "bsmm.cu", "grouped_gemm.cu")
+SOURCES = ("tiled_matmul.cu", "bsmm.cu", "grouped_gemm.cu",
+           "flash_attention.cu")
 HEADERS = ("tile.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
@@ -38,6 +39,7 @@ NVCC_FLAGS = (
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/tile.cuh
 _i64, _int, _ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+_f32 = ctypes.c_float
 _SIGNATURES = {
     "tiled_matmul_launch": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64,
                             _int, _int, _ptr],
@@ -45,6 +47,10 @@ _SIGNATURES = {
                     _int, _int, _int, _int, _int, _ptr],
     "grouped_gemm_launch": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64,
                             _i64, _i64, _int, _int, _int, _int, _ptr],
+    # q, k, v, o; B, H, Hkv, Sq, Sk, Dh; (batch, head, seq) strides of q,
+    # k, v, o; scale, causal, has_window, window, dtype, stream
+    "flash_attention_launch": [_ptr] * 4 + [_i64] * 18 + [_f32, _int, _int,
+                                                          _i64, _int, _ptr],
 }
 
 _lib: ctypes.CDLL | None = None

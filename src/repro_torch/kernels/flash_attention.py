@@ -1,0 +1,150 @@
+"""Flash attention (forward): the CUDA kernel and its plain PyTorch version.
+
+Replaces the TPU kernel ``repro/kernels/flash_attention.py::_fa_kernel``
+(driven by ``flash_attention_pallas``): softmax attention of ``q``
+(B, H, Sq, Dh) over ``k``, ``v`` (B, Hkv, Sk, Dh) with GQA head groups
+(query head ``h`` reads kv head ``h // (H / Hkv)`` of its batch), a causal
+mask (key <= query) and a sliding window (query - key < window), scale
+``1/sqrt(Dh)`` unless given, computed in fp32 and returned in ``q``'s
+dtype.  A query row with no live key gives 0, as the TPU kernel gives
+for a row whose every key tile it skips; the reference's
+``ref.flash_attention_ref`` gives NaN there (a softmax of all ``-inf``).
+
+The kernel (``csrc/flash_attention.cu``) gives each block of 256 threads
+one 64-row query tile of one (batch, head) and loops over only the key
+tiles the masks leave live, with the online softmax in fp32 registers.
+It takes Dh of 64, 128 or 256, any Sq and Sk (the ragged tail is masked)
+and (batch, head, sequence) strides with Dh contiguous, so the attention
+layer's transposed views need no copy; the output has ``q``'s layout.
+At the LM's shape (B = 4, H = 32, Hkv = 8, S = 4096, Dh = 64, bf16,
+causal) the live work is 2.7e11 FLOP against 0.17 GB of operands:
+bound by operations (0.28 ms at the card's 989 TFLOP/s of bf16 tensor
+cores), which this simple kernel, on fp32 FMA, does not approach.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+__all__ = ["flash_attention_cuda", "flash_attention_plain"]
+
+#: head widths the CUDA kernel is built for (csrc/flash_attention.cu)
+HEAD_DIMS = (64, 128, 256)
+
+
+def _check_shapes(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"need q (B, H, Sq, Dh) and k, v (B, Hkv, Sk, Dh) of one shape, "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3]:
+        raise ValueError(
+            f"batch or head width differ: q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}"
+        )
+    if k.shape[1] == 0 or q.shape[1] % k.shape[1]:
+        raise ValueError(
+            f"q heads {q.shape[1]} must be a multiple of kv heads "
+            f"{k.shape[1]}"
+        )
+
+
+def _live_mask(sq: int, sk: int, causal: bool, window: int | None,
+               device=None) -> torch.Tensor:
+    """(Sq, Sk) bool: which keys each query may attend to."""
+    pos_q = torch.arange(sq, device=device)[:, None]
+    pos_k = torch.arange(sk, device=device)[None, :]
+    live = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        live &= pos_q >= pos_k
+    if window is not None:
+        live &= pos_q - pos_k < window
+    return live
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int | None = None,
+                          scale: float | None = None) -> torch.Tensor:
+    """Attention by materialising the (B, H, Sq, Sk) fp32 scores.
+
+    The reference's ``flash_attention_ref`` math (fp32 scores of the
+    scaled queries, masked, softmax, times V) written as ``exp(s - max)``
+    normalised after the product with V, so that a row with no live key
+    gives 0 and not NaN.  The scores are updated in place: one fp32
+    buffer of B·H·Sq·Sk elements is the peak (8.6 GB at B = 4, H = 32,
+    S = 4096), freed on return.
+    """
+    _check_shapes(q, k, v)
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = h // hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    qg = (q.float() * scale).reshape(b, hkv, g, sq, dh)
+    s = torch.matmul(qg, k.float().unsqueeze(2).transpose(-1, -2))
+    del qg
+    s.masked_fill_(~_live_mask(sq, sk, causal, window, q.device),
+                   float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = s.sub_(m).exp_()  # exp(-inf) = 0 on masked keys
+    denom = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p, v.float().unsqueeze(2))
+    del s, p
+    out = out / torch.where(denom == 0, torch.ones_like(denom), denom)
+    return out.reshape(b, h, sq, dh).to(q.dtype)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int | None = None,
+                         scale: float | None = None) -> torch.Tensor:
+    """Attention through the CUDA kernel; counts its launches.
+
+    ``q``, ``k``, ``v`` are float32 or bfloat16 CUDA tensors of one dtype,
+    Dh in ``HEAD_DIMS``, each with unit last stride (any batch, head and
+    sequence strides).  The result is a new tensor of ``q``'s shape,
+    dtype and layout (``torch.empty_like``).
+    """
+    _check_shapes(q, k, v)
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if dh not in HEAD_DIMS:
+        raise ValueError(
+            f"the flash-attention kernel takes head widths {HEAD_DIMS}, "
+            f"not {dh}"
+        )
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(
+            f"operand dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(
+            f"flash_attention_cuda needs q, k, v on one CUDA device, got "
+            f"{q.device}, {k.device}, {v.device}"
+        )
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1:
+            raise ValueError(
+                f"{name} must have unit stride along Dh (got strides "
+                f"{x.stride()})"
+            )
+    code = _build.dtype_code(q.dtype)
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    o = torch.empty_like(q)
+    err = _build.load().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, hkv,
+        sq, sk, dh, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *o.stride()[:3], float(scale), int(causal), int(window is not None),
+        0 if window is None else int(window), code,
+        _build.stream_handle(q.device),
+    )
+    _build.check(err, "flash_attention kernel launch")
+    flash_attention_cuda.launches += 1
+    return o
+
+
+#: kernel launches so far (a plain integer; set it to 0 to start a count)
+flash_attention_cuda.launches = 0

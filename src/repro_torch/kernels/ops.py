@@ -1,4 +1,6 @@
-"""Public wrappers for the hand-written kernels.
+"""Public wrappers for the four hand-written kernels: ``tiled_matmul``,
+``bsmm`` (and ``bsmm_cols``), ``grouped_gemm`` (and ``ranksparse_matmul``
+built on it) and ``flash_attention``.
 
 Handle shape padding, tile selection, dtype policy and the choice of path,
 which follows the device of the operands and nothing else: a CUDA tensor
@@ -13,7 +15,9 @@ and cut the result back, exactly as the reference's ``repro.kernels.ops``
 does.  Index maps (``bsmm``'s column map, ``grouped_gemm``'s tile
 experts) are taken as host arrays, checked there, and moved to the
 operands' device, so a launch never waits on the card to check them.
-``flash_attention`` is not ported yet (ROADMAP B4).
+``flash_attention`` launches its kernel for every CUDA tensor, whatever
+the sequence length: the kernel masks a ragged tail, so the reference's
+fall-back to plain attention for lengths off the tile is not needed.
 """
 from __future__ import annotations
 
@@ -23,6 +27,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.sparsity import block_csr_from_mask
 from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.grouped_gemm import (
     grouped_gemm_cuda,
     grouped_gemm_plain,
@@ -34,6 +42,7 @@ from repro_torch.kernels.tiled_matmul import (
 
 __all__ = [
     "tiled_matmul", "bsmm", "bsmm_cols", "grouped_gemm", "ranksparse_matmul",
+    "flash_attention",
 ]
 
 
@@ -215,3 +224,26 @@ def ranksparse_matmul(
                     device=b.device)
     c.index_add_(0, row_ids, partials)
     return c.reshape(m, n).to(out_dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+    bq: int = 256,
+    bk: int = 256,
+) -> torch.Tensor:
+    """Tiled online-softmax attention (forward) of ``q`` (B, H, S, Dh) over
+    ``k``, ``v`` (B, Hkv, S, Dh).
+
+    ``bq``/``bk`` are the reference's Pallas tile and have no counterpart:
+    the CUDA kernel runs its own 64-row query tiles and key tiles of 64
+    (32 at Dh = 256) and masks the ragged tail, so any S launches it.
+    """
+    del bq, bk  # the kernel tiles itself
+    run = _route(q, flash_attention_cuda, flash_attention_plain)
+    return run(q, k, v, causal=causal, window=window, scale=scale)

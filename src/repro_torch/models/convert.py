@@ -1,0 +1,76 @@
+"""Weights carried across from the JAX package.
+
+``params_from_reference`` turns the reference's parameter pytree,
+given as numpy arrays (``jax.tree.map(np.asarray, params)``), into the
+port's ``LM``: the leading scan axis of the stacked units is unstacked
+into ``units.<i>``, the tail and a tied or untied head are carried as
+they are.  A bf16 leaf arrives as an ``ml_dtypes.bfloat16`` array, which
+``torch.from_numpy`` refuses; it goes through float32, which holds every
+bf16 value exactly.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.model import LM
+
+__all__ = ["params_from_reference", "reference_leaves"]
+
+
+def reference_leaves(np_params: dict, cfg: ModelConfig) -> dict:
+    """The reference's leaves by the port's parameter name, with the
+    units' scan axis unstacked: ``{"units.0.b0.attn.wq.w": array, ...}``."""
+    out = {}
+
+    def walk(prefix: str, node) -> None:
+        if isinstance(node, dict):
+            for key, child in node.items():
+                walk(f"{prefix}.{key}" if prefix else str(key), child)
+        elif isinstance(node, (list, tuple)):
+            for i, child in enumerate(node):
+                walk(f"{prefix}.{i}", child)
+        else:
+            out[prefix] = np.asarray(node)
+
+    for key, node in np_params.items():
+        if key == "units":
+            for i in range(cfg.units):
+                walk(f"units.{i}", _index(node, i))
+        else:
+            walk(key, node)
+    return out
+
+
+def _index(node, i: int):
+    if isinstance(node, dict):
+        return {k: _index(v, i) for k, v in node.items()}
+    return np.asarray(node)[i]
+
+
+def params_from_reference(np_params: dict, cfg: ModelConfig,
+                          device="cuda") -> LM:
+    """The port's ``LM`` holding the reference's parameters.
+
+    Raises ``ValueError`` if the two trees name different parameters or
+    disagree on a shape."""
+    model = LM(cfg, device=device)
+    leaves = reference_leaves(np_params, cfg)
+    params = dict(model.named_parameters())
+    if set(leaves) != set(params):
+        raise ValueError(
+            f"parameter trees differ: only in the reference "
+            f"{sorted(set(leaves) - set(params))}, only in the port "
+            f"{sorted(set(params) - set(leaves))}"
+        )
+    for name, param in params.items():
+        leaf = leaves[name]
+        if tuple(leaf.shape) != tuple(param.shape):
+            raise ValueError(
+                f"{name}: reference shape {leaf.shape} != port shape "
+                f"{tuple(param.shape)}"
+            )
+        src = torch.from_numpy(np.array(leaf, dtype=np.float32))
+        param.data.copy_(src)  # exact: every leaf is fp32 or bf16
+    return model

@@ -1,0 +1,216 @@
+"""Primitive layers: norms, dense projections, embeddings, RoPE.
+
+The port of ``repro.models.layers``.  Parameters live in small
+``nn.Module``s whose parameter names are the reference's dictionary keys
+(``Dense.w``/``.b``, ``RMSNorm.scale``, ``Embedding.embedding``), so a
+parameter path of the port equals the reference's pytree path.  Each
+module allocates its parameters on construction and draws them in
+``reset_parameters(generator)`` from the reference's distributions;
+functions (``rmsnorm``, ``dense``, ...) apply them, as in the
+reference.  Parameters do not require gradients: the port runs the
+forward only (training is ROADMAP A10).  ``apply_mrope`` waits for the
+VLM family (ROADMAP A9d).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "ACTIVATIONS", "Dense", "Embedding", "LayerNorm", "RMSNorm",
+    "apply_rope", "dense", "embed", "gelu", "init_params", "layernorm",
+    "matmul_f32", "rmsnorm", "rope_frequencies", "silu", "torch_dtype",
+    "unembed",
+]
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name ("bfloat16", "float32")."""
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dtype
+
+
+def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter of ``module``'s layers from ``generator``, in
+    module order; returns ``module``."""
+    for m in module.modules():
+        if isinstance(m, (RMSNorm, LayerNorm, Dense, Embedding)):
+            m.reset_parameters(generator)
+    return module
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (x (..., K), w (K, N)) as exact products summed in fp32,
+    returned in fp32: the reference's ``preferred_element_type=float32``.
+
+    On the card a bf16 pair goes to one bf16 GEMM with an fp32 output
+    (``torch.mm(..., out_dtype=torch.float32)``); on the CPU, which has
+    no such kernel, the operands are widened first.
+    """
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.is_cuda:
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2.float(), w.float())
+    return y.reshape(*lead, w.shape[-1])
+
+
+# -- norms -------------------------------------------------------------------
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, *, device="cuda"):
+        super().__init__()
+        self.scale = _param((d,), torch.float32, device)
+
+    def reset_parameters(self, generator=None) -> None:
+        del generator
+        self.scale.data.fill_(1.0)
+
+
+def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + p.scale.float())).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, *, device="cuda"):
+        super().__init__()
+        self.scale = _param((d,), torch.float32, device)
+        self.bias = _param((d,), torch.float32, device)
+
+    def reset_parameters(self, generator=None) -> None:
+        del generator
+        self.scale.data.fill_(1.0)
+        self.bias.data.zero_()
+
+
+def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * p.scale + p.bias).to(x.dtype)
+
+
+# -- dense -------------------------------------------------------------------
+
+
+class Dense(nn.Module):
+    """``w`` (in_dim, out_dim) drawn N(0, 1/in_dim) in fp32 and cast to
+    ``dtype``; an optional bias ``b`` of zeros."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, bias: bool = False,
+                 dtype=torch.bfloat16, device="cuda"):
+        super().__init__()
+        self.w = _param((in_dim, out_dim), dtype, device)
+        self.b = _param((out_dim,), dtype, device) if bias else None
+
+    def reset_parameters(self, generator=None) -> None:
+        in_dim = self.w.shape[0]
+        w = torch.randn(self.w.shape, generator=generator,
+                        device=self.w.device, dtype=torch.float32)
+        self.w.data.copy_(w * (1.0 / math.sqrt(in_dim)))
+        if self.b is not None:
+            self.b.data.zero_()
+
+
+def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
+    y = torch.matmul(x, p.w)
+    if p.b is not None:
+        y = y + p.b
+    return y
+
+
+# -- embeddings --------------------------------------------------------------
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, d: int, *, dtype=torch.bfloat16,
+                 device="cuda"):
+        super().__init__()
+        self.embedding = _param((vocab, d), dtype, device)
+
+    def reset_parameters(self, generator=None) -> None:
+        e = torch.randn(self.embedding.shape, generator=generator,
+                        device=self.embedding.device, dtype=torch.float32)
+        self.embedding.data.copy_(e)
+
+
+def embed(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens, p.embedding)
+
+
+def unembed(p: Embedding, x: torch.Tensor) -> torch.Tensor:
+    """Tied LM head: logits in fp32 for a stable softmax/CE."""
+    return matmul_f32(x, p.embedding.t())
+
+
+# -- rotary embeddings -------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (exps / head_dim))
+
+
+def apply_rope(
+    x: torch.Tensor,  # (B, S, H, Dh)
+    positions: torch.Tensor,  # (B, S)
+    theta: float = 10_000.0,
+) -> torch.Tensor:
+    """Rotate the two halves of each head (not interleaved pairs)."""
+    dh = x.shape[-1]
+    freqs = rope_frequencies(dh, theta, x.device)  # (Dh/2,)
+    angles = positions[..., None].float() * freqs  # (B, S, Dh/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# -- misc --------------------------------------------------------------------
+
+
+# The activations are written op by op in the input's dtype, as jax.nn
+# defines them: in bf16 every step rounds where the reference's does,
+# where F.silu / F.gelu would round once at the end.
+
+
+def _const(value: float, x: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(value, dtype=x.dtype, device=x.device)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation (``jax.nn.gelu(approximate=True)``)."""
+    inner = _const(math.sqrt(2 / math.pi), x) * (
+        x + _const(0.044715, x) * (x * x * x)
+    )
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
+ACTIVATIONS = {
+    "swiglu": silu,
+    "geglu": gelu,
+    "gelu": gelu,
+}

@@ -1,0 +1,204 @@
+"""The assembled LM: block stacks, the forward and the loss.
+
+The port of ``repro.models.model`` for models made of attention blocks
+(the dense family).  A model is ``embed -> [units of the repeating
+block pattern] -> tail -> norm -> head``.  The reference scans the
+stacked unit parameters with ``jax.lax.scan`` under remat; here ``LM``
+holds one module per unit (``units.<i>.b<j>``, so every parameter path
+is the reference's with the scan axis unstacked) and ``forward`` loops
+over them in Python.  Remat has no meaning in an inference forward and
+stays with training (ROADMAP A10).
+
+Blocks with a mixture of experts (``cfg.moe``, ROADMAP A9a) and the
+recurrent kinds ``rglru``, ``mlstm``, ``slstm`` (A9b) are not ported:
+building such a model raises ``NotImplementedError``.
+
+Inputs are a dict: ``tokens`` (B, S) int64 and/or ``embeds`` (B, S, D),
+and optionally ``positions`` (B, S).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.dist.context import ParallelCtx
+from repro_torch.models import layers as L
+from repro_torch.models.attention import Attention, attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.ffn import FFN, ffn
+
+__all__ = [
+    "AUX_LOSS_COEF", "Block", "LM", "Z_LOSS_COEF", "apply_block",
+    "check_supported", "embed_inputs", "forward", "init_model", "loss_fn",
+]
+
+_UNPORTED_KINDS = {
+    "rglru": "models/recurrent.py (ROADMAP A9b)",
+    "mlstm": "models/recurrent.py (ROADMAP A9b)",
+    "slstm": "models/recurrent.py (ROADMAP A9b)",
+}
+
+
+def _check_kind(kind: str, cfg: ModelConfig) -> None:
+    if kind in _UNPORTED_KINDS:
+        raise NotImplementedError(
+            f"{cfg.name}: {kind!r} blocks need {_UNPORTED_KINDS[kind]}, "
+            "which is not ported yet"
+        )
+    if kind != "attn":
+        raise ValueError(kind)
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts blocks need models/moe.py, "
+            "which is not ported yet (ROADMAP A9a)"
+        )
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for blocks the port cannot run yet."""
+    for kind in cfg.block_pattern:
+        _check_kind(kind, cfg)
+
+
+class Block(nn.Module):
+    """An attention block: ``attn`` and, when the config has one, ``ffn``."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device):
+        super().__init__()
+        self.attn = Attention(cfg, dtype=dtype, device=device)
+        self.ffn = FFN(cfg, dtype=dtype, device=device) if cfg.d_ff else None
+
+
+class LM(nn.Module):
+    """Parameters of a model of attention blocks, laid out as the
+    reference's pytree: ``units.<i>.b<j>``, ``tail.<j>``, ``final_norm``,
+    ``embed`` (when tokens are embedded) and ``head`` (untied)."""
+
+    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+        super().__init__()
+        check_supported(cfg)
+        dtype = L.torch_dtype(cfg.dtype)
+        kw = dict(dtype=dtype, device=device)
+        self.units = nn.ModuleList(
+            nn.ModuleDict({f"b{j}": Block(cfg, **kw)
+                           for j in range(len(cfg.block_pattern))})
+            for _ in range(cfg.units)
+        )
+        self.tail = nn.ModuleList(Block(cfg, **kw) for _ in cfg.tail)
+        self.final_norm = L.RMSNorm(cfg.d_model, device=device)
+        self.embed = (L.Embedding(cfg.vocab_size, cfg.d_model, **kw)
+                      if cfg.embed_inputs else None)
+        self.head = (L.Dense(cfg.d_model, cfg.vocab_size, **kw)
+                     if not cfg.tie_embeddings or not cfg.embed_inputs
+                     else None)
+
+
+def init_model(cfg: ModelConfig, *, generator: torch.Generator,
+               device="cuda") -> LM:
+    """A model of ``cfg`` with parameters drawn from ``generator`` (on
+    ``device``) with the reference's shapes, dtypes and distributions:
+    dense kernels N(0, 1/d_in) drawn in fp32 and cast to ``cfg.dtype``,
+    embeddings N(0, 1), biases zero and norm scales one (fp32)."""
+    return L.init_params(LM(cfg, device=device), generator)
+
+
+# --------------------------------------------------------------------------
+# forward
+# --------------------------------------------------------------------------
+
+
+def apply_block(
+    kind: str,
+    p: Block,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    cfg: ModelConfig,
+    ctx: ParallelCtx,
+    *,
+    use_kernel: bool = False,
+):
+    """Residual application of one block; returns (x, aux_loss)."""
+    _check_kind(kind, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = x + attention(
+        p.attn, x, positions, cfg, ctx, window=cfg.window,
+        use_kernel=use_kernel,
+    )
+    if p.ffn is not None:
+        x = x + ffn(p.ffn, x, cfg, ctx)
+    return x, aux
+
+
+def embed_inputs(model: LM, inputs: dict, cfg: ModelConfig) -> torch.Tensor:
+    parts = []
+    if inputs.get("embeds") is not None:
+        parts.append(inputs["embeds"])
+    if cfg.embed_inputs and inputs.get("tokens") is not None:
+        parts.append(L.embed(model.embed, inputs["tokens"]))
+    if not parts:
+        raise ValueError("inputs must contain 'tokens' and/or 'embeds'")
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def forward(
+    model: LM,
+    inputs: dict,
+    cfg: ModelConfig,
+    ctx: ParallelCtx,
+    *,
+    use_kernel: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V) fp32, aux_loss scalar).
+
+    ``use_kernel=True`` runs every attention block through the
+    flash-attention kernel (one launch per layer on a CUDA model)."""
+    x = embed_inputs(model, inputs, cfg)
+    positions = inputs.get("positions")
+    if positions is None:
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks = [(kind, unit[f"b{j}"]) for unit in model.units
+              for j, kind in enumerate(cfg.block_pattern)]
+    blocks += list(zip(cfg.tail, model.tail))
+    for kind, p in blocks:
+        x, a = apply_block(kind, p, x, positions, cfg, ctx,
+                           use_kernel=use_kernel)
+        aux = aux + a
+    x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
+    if model.head is not None:
+        logits = L.dense(model.head, x).float()
+    else:
+        logits = L.unembed(model.embed, x)
+    return logits, aux
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+AUX_LOSS_COEF = 0.01
+Z_LOSS_COEF = 1e-4
+
+
+def loss_fn(
+    model: LM,
+    batch: dict,
+    cfg: ModelConfig,
+    ctx: ParallelCtx,
+) -> tuple[torch.Tensor, dict]:
+    """Cross-entropy (+ MoE aux + z-loss).  ``batch`` must contain
+    ``labels``; a negative label masks its position."""
+    logits, aux = forward(model, batch, cfg, ctx)
+    labels = batch["labels"]
+    # labels may cover the token tail only (a prefix without labels)
+    logits = logits[:, -labels.shape[1]:, :]
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    denom = mask.sum().clamp(min=1.0)
+    ce = ((logz - ll) * mask).sum() / denom
+    z_loss = Z_LOSS_COEF * ((logz * mask) ** 2).sum() / denom
+    total = ce + z_loss + AUX_LOSS_COEF * aux
+    metrics = {"ce": ce, "z_loss": z_loss, "aux": aux, "loss": total}
+    return total, metrics

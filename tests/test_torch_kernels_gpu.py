@@ -7,8 +7,10 @@ Marked ``gpu``: each test skips without a CUDA device (decided inside the
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 Shapes and tolerances are those of ``tests/test_kernels.py`` (fp32 1e-4,
-bf16 2e-2, atol scaled by sqrt(K)).
+bf16 2e-2, atol scaled by sqrt(K); attention fp32 2e-3, bf16 2e-2).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -19,10 +21,17 @@ from repro_torch.core.sparsity import (
     random_block_mask,
     synthesize_rank_csr,
 )
+from repro_torch.configs.registry import get_config
+from repro_torch.dist.context import ParallelCtx
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (
+    flash_attention_cuda,
+    flash_attention_plain,
+)
 from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain
 from repro_torch.kernels.grouped_gemm import grouped_gemm_cuda, grouped_gemm_plain
 from repro_torch.kernels.tiled_matmul import tiled_matmul_cuda, tiled_matmul_plain
+from repro_torch.models.model import forward, init_model
 
 pytestmark = pytest.mark.gpu
 
@@ -162,3 +171,95 @@ def test_ranksparse_matmul_on_the_card(cuda, name):
     assert grouped_gemm_cuda.launches == before + 1
     a = torch.from_numpy(rcsr.to_dense()).to(cuda)
     _close(got, torch.matmul(a, b.float()), name, 128)
+
+
+def _heads_view(b, s, h, dh, name, seed, device):
+    """A (B, H, S, Dh) transposed view of a (B, S, H, Dh) tensor, as the
+    attention layer hands the kernel."""
+    return _rand((b, s, h, dh), name, seed, device).transpose(1, 2)
+
+
+def _close_attention(got, want, name):
+    tol = 2e-2 if name == "bfloat16" else 2e-3
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize(
+    "h,hkv,s,causal,window",
+    [(4, 2, 256, True, None), (4, 1, 256, True, 64), (2, 2, 128, False, None),
+     (8, 4, 512, True, 128), (2, 2, 256, True, 8), (4, 2, 1000, True, None),
+     (4, 2, 1000, False, 100)],
+)
+def test_flash_attention_kernel_matches_plain(cuda, h, hkv, s, causal, window,
+                                              name):
+    """The reference's shapes, the window-8 case, and a ragged S = 1000."""
+    q = _heads_view(2, s, h, 64, name, h * s, cuda)
+    k = _heads_view(2, s, hkv, 64, name, hkv, cuda)
+    v = _heads_view(2, s, hkv, 64, name, hkv + 1, cuda)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    assert flash_attention_cuda.launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    _close_attention(got, want, name)
+    # the wrapper launches the kernel for any S, whatever its tile
+    _close_attention(ops.flash_attention(q, k, v, causal=causal,
+                                         window=window, bq=128, bk=128),
+                     want, name)
+    assert flash_attention_cuda.launches == before + 2
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("dh", [128, 256])
+def test_flash_attention_kernel_wide_heads(cuda, dh, name):
+    """Dh 128 (qwen, command-r) and 256 (gemma, key tiles of 32)."""
+    q = _rand((1, 4, 300, dh), name, dh, cuda)
+    k = _rand((1, 1, 300, dh), name, dh + 1, cuda)
+    v = _rand((1, 1, 300, dh), name, dh + 2, cuda)
+    for causal, window in ((True, None), (True, 40), (False, None)):
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        _close_attention(got, flash_attention_plain(
+            q, k, v, causal=causal, window=window), name)
+
+
+def test_flash_attention_kernel_dead_rows_and_refusals(cuda):
+    """Sk = 64 < Sq = 256 without a causal mask, window 64: rows 127 and
+    up have no live key and are 0, as in the plain version."""
+    q = _rand((1, 2, 256, 64), "float32", 1, cuda)
+    k = _rand((1, 2, 64, 64), "float32", 2, cuda)
+    v = _rand((1, 2, 64, 64), "float32", 3, cuda)
+    got = flash_attention_cuda(q, k, v, causal=False, window=64)
+    torch.cuda.synchronize()
+    assert torch.all(got[:, :, 127:] == 0)
+    assert torch.all(torch.isfinite(got))
+    _close_attention(got, flash_attention_plain(q, k, v, causal=False,
+                                                window=64), "float32")
+    with pytest.raises(ValueError, match="head widths"):
+        flash_attention_cuda(q[..., :32], k[..., :32], v[..., :32])
+    every_other = _rand((1, 2, 256, 128), "float32", 4, cuda)[..., ::2]
+    with pytest.raises(ValueError, match="unit stride"):
+        flash_attention_cuda(every_other, k, v)
+
+
+def test_lm_forward_through_the_kernel_on_the_card(cuda):
+    """A narrow llama (2 layers, Dh 64) on the card: one kernel launch per
+    layer, logits near the plain-attention forward's (fp32)."""
+    cfg = dataclasses.replace(get_config("llama3.2-1b", smoke=True),
+                              head_dim=64, dtype="float32")
+    model = init_model(cfg, generator=torch.Generator(cuda).manual_seed(0),
+                       device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 200), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+    before = flash_attention_cuda.launches
+    got, _ = forward(model, {"tokens": tokens}, cfg, ParallelCtx(None),
+                     use_kernel=True)
+    assert flash_attention_cuda.launches == before + cfg.num_layers
+    want, _ = forward(model, {"tokens": tokens}, cfg, ParallelCtx(None))
+    assert flash_attention_cuda.launches == before + cfg.num_layers
+    scale = want.abs().max().item()
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-3, atol=1e-3 * scale)
