@@ -15,7 +15,10 @@ script exits non-zero:
 
 1. device: the card's name and power limit; TF32 off;
 2. build: the four CUDA kernels from the checkout's sources (nvcc,
-   sm_90a), with ptxas' register and spill report;
+   sm_90a), with ptxas' register and spill report (and the bf16
+   flash-attention kernel's shared memory at each Dh), and each kernel's
+   count of ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync) instructions in its
+   SASS; the bf16 flash-attention kernel must have ``HGMMA``;
 3. kernel vs plain version on the card, at the reference test shapes and
    at the shapes the main path gives each kernel, fp32 and bf16;
 4. main path, dense: 128 K panels through the ``tiled_matmul`` kernel,
@@ -46,7 +49,8 @@ script exits non-zero:
    plain one is, within the stated margins.  Then each bf16 forward again,
    warm, for its wall time and peak memory; one 32768-token prompt
    through the kernel (finite logits); the kernel's times beside its
-   plain version, ``scaled_dot_product_attention`` and its bound.
+   plain version (at 4096 only), ``scaled_dot_product_attention`` and
+   its bound, at both lengths.
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -57,6 +61,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -88,6 +95,7 @@ from repro_torch.dist.context import ParallelCtx  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    HEAD_DIMS,
     flash_attention_cuda,
     flash_attention_plain,
 )
@@ -233,15 +241,93 @@ def phase_device() -> tuple[str, int]:
     return kind, count
 
 
+#: the bf16 flash-attention kernel's name in the built library
+FA_TENSOR_CORE_KERNEL = "fa_wgmma_kernel"
+
+
+def _cuda_tool(name: str) -> str | None:
+    """A CUDA binary tool, on PATH or under $CUDA_HOME/bin."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return shutil.which(name) or shutil.which(
+        name, path=os.path.join(cuda_home, "bin"))
+
+
+def sass_census(lib: Path) -> dict[str, dict[str, int]]:
+    """Per kernel of the built library, its count of ``HGMMA`` (wgmma) and
+    ``HMMA`` (mma.sync) instructions, from ``cuobjdump -sass``."""
+    tool = _cuda_tool("cuobjdump")
+    if tool is None:
+        raise RuntimeError("cuobjdump not found: the SASS of the kernels "
+                           "cannot be read")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    census: dict[str, dict[str, int]] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            census[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    census[name][op] += 1
+    return census
+
+
+def fa_wgmma_smem_bytes(dh: int) -> int:
+    """Dynamic shared memory of the bf16 attention kernel at head dim dh,
+    as ``WgShape<DH>::kSmem`` in ``csrc/flash_attention.cu`` sizes it: Q's
+    128 rows, 4/3/2 stages (Dh 64/128/256) of 64 K and 64 V rows, and 1 KB
+    to align to the swizzle atom."""
+    stages = {64: 4, 128: 3, 256: 2}[dh]
+    return 128 * dh * 2 + 2 * stages * 64 * dh * 2 + 1024
+
+
+def short_names(mangled: list[str]) -> dict[str, str]:
+    """``kernel<args>`` of each mangled kernel name, through ``cu++filt``
+    (the mangled name where it is missing)."""
+    tool = _cuda_tool("cu++filt")
+    if tool is None:
+        return {m: m for m in mangled}
+    out = subprocess.run([tool], input="\n".join(mangled), text=True,
+                         capture_output=True, check=True).stdout.splitlines()
+    return {m: d.replace("(anonymous namespace)::", "").replace("(int)", "")
+            .split("(")[0].split("::")[-1] for m, d in zip(mangled, out)}
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     path, out, compile_s = _build.build()
     _build.load()
     log(f"[2 build] {path}: nvcc {compile_s:.2f} s, load "
         f"{time.perf_counter() - t0:.2f} s")
+    entry = None
     for line in out.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             log("  " + line.strip())
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        elif entry and FA_TENSOR_CORE_KERNEL in entry and (
+                "Used" in line or "spill" in line):
+            dh = re.search(r"ILi(\d+)EE", entry).group(1)
+            smem = fa_wgmma_smem_bytes(int(dh))
+            log(f"  -> {FA_TENSOR_CORE_KERNEL} Dh={dh}: {line.strip()}"
+                + (f"; dynamic shared memory {smem} bytes"
+                   if "Used" in line else ""))
+    census = sass_census(path)
+    log("  SASS tensor-core instructions per kernel (HGMMA = wgmma, HMMA = "
+        "mma.sync):")
+    names = short_names(sorted(census))
+    for name, ops in sorted(census.items()):
+        log(f"    {names[name]}: HGMMA {ops['HGMMA']}, HMMA {ops['HMMA']}")
+    fa = {n: ops for n, ops in census.items() if FA_TENSOR_CORE_KERNEL in n}
+    if len(fa) != len(HEAD_DIMS) or any(
+            ops["HGMMA"] == 0 for ops in fa.values()):
+        raise AssertionError(
+            f"the bf16 flash-attention kernel ({FA_TENSOR_CORE_KERNEL}, one "
+            f"per Dh in {HEAD_DIMS}) must run on wgmma: found {fa}")
 
 
 def phase_kernels(sparse_plan, rank_plan, r_pad) -> dict:
@@ -598,11 +684,15 @@ def _time_grouped(plan, r_pad, b) -> dict:
 # ---------------------------------------------------------------------------
 
 #: (h, hkv, s, causal, window): tests/test_kernels.py's shapes, the
-#: window-8 case and a ragged S
+#: window-8 case, a ragged S, lengths on both sides of the bf16 kernel's
+#: 128-row query tile (two of its 64-key tiles), and a GQA group of 5
 FA_SHAPES = ((4, 2, 256, True, None), (4, 1, 256, True, 64),
              (2, 2, 128, False, None), (8, 4, 512, True, 128),
              (2, 2, 256, True, 8), (4, 2, 1000, True, None),
-             (4, 2, 1000, False, 100))
+             (4, 2, 1000, False, 100), (4, 2, 1, True, None),
+             (4, 2, 127, True, None), (4, 2, 128, False, None),
+             (4, 2, 129, True, None), (4, 2, 255, False, None),
+             (10, 2, 300, True, None))
 
 
 def attention_tol(dtype) -> float:
@@ -720,15 +810,18 @@ def time_attention(cfg, b, s, iters) -> dict:
     if s <= LM_SEQ:  # the plain version's scores: 8.6 GB at B=4, S=4096
         out["plain_ms"] = cuda_ms(
             lambda: flash_attention_plain(q, k, v, causal=True), iters)
-        out["library_ms"] = cuda_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), iters)
+    out["library_ms"] = cuda_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), iters)
     out["bound_ms"], out["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
     log(f"  flash_attention B={b} H={cfg.num_heads} Hkv={cfg.num_kv_heads} "
         f"S={s} Dh={cfg.resolved_head_dim} bf16 causal: kernel {ms:.3f} ms "
         f"({flops / ms / 1e9:.2f} TFLOP/s), "
-        + (f"plain {out['plain_ms']:.3f} ms, scaled_dot_product_attention "
-           f"{out['library_ms']:.3f} ms, " if "plain_ms" in out else "")
+        + (f"plain {out['plain_ms']:.3f} ms, " if "plain_ms" in out else
+           "plain not run (its scores would take "
+           f"{4.0 * b * cfg.num_heads * s * s / 1e9:.0f} GB), ")
+        + f"scaled_dot_product_attention {out['library_ms']:.3f} ms "
+        f"({flops / out['library_ms'] / 1e9:.2f} TFLOP/s), "
         + f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
         f"{flops:.4g} FLOP at {PEAK_BF16_FLOPS:.3g} FLOP/s = "
         f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms; {nbytes:.4g} bytes at "
@@ -917,7 +1010,7 @@ def phase_lm(cfg) -> dict:
     torch.cuda.empty_cache()
     log("[7 times] flash_attention at the LM's attention calls")
     out["times"] = time_attention(cfg, LM_BATCH, LM_SEQ, 10)
-    out["long_times"] = time_attention(cfg, 1, LM_LONG_SEQ, 2)
+    out["long_times"] = time_attention(cfg, 1, LM_LONG_SEQ, 5)
     for key, wall, t in ((f"B={LM_BATCH} S={LM_SEQ}", out["wall"], out["times"]),
                          (f"B=1 S={LM_LONG_SEQ}", out["long_wall"], out["long_times"])):
         share = cfg.num_layers * t["ms"] / 1e3 / wall

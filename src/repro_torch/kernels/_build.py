@@ -29,7 +29,7 @@ __all__ = ["build", "load", "check", "dtype_code", "stream_handle"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("tiled_matmul.cu", "bsmm.cu", "grouped_gemm.cu",
            "flash_attention.cu")
-HEADERS = ("tile.cuh",)
+HEADERS = ("tile.cuh", "hopper.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = (

@@ -10,16 +10,24 @@ dtype.  A query row with no live key gives 0, as the TPU kernel gives
 for a row whose every key tile it skips; the reference's
 ``ref.flash_attention_ref`` gives NaN there (a softmax of all ``-inf``).
 
-The kernel (``csrc/flash_attention.cu``) gives each block of 256 threads
-one 64-row query tile of one (batch, head) and loops over only the key
-tiles the masks leave live, with the online softmax in fp32 registers.
-It takes Dh of 64, 128 or 256, any Sq and Sk (the ragged tail is masked)
-and (batch, head, sequence) strides with Dh contiguous, so the attention
+The kernel (``csrc/flash_attention.cu``) has two routes, chosen by the
+dtype.  bf16 runs on the tensor cores: a block of three warpgroups owns
+128 query rows of one (batch, head); a producer thread streams K/V tiles
+through TMA into a ring of shared-memory stages, and two consumer
+warpgroups of 64 rows compute S = Q·Kᵀ and O += P·V with ``wgmma``, P
+kept in registers (as two bf16 parts, hi and lo, so P·V keeps P to
+~2⁻¹⁷ where one bf16 P would lose the bf16 hold on short rows).  fp32
+runs the fp32-FMA kernel (never TF32, for the reference's fp32
+tolerance).  Both loop over only the key tiles the masks leave live,
+take Dh of 64, 128 or 256, any Sq and Sk (the ragged tail is masked) and
+(batch, head, sequence) strides with Dh contiguous, so the attention
 layer's transposed views need no copy; the output has ``q``'s layout.
+TMA reads the bf16 operands, so their pointers must be 16-byte aligned
+and their strides in bytes multiples of 16 (``tma_operand_problems``).
 At the LM's shape (B = 4, H = 32, Hkv = 8, S = 4096, Dh = 64, bf16,
 causal) the live work is 2.7e11 FLOP against 0.17 GB of operands:
-bound by operations (0.28 ms at the card's 989 TFLOP/s of bf16 tensor
-cores), which this simple kernel, on fp32 FMA, does not approach.
+bound by operations, 0.28 ms at the card's 989 TFLOP/s of bf16 tensor
+cores.
 """
 from __future__ import annotations
 
@@ -29,7 +37,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention_cuda", "flash_attention_plain"]
+__all__ = ["flash_attention_cuda", "flash_attention_plain",
+           "tma_operand_problems"]
 
 #: head widths the CUDA kernel is built for (csrc/flash_attention.cu)
 HEAD_DIMS = (64, 128, 256)
@@ -64,6 +73,27 @@ def _live_mask(sq: int, sk: int, causal: bool, window: int | None,
     if window is not None:
         live &= pos_q - pos_k < window
     return live
+
+
+def tma_operand_problems(name: str, x: torch.Tensor) -> list[str]:
+    """Why TMA cannot read ``x`` (B, H, S, Dh) as the bf16 kernel does:
+    each condition it breaks, named; empty if it can.
+
+    A tensor map needs a 16-byte aligned address and sequence, head and
+    batch strides whose byte counts are multiples of 16 (a dimension of
+    extent 1 is never stepped, so its stride does not matter).  Runs on
+    tensors of any device, so the check can be tested without a card.
+    """
+    problems = []
+    if x.data_ptr() % 16:
+        problems.append(f"{name}.data_ptr() is not 16-byte aligned "
+                        f"(address % 16 = {x.data_ptr() % 16})")
+    for dim, what in ((2, "sequence"), (1, "head"), (0, "batch")):
+        nbytes = x.stride(dim) * x.element_size()
+        if x.shape[dim] > 1 and nbytes % 16:
+            problems.append(f"{name}'s {what} stride of {nbytes} bytes is "
+                            f"not a multiple of 16")
+    return problems
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -105,8 +135,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``q``, ``k``, ``v`` are float32 or bfloat16 CUDA tensors of one dtype,
     Dh in ``HEAD_DIMS``, each with unit last stride (any batch, head and
-    sequence strides).  The result is a new tensor of ``q``'s shape,
-    dtype and layout (``torch.empty_like``).
+    sequence strides; in bf16 a 16-byte aligned pointer and strides of a
+    multiple of 16 bytes, else ``ValueError`` naming the condition).  The
+    result is a new tensor of ``q``'s shape, dtype and layout
+    (``torch.empty_like``).
     """
     _check_shapes(q, k, v)
     b, h, sq, dh = q.shape
@@ -132,6 +164,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{x.stride()})"
             )
     code = _build.dtype_code(q.dtype)
+    if q.dtype == torch.bfloat16:  # the tensor-core route reads via TMA
+        problems = [p for name, x in (("q", q), ("k", k), ("v", v))
+                    for p in tma_operand_problems(name, x)]
+        if problems:
+            raise ValueError(
+                "the bf16 flash-attention kernel reads its operands through "
+                "TMA: " + "; ".join(problems)
+            )
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
     o = torch.empty_like(q)
     err = _build.load().flash_attention_launch(

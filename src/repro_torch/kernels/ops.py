@@ -241,8 +241,9 @@ def flash_attention(
     ``k``, ``v`` (B, Hkv, S, Dh).
 
     ``bq``/``bk`` are the reference's Pallas tile and have no counterpart:
-    the CUDA kernel runs its own 64-row query tiles and key tiles of 64
-    (32 at Dh = 256) and masks the ragged tail, so any S launches it.
+    the CUDA kernel runs its own query and key tiles (bf16: 128 rows and
+    64 keys; fp32: 64 rows, keys 64 or 32 at Dh = 256) and masks the
+    ragged tail, so any S launches it.
     """
     del bq, bk  # the kernel tiles itself
     run = _route(q, flash_attention_cuda, flash_attention_plain)

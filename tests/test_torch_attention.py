@@ -35,6 +35,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
+    tma_operand_problems,
 )
 from repro_torch.models import layers as L
 from repro_torch.models.attention import Attention, attention, init_attention
@@ -191,6 +192,34 @@ def test_flash_attention_cuda_wrapper_refuses_bad_operands():
     with pytest.raises(ValueError, match="multiple of kv heads"):
         flash_attention_cuda(torch.zeros((1, 3, 8, 64)), k, k)
     assert flash_attention_cuda.launches == before
+
+
+def test_tma_operand_problems_names_each_condition():
+    """What the bf16 kernel's TMA loads cannot take: an address that is not
+    16-byte aligned, a sequence, head or batch stride whose bytes are not
+    a multiple of 16; a transposed (B, S, H, Dh) view passes, and so does
+    any stride of a dimension of extent 1."""
+    base = torch.zeros((2, 10, 4, 64), dtype=torch.bfloat16)
+    assert tma_operand_problems("q", base.transpose(1, 2)) == []
+    flat = torch.zeros(base.numel() + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 10, 4, 64).transpose(1, 2)
+    (problem,) = tma_operand_problems("q", shifted)
+    assert "q.data_ptr() is not 16-byte aligned" in problem
+    padded = torch.zeros((2, 4, 10, 68), dtype=torch.bfloat16)[..., :64]
+    assert tma_operand_problems("k", padded) == [
+        "k's sequence stride of 136 bytes is not a multiple of 16"]
+    odd_heads = torch.zeros((3, 10, 3 * 64 + 4), dtype=torch.bfloat16)
+    v = odd_heads[..., :192].unflatten(-1, (3, 64)).transpose(1, 2)
+    assert v.stride() == (10 * 196, 64, 196, 1)
+    assert tma_operand_problems("v", v) == [
+        "v's sequence stride of 392 bytes is not a multiple of 16"]
+    strided = torch.zeros((3, 2, 8, 64), dtype=torch.bfloat16)[:, :1]
+    assert tma_operand_problems("q", strided.as_strided(
+        (3, 1, 8, 64), (1028, 7, 64, 1))) == [
+        "q's batch stride of 2056 bytes is not a multiple of 16"]
+    one = torch.zeros((1, 1, 1, 64), dtype=torch.bfloat16)
+    assert tma_operand_problems("q", one.as_strided(
+        (1, 1, 1, 64), (3, 5, 7, 1))) == []
 
 
 # ---------------------------------------------------------------------------

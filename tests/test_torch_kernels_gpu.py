@@ -244,6 +244,87 @@ def test_flash_attention_kernel_dead_rows_and_refusals(cuda):
         flash_attention_cuda(every_other, k, v)
 
 
+
+def _close_bf16_attention(got, want):
+    """bf16 attention held as ``chip_smoke.py`` holds it: each element
+    within 2e-2 (the reference's tolerance) and within one bf16 ulp of
+    ``want`` (2**-7 |want|) plus 2e-2 rms(want) (fp32 noise and the bf16
+    rounding of P before P V)."""
+    _close_attention(got, want, "bfloat16")
+    g, w = got.float(), want.float()
+    limit = 2 ** -7 * w.abs() + 2e-2 * w.square().mean().sqrt()
+    worst = ((g - w).abs() / limit).max().item()
+    assert worst <= 1, f"worst element at {worst:.3g} of its limit"
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 127, 128, 129, 255, 1000])
+def test_flash_attention_bf16_tile_edges(cuda, s, causal):
+    """Lengths on both sides of the bf16 kernel's 128-row query tile (two
+    of its 64-key tiles)."""
+    q = _heads_view(2, s, 4, 64, "bfloat16", s, cuda)
+    k = _heads_view(2, s, 2, 64, "bfloat16", s + 1, cuda)
+    v = _heads_view(2, s, 2, 64, "bfloat16", s + 2, cuda)
+    got = flash_attention_cuda(q, k, v, causal=causal)
+    _close_bf16_attention(got, flash_attention_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize(
+    "sq,sk,causal,window",
+    [(200, 700, False, None), (130, 1000, True, None), (256, 64, False, 64),
+     (300, 129, False, None), (1000, 200, True, 50)],
+)
+def test_flash_attention_bf16_unequal_lengths(cuda, sq, sk, causal, window):
+    """Sq != Sk; with Sk = 64 < Sq = 256, no causal mask and window 64,
+    rows 127 and up have no live key and are 0."""
+    q = _heads_view(1, sq, 4, 64, "bfloat16", sq, cuda)
+    k = _heads_view(1, sk, 2, 64, "bfloat16", sk, cuda)
+    v = _heads_view(1, sk, 2, 64, "bfloat16", sk + 1, cuda)
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    _close_bf16_attention(got, want)
+    if (sq, sk, window) == (256, 64, 64):
+        assert torch.all(got[:, :, 127:] == 0)
+        assert torch.all(got[:, :, :127].abs().sum(-1) > 0)
+
+
+@pytest.mark.parametrize("h,hkv", [(10, 2), (40, 8), (16, 2), (8, 1)])
+def test_flash_attention_bf16_gqa_groups(cuda, h, hkv):
+    """Head groups of 5 (qwen2.5-32b's 40/8) and of 8."""
+    q = _heads_view(2, 300, h, 64, "bfloat16", h, cuda)
+    k = _heads_view(2, 300, hkv, 64, "bfloat16", hkv, cuda)
+    v = _heads_view(2, 300, hkv, 64, "bfloat16", hkv + 1, cuda)
+    got = flash_attention_cuda(q, k, v, causal=True)
+    _close_bf16_attention(got, flash_attention_plain(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("window", [8, 200])
+@pytest.mark.parametrize("dh", [128, 256])
+def test_flash_attention_bf16_wide_heads_windows(cuda, dh, window):
+    """Dh 128 (two 64-column boxes a row) and 256 (four) under sliding
+    windows narrower and wider than a 64-key tile."""
+    q = _heads_view(2, 700, 4, dh, "bfloat16", dh, cuda)
+    k = _heads_view(2, 700, 2, dh, "bfloat16", dh + 1, cuda)
+    v = _heads_view(2, 700, 2, dh, "bfloat16", dh + 2, cuda)
+    got = flash_attention_cuda(q, k, v, causal=True, window=window)
+    _close_bf16_attention(got, flash_attention_plain(q, k, v, causal=True,
+                                                     window=window))
+
+
+def test_flash_attention_bf16_refuses_what_tma_cannot_read(cuda):
+    """A view one element off a 16-byte boundary, and a sequence stride of
+    136 bytes: ValueErrors naming the condition, no launch."""
+    flat = _rand((2 * 64 * 4 * 64 + 1,), "bfloat16", 5, cuda)
+    shifted = flat[1:].view(2, 64, 4, 64).transpose(1, 2)
+    k = _heads_view(2, 64, 2, 64, "bfloat16", 6, cuda)
+    before = flash_attention_cuda.launches
+    with pytest.raises(ValueError, match="q.data_ptr.. is not 16-byte aligned"):
+        flash_attention_cuda(shifted, k, k)
+    padded = _rand((2, 2, 64, 68), "bfloat16", 7, cuda)[..., :64]
+    with pytest.raises(ValueError, match="sequence stride of 136 bytes"):
+        flash_attention_cuda(shifted.contiguous(), padded, k)
+    assert flash_attention_cuda.launches == before
+
 def test_lm_forward_through_the_kernel_on_the_card(cuda):
     """A narrow llama (2 layers, Dh 64) on the card: one kernel launch per
     layer, logits near the plain-attention forward's (fp32)."""
