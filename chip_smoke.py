@@ -18,9 +18,12 @@ script exits non-zero:
    sm_90a), with ptxas' register and spill report (and the bf16
    flash-attention kernel's shared memory at each Dh), and each kernel's
    count of ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync) instructions in its
-   SASS; the bf16 flash-attention kernel must have ``HGMMA``;
+   SASS; the bf16 flash-attention kernel and every instance of the
+   grouped GEMM must have ``HGMMA``;
 3. kernel vs plain version on the card, at the reference test shapes and
-   at the shapes the main path gives each kernel, fp32 and bf16;
+   at the shapes the main path gives each kernel, fp32 and bf16, and
+   ``flash_attention`` also at head widths off its instances (8, 80,
+   112);
 4. main path, dense: 128 K panels through the ``tiled_matmul`` kernel,
    checked against ``torch.matmul``;
 5. main path, block-sparse at block fill 0.3: the ``bsmm`` kernel on the
@@ -36,7 +39,9 @@ script exits non-zero:
    products only), and a small case past the dense crossover (r_pad 136
    > r* = 128) whose panels all go through ``tiled_matmul``;
 7. times of each kernel at the main path's shapes beside its plain
-   version, one library call and the card's bound;
+   version, one library call and the card's bound (``grouped_gemm``'s
+   counts its three bf16 products, with the fp32-FMA bound of its
+   earlier design beside it);
 8. LM forward: llama3.2-1b at full size (16 layers, d_model 2048, 32/8
    heads, d_ff 8192, vocab 128256, bf16, tied embeddings), weights from
    ``init_model`` with a seeded generator, 4 prompts x 4096 tokens.  An
@@ -50,7 +55,8 @@ script exits non-zero:
    warm, for its wall time and peak memory; one 32768-token prompt
    through the kernel (finite logits); the kernel's times beside its
    plain version (at 4096 only), ``scaled_dot_product_attention`` and
-   its bound, at both lengths.
+   its bound, at both lengths; and the kernel beside SDPA at 4 × 4096 with
+   head widths 80 and 112 (hubert-xlarge's and kimi-k2's).
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -95,13 +101,14 @@ from repro_torch.dist.context import ParallelCtx  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    HEAD_DIMS,
+    KERNEL_HEAD_DIMS,
     flash_attention_cuda,
     flash_attention_plain,
 )
 from repro_torch.kernels.grouped_gemm import (  # noqa: E402
     grouped_gemm_cuda,
     grouped_gemm_plain,
+    tile_pairs,
 )
 from repro_torch.kernels.tiled_matmul import (  # noqa: E402
     tiled_matmul_cuda,
@@ -243,6 +250,9 @@ def phase_device() -> tuple[str, int]:
 
 #: the bf16 flash-attention kernel's name in the built library
 FA_TENSOR_CORE_KERNEL = "fa_wgmma_kernel"
+#: the grouped GEMM's kernel, one instance per (input, output) dtype pair,
+#: each on split-bf16 wgmma
+GROUPED_KERNEL, GROUPED_INSTANCES = "grouped_gemm_kernel", 4
 
 
 def _cuda_tool(name: str) -> str | None:
@@ -323,11 +333,17 @@ def phase_build() -> None:
     for name, ops in sorted(census.items()):
         log(f"    {names[name]}: HGMMA {ops['HGMMA']}, HMMA {ops['HMMA']}")
     fa = {n: ops for n, ops in census.items() if FA_TENSOR_CORE_KERNEL in n}
-    if len(fa) != len(HEAD_DIMS) or any(
+    if len(fa) != len(KERNEL_HEAD_DIMS) or any(
             ops["HGMMA"] == 0 for ops in fa.values()):
         raise AssertionError(
             f"the bf16 flash-attention kernel ({FA_TENSOR_CORE_KERNEL}, one "
-            f"per Dh in {HEAD_DIMS}) must run on wgmma: found {fa}")
+            f"per Dh in {KERNEL_HEAD_DIMS}) must run on wgmma: found {fa}")
+    gg = {n: ops for n, ops in census.items() if GROUPED_KERNEL in n}
+    if len(gg) != GROUPED_INSTANCES or any(
+            ops["HGMMA"] == 0 for ops in gg.values()):
+        raise AssertionError(
+            f"the grouped GEMM ({GROUPED_KERNEL}, one per dtype pair) must "
+            f"run on wgmma: found {gg}")
 
 
 def phase_kernels(sparse_plan, rank_plan, r_pad) -> dict:
@@ -389,8 +405,11 @@ def phase_kernels(sparse_plan, rank_plan, r_pad) -> dict:
         torch.cuda.empty_cache()
 
         # the reference's shapes, tiles of 8 and 24 rows, a ragged F
+        # and the main path's D with an uneven count of tiles per expert
+        # (a block with one unit) and a ragged F
         for t, d, f, e, bt in ((256, 64, 96, 4, 64), (512, 128, 64, 8, 128),
-                               (64, 32, 40, 3, 8), (72, 48, 100, 5, 24)):
+                               (64, 32, 40, 3, 8), (72, 48, 100, 5, 24),
+                               (960, 256, 300, 3, 64)):
             x, w = randn((t, d), dtype, gen), randn((e, d, f), dtype, gen)
             te = torch.randint(0, e, (t // bt,), generator=gen,
                                device=DEVICE, dtype=torch.int32)
@@ -651,29 +670,41 @@ def phase_times(a, b, sparse_plan, rank_plan, r_pad) -> dict:
 
 def _time_grouped(plan, r_pad, b) -> dict:
     """One main-path launch of ``grouped_gemm``: a chunk's V tokens against
-    the rank case's B panels; the library call is one ``torch.bmm`` over
+    the rank case's B panels, with the work list the wrapper builds on
+    the host (``tile_pairs``); the library call is one ``torch.bmm`` over
     the same work grouped by expert (every live panel has one tile per
-    block row of the chunk)."""
+    block row of the chunk).  The bound counts the three bf16 products of
+    the split at the tensor cores' peak against the operands' bytes; the
+    fp32-FMA bound of the earlier design is printed beside it."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     x, w, te = _grouped_operands(plan, r_pad, torch.float32, gen, b=b)
     bt = r_pad
+    pairs = torch.as_tensor(tile_pairs(te.cpu(), bt), device=DEVICE)
     t, d = x.shape
     e, _, f = w.shape
     live = len(plan.live_panels)
     flops = 2.0 * t * d * f
-    nbytes = 4.0 * (t * d + live * d * f + t * f) + te.numel() * 4
-    ms = cuda_ms(lambda: grouped_gemm_cuda(x, w, te, bt=bt), 5)
+    nbytes = (4.0 * (t * d + live * d * f + t * f) + te.numel() * 4
+              + pairs.numel() * 4)
+    ms = cuda_ms(lambda: grouped_gemm_cuda(x, w, te, bt=bt, pairs=pairs), 5)
     plain_ms = cuda_ms(lambda: grouped_gemm_plain(x, w, te, bt=bt), 3)
     rows = t // (live * bt)
     x_by_expert = (x.view(rows, live, bt, d).transpose(0, 1)
                    .reshape(live, rows * bt, d))
     w_live = w[torch.as_tensor(plan.live_panels, device=DEVICE)]
     lib_ms = cuda_ms(lambda: torch.bmm(x_by_expert, w_live), 5)
-    bound_ms, by = bound(flops, nbytes)
-    log(f"  grouped_gemm T={t} D={d} F={f} experts {live} bt={bt} fp32: "
-        f"kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
+    bound_ms, by = bound(3 * flops, nbytes, PEAK_BF16_FLOPS)
+    fma_ms, _ = bound(flops, nbytes)
+    log(f"  grouped_gemm T={t} D={d} F={f} experts {live} bt={bt} fp32 "
+        f"({pairs.shape[0]} unit pairs): kernel {ms:.3f} ms "
+        f"({flops / ms / 1e9:.2f} TFLOP/s of fp32 work), plain "
         f"{plain_ms:.3f} ms, torch.bmm (grouped by expert) {lib_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms ({by})")
+        f"bound {bound_ms:.3f} ms ({by}: {nbytes:.4g} bytes at "
+        f"{PEAK_HBM_BYTES_PER_S:.3g} B/s = "
+        f"{nbytes / PEAK_HBM_BYTES_PER_S * 1e3:.4f} ms; three bf16 products "
+        f"{3 * flops:.4g} FLOP at {PEAK_BF16_FLOPS:.3g} FLOP/s = "
+        f"{3 * flops / PEAK_BF16_FLOPS * 1e3:.4f} ms) [fp32-FMA bound "
+        f"{fma_ms:.3f} ms]")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=by, flops=flops)
 
@@ -693,6 +724,10 @@ FA_SHAPES = ((4, 2, 256, True, None), (4, 1, 256, True, 64),
              (4, 2, 127, True, None), (4, 2, 128, False, None),
              (4, 2, 129, True, None), (4, 2, 255, False, None),
              (10, 2, 300, True, None))
+
+
+#: head widths off the kernel's instances, held and timed beside them
+FA_ODD_HEAD_DIMS = (8, 80, 112)
 
 
 def attention_tol(dtype) -> float:
@@ -760,7 +795,9 @@ def phase_attention_kernel(cfg) -> float:
                                            window=window), dtype,
                 f"flash_attention {dtype} h={h} hkv={hkv} S={s} "
                 f"causal={causal} window={window}")
-        for dh in (128, 256):
+        # the wide instances, and widths that run on the next instance up
+        # (8: the smoke configs; 80: hubert-xlarge; 112: kimi-k2)
+        for dh in (128, 256) + FA_ODD_HEAD_DIMS:
             q = heads_view(2, 600, 4, dh, dtype, gen)
             k = heads_view(2, 600, 1, dh, dtype, gen)
             v = heads_view(2, 600, 1, dh, dtype, gen)
@@ -795,8 +832,9 @@ def live_pairs(s: int, causal: bool, window: int | None) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def time_attention(cfg, b, s, iters) -> dict:
-    """The kernel at the LM's attention call beside its plain version,
+def time_attention(cfg, b, s, iters, plain=True) -> dict:
+    """The kernel at the LM's attention call beside its plain version
+    (at S <= 4096, unless ``plain`` is false),
     ``scaled_dot_product_attention`` and its bound: 4·B·H·Dh FLOP per
     live (query, key) pair at the bf16 tensor-core peak, against Q, K, V
     read once and O written once at the card's memory rate."""
@@ -807,7 +845,7 @@ def time_attention(cfg, b, s, iters) -> dict:
     nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
     ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True), iters)
     out = dict(ms=ms, flops=flops, nbytes=nbytes, pairs=pairs)
-    if s <= LM_SEQ:  # the plain version's scores: 8.6 GB at B=4, S=4096
+    if plain and s <= LM_SEQ:  # its scores: 8.6 GB at B=4, S=4096
         out["plain_ms"] = cuda_ms(
             lambda: flash_attention_plain(q, k, v, causal=True), iters)
     out["library_ms"] = cuda_ms(
@@ -818,6 +856,7 @@ def time_attention(cfg, b, s, iters) -> dict:
         f"S={s} Dh={cfg.resolved_head_dim} bf16 causal: kernel {ms:.3f} ms "
         f"({flops / ms / 1e9:.2f} TFLOP/s), "
         + (f"plain {out['plain_ms']:.3f} ms, " if "plain_ms" in out else
+           "plain not run, " if not plain else
            "plain not run (its scores would take "
            f"{4.0 * b * cfg.num_heads * s * s / 1e9:.0f} GB), ")
         + f"scaled_dot_product_attention {out['library_ms']:.3f} ms "
@@ -1011,6 +1050,10 @@ def phase_lm(cfg) -> dict:
     log("[7 times] flash_attention at the LM's attention calls")
     out["times"] = time_attention(cfg, LM_BATCH, LM_SEQ, 10)
     out["long_times"] = time_attention(cfg, 1, LM_LONG_SEQ, 5)
+    for dh in FA_ODD_HEAD_DIMS[1:]:  # hubert-xlarge's and kimi-k2's widths
+        out[f"times_dh{dh}"] = time_attention(
+            dataclasses.replace(cfg, head_dim=dh), LM_BATCH, LM_SEQ, 10,
+            plain=False)
     for key, wall, t in ((f"B={LM_BATCH} S={LM_SEQ}", out["wall"], out["times"]),
                          (f"B=1 S={LM_LONG_SEQ}", out["long_wall"], out["long_times"])):
         share = cfg.num_layers * t["ms"] / 1e3 / wall

@@ -21,7 +21,12 @@
 // Shared conventions.  Q (B, H, Sq, Dh), K and V (B, Hkv, Sk, Dh) and O
 // (B, H, Sq, Dh) are taken through (batch, head, sequence) strides with
 // Dh contiguous, so the (B, S, H, Dh) -> (B, H, S, Dh) transposes of the
-// attention layer need no copy.  Query head h reads kv head
+// attention layer need no copy.  Any Dh from 1 to 256 runs: the kernels
+// are instantiated for widths 64, 128 and 256, and a launch takes the
+// next of them at or above the real Dh.  Columns past the real Dh read as
+// zero in Q, K and V (TMA's fill past the tensor map's Dh on the bf16
+// route, a masked load on the fp32 one), which leaves Q K^T unchanged and
+// gives zero columns of O, and they are never stored.  Query head h reads kv head
 // (h % H) / (H / Hkv) of its batch, as the TPU kernel's kv_index does
 // (groups need not be powers of two).  Query tiles run latest first, so
 // under a causal mask the longest rows start first.  The running max
@@ -48,7 +53,7 @@
 //    (Dh, S, heads, batch) with the strides the wrapper passes, is built on
 //    the host, so the transposed views need no copy.  A box is 64 columns
 //    (128 bytes) by a tile's rows with the 128-byte swizzle wgmma reads;
-//    a Dh row is 1, 2 or 4 boxes.  TMA fills zeros past Sq and Sk.
+//    a Dh row is 1, 2 or 4 boxes.  TMA fills zeros past Sq, Sk and Dh.
 //  - Loads that do not overlap compute (each key tile between two
 //    __syncthreads): warp specialisation.  One producer thread keeps a
 //    ring of K/V stages full (4, 3 and 2 at Dh 64, 128, 256), arming
@@ -141,21 +146,24 @@ struct FaParams {
   float scale;
   int causal, has_window;
   int64_t window;
+  int dh;  // the real head width, at most the kernel's DH
 };
 
 // dst[r][d] (row stride ld) = src[row0 + r][d] * mul for r < rows, zero
-// for rows at or past end; consecutive threads take consecutive d.
+// for rows at or past end and for columns at or past dh; consecutive
+// threads take consecutive d.
 template <int DH>
 __device__ __forceinline__ void stage_rows(float* dst, int ld,
                                            const float* __restrict__ src,
                                            int64_t row_stride, int64_t row0,
-                                           int64_t end, int rows, float mul) {
+                                           int64_t end, int rows, int dh,
+                                           float mul) {
   for (int idx = threadIdx.x; idx < rows * DH; idx += kFaThreads) {
     const int r = idx / DH;
     const int d = idx % DH;
     const int64_t gr = row0 + r;
     float x = 0.f;
-    if (gr < end) x = src[gr * row_stride + d] * mul;
+    if (gr < end && d < dh) x = src[gr * row_stride + d] * mul;
     dst[r * ld + d] = x;
   }
 }
@@ -227,7 +235,8 @@ __global__ void __launch_bounds__(kFaThreads)
   if (p.has_window && q0 - p.window + 1 > k_lo) k_lo = q0 - p.window + 1;
   k_lo = (k_lo / S::kKeys) * S::kKeys;
 
-  stage_rows<DH>(s_q, S::kLdQK, q, p.q_ss, q0, p.sq, kFaRows, p.scale);
+  stage_rows<DH>(s_q, S::kLdQK, q, p.q_ss, q0, p.sq, kFaRows, p.dh,
+                 p.scale);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -243,8 +252,8 @@ __global__ void __launch_bounds__(kFaThreads)
 
   for (int64_t kt = k_lo; kt < k_hi; kt += S::kKeys) {
     __syncthreads();  // the previous tile's reads of s_k / s_v are done
-    stage_rows<DH>(s_k, S::kLdQK, k, p.k_ss, kt, p.sk, S::kKeys, 1.f);
-    stage_rows<DH>(s_v, DH, v, p.v_ss, kt, p.sk, S::kKeys, 1.f);
+    stage_rows<DH>(s_k, S::kLdQK, k, p.k_ss, kt, p.sk, S::kKeys, p.dh, 1.f);
+    stage_rows<DH>(s_v, DH, v, p.v_ss, kt, p.sk, S::kKeys, p.dh, 1.f);
     __syncthreads();
 
     // scores of this warp's rows against this lane's keys
@@ -339,7 +348,9 @@ __global__ void __launch_bounds__(kFaThreads)
     const float denom = l[r] == 0.f ? 1.f : l[r];  // no live key -> 0
     float* row = o + qi * p.o_ss + lane * CPL;
 #pragma unroll
-    for (int c = 0; c < CPL; ++c) row[c] = acc[r][c] / denom;
+    for (int c = 0; c < CPL; ++c) {
+      if (lane * CPL + c < p.dh) row[c] = acc[r][c] / denom;
+    }
   }
 }
 
@@ -395,6 +406,7 @@ struct WgParams {
   float scale_log2;  // scale * log2(e)
   int causal, has_window;
   int64_t window;
+  int dh;  // the real head width: columns at or past it are not stored
 };
 
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -530,6 +542,32 @@ __device__ __forceinline__ void split_tile(const float (&s)[BC / 2],
     for (int j = 0; j < 4; ++j) {
       const int i = 8 * kk + 2 * j;
       split_bf16(s[i], s[i + 1], hi[kk][j], lo[kk][j], sum[j & 1]);
+    }
+  }
+}
+
+// One row of O divided by denom, from this thread's registers: `half` 0
+// takes registers 4i, 4i + 1 (the row row0), 1 takes 4i + 2, 4i + 3 (row0
+// + 8), at columns 8i + col and + 1 of `dst`, the row's start.  Columns at
+// or past dh are not stored; a pair goes as one bf16x2 store where the
+// address allows it (an odd Dh or row stride gives odd rows).
+template <int DH>
+__device__ __forceinline__ void store_o_row(__nv_bfloat16* dst,
+                                            const float (&o)[DH / 2],
+                                            int half, float denom, int col,
+                                            int dh) {
+  const bool pairs = (reinterpret_cast<uintptr_t>(dst + col) & 3u) == 0;
+#pragma unroll
+  for (int i = 0; i < DH / 2; i += 4) {
+    const int c = col + 2 * i;
+    const float x0 = o[i + 2 * half] / denom;
+    const float x1 = o[i + 2 * half + 1] / denom;
+    if (pairs && c + 1 < dh) {
+      *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+          __floats2bfloat162_rn(x0, x1);
+    } else {
+      if (c < dh) dst[c] = __float2bfloat16_rn(x0);
+      if (c + 1 < dh) dst[c + 1] = __float2bfloat16_rn(x1);
     }
   }
 }
@@ -677,20 +715,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const float d1 = l[1] == 0.f ? 1.f : l[1];
     __nv_bfloat16* o_bh = p.o + b * p.o_sb + h * p.o_sh;
     if (row0 < p.sq) {
-      __nv_bfloat16* dst = o_bh + row0 * p.o_ss + col;
-#pragma unroll
-      for (int i = 0; i < DH / 2; i += 4) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + 2 * i) =
-            __floats2bfloat162_rn(o[i] / d0, o[i + 1] / d0);
-      }
+      store_o_row<DH>(o_bh + row0 * p.o_ss, o, 0, d0, col, p.dh);
     }
     if (row0 + 8 < p.sq) {
-      __nv_bfloat16* dst = o_bh + (row0 + 8) * p.o_ss + col;
-#pragma unroll
-      for (int i = 0; i < DH / 2; i += 4) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + 2 * i) =
-            __floats2bfloat162_rn(o[i + 2] / d1, o[i + 3] / d1);
-      }
+      store_o_row<DH>(o_bh + (row0 + 8) * p.o_ss, o, 1, d1, col, p.dh);
     }
   }
 }
@@ -725,15 +753,17 @@ EncodeTiled encode_tiled() {
 
 // The tensor map of one bf16 operand seen as (Dh, seq, heads, batch)
 // through its strides in elements: boxes of 64 columns by `box_rows`
-// rows, 128-byte swizzle, zeros outside.  A dimension of extent 1 is
-// never stepped, so its stride is replaced by the packed one (TMA checks
-// every stride).  Returns false if the driver refuses it.
+// rows, 128-byte swizzle, zeros outside, so a box reaching past the real
+// Dh (all of it, for Dh below 64) is filled with zero columns.  A
+// dimension of extent 1 is never stepped, so its stride is replaced by
+// the packed one, rounded up to 16 bytes (TMA checks every stride).
+// Returns false if cuTensorMapEncodeTiled refuses it.
 bool tensor_map(CUtensorMap* map, const void* ptr, int64_t dh, int64_t seq,
                 int64_t heads, int64_t batch, int64_t ss, int64_t sh,
                 int64_t sb, int box_rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const int64_t ss_b = seq == 1 ? dh * 2 : ss * 2;
+  const int64_t ss_b = seq == 1 ? (dh * 2 + 15) / 16 * 16 : ss * 2;
   const int64_t sh_b = heads == 1 ? ss_b * seq : sh * 2;
   const int64_t sb_b = batch == 1 ? sh_b * heads : sb * 2;
   const cuuint64_t dims[4] = {
@@ -752,6 +782,8 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int64_t dh, int64_t seq,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the tensor maps take the real Dh (p.dh), so TMA fills the columns
+// from it up to DH with zeros
 template <int DH>
 cudaError_t launch_wgmma(const FaParams& p, int64_t batch,
                          int64_t batch_heads, cudaStream_t stream) {
@@ -762,15 +794,15 @@ cudaError_t launch_wgmma(const FaParams& p, int64_t batch,
   memset(&tq, 0, sizeof(tq));
   memset(&tk, 0, sizeof(tk));
   memset(&tv, 0, sizeof(tv));
-  if (!tensor_map(&tq, p.q, DH, p.sq, p.heads, batch, p.q_ss, p.q_sh,
+  if (!tensor_map(&tq, p.q, p.dh, p.sq, p.heads, batch, p.q_ss, p.q_sh,
                   p.q_sb, kWgTileRows)) {
     return cudaErrorInvalidValue;
   }
   // with no keys no tile is copied, and K, V need no map
   if (p.sk > 0 &&
-      !(tensor_map(&tk, p.k, DH, p.sk, p.kv_heads, batch, p.k_ss, p.k_sh,
+      !(tensor_map(&tk, p.k, p.dh, p.sk, p.kv_heads, batch, p.k_ss, p.k_sh,
                    p.k_sb, S::kKeys) &&
-        tensor_map(&tv, p.v, DH, p.sk, p.kv_heads, batch, p.v_ss, p.v_sh,
+        tensor_map(&tv, p.v, p.dh, p.sk, p.kv_heads, batch, p.v_ss, p.v_sh,
                    p.v_sb, S::kKeys))) {
     return cudaErrorInvalidValue;
   }
@@ -785,7 +817,8 @@ cudaError_t launch_wgmma(const FaParams& p, int64_t batch,
                     p.scale * kLog2e,
                     p.causal,
                     p.has_window,
-                    p.window};
+                    p.window,
+                    p.dh};
   const cudaError_t err = cudaFuncSetAttribute(
       fa_wgmma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       S::kSmem);
@@ -797,24 +830,28 @@ cudaError_t launch_wgmma(const FaParams& p, int64_t batch,
   return cudaGetLastError();
 }
 
-cudaError_t launch(const FaParams& p, int64_t head_dim, int64_t batch,
-                   int64_t batch_heads, int dtype, cudaStream_t stream) {
+// the real Dh (p.dh, 1 to 256) runs on the instance of the next width
+// at or above it
+cudaError_t launch(const FaParams& p, int64_t batch, int64_t batch_heads,
+                   int dtype, cudaStream_t stream) {
+  if (p.dh < 1 || p.dh > 256) return cudaErrorInvalidValue;
+  const int width = p.dh <= 64 ? 64 : p.dh <= 128 ? 128 : 256;
   if (dtype == kFloat32) {
-    switch (head_dim) {
+    switch (width) {
       case 64:
         return launch_fma<64>(p, batch_heads, stream);
       case 128:
         return launch_fma<128>(p, batch_heads, stream);
-      case 256:
+      default:
         return launch_fma<256>(p, batch_heads, stream);
     }
   } else if (dtype == kBFloat16) {
-    switch (head_dim) {
+    switch (width) {
       case 64:
         return launch_wgmma<64>(p, batch, batch_heads, stream);
       case 128:
         return launch_wgmma<128>(p, batch, batch_heads, stream);
-      case 256:
+      default:
         return launch_wgmma<256>(p, batch, batch_heads, stream);
     }
   }
@@ -828,8 +865,8 @@ using namespace repro_torch;
 
 // O (batch, heads, sq, head_dim) = attention of Q (batch, heads, sq,
 // head_dim) over K, V (batch, kv_heads, sk, head_dim), each through its
-// (batch, head, sequence) strides with head_dim contiguous.  A window is
-// applied when has_window is set.  fp32 runs the FMA kernel, bf16 the
+// (batch, head, sequence) strides with head_dim (1 to 256) contiguous.  A
+// window is applied when has_window is set.  fp32 runs the FMA kernel, bf16 the
 // tensor-core kernel, whose operands TMA reads: their pointers 16-byte
 // aligned, their strides in bytes multiples of 16.  Returns the
 // cudaError_t of the launch (0 on success).
@@ -847,10 +884,11 @@ extern "C" int flash_attention_launch(
   if (batch_heads > INT_MAX || sq > INT_MAX || sk > INT_MAX) {
     return cudaErrorInvalidConfiguration;
   }
+  if (head_dim < 1 || head_dim > 256) return cudaErrorInvalidValue;
   const FaParams p{q,    k,    v,    o,    heads, kv_heads, sq,
                    sk,   q_sb, q_sh, q_ss, k_sb,  k_sh,     k_ss,
                    v_sb, v_sh, v_ss, o_sb, o_sh,  o_ss,     scale,
-                   causal, has_window, window};
-  return launch(p, head_dim, batch, batch_heads, dtype,
+                   causal, has_window, window, static_cast<int>(head_dim)};
+  return launch(p, batch, batch_heads, dtype,
                 static_cast<cudaStream_t>(stream));
 }

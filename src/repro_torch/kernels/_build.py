@@ -29,7 +29,7 @@ __all__ = ["build", "load", "check", "dtype_code", "stream_handle"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("tiled_matmul.cu", "bsmm.cu", "grouped_gemm.cu",
            "flash_attention.cu")
-HEADERS = ("tile.cuh", "hopper.cuh")
+HEADERS = ("tile.cuh", "hopper.cuh", "split_gemm.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = (
@@ -45,8 +45,10 @@ _SIGNATURES = {
                             _int, _int, _ptr],
     "bsmm_launch": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _int,
                     _int, _int, _int, _int, _int, _ptr],
-    "grouped_gemm_launch": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64,
-                            _i64, _i64, _int, _int, _int, _int, _ptr],
+    # x, w, tile_expert, pairs, y; T, F, D, ldx, expert stride, ldw; bt,
+    # E; pairs; in and out dtype, stream
+    "grouped_gemm_launch": [_ptr] * 5 + [_i64] * 6 + [_int, _int, _i64,
+                                                       _int, _int, _ptr],
     # q, k, v, o; B, H, Hkv, Sq, Sk, Dh; (batch, head, seq) strides of q,
     # k, v, o; scale, causal, has_window, window, dtype, stream
     "flash_attention_launch": [_ptr] * 4 + [_i64] * 18 + [_f32, _int, _int,

@@ -19,9 +19,14 @@ kept in registers (as two bf16 parts, hi and lo, so P·V keeps P to
 ~2⁻¹⁷ where one bf16 P would lose the bf16 hold on short rows).  fp32
 runs the fp32-FMA kernel (never TF32, for the reference's fp32
 tolerance).  Both loop over only the key tiles the masks leave live,
-take Dh of 64, 128 or 256, any Sq and Sk (the ragged tail is masked) and
-(batch, head, sequence) strides with Dh contiguous, so the attention
-layer's transposed views need no copy; the output has ``q``'s layout.
+take any Dh from 1 to 256 (``HEAD_DIMS``), any Sq and Sk (the ragged
+tail is masked) and (batch, head, sequence) strides with Dh contiguous,
+so the attention layer's transposed views need no copy; the output has
+``q``'s layout.  The kernel is instantiated for the widths
+``KERNEL_HEAD_DIMS``; a head width runs on the next of them at or above
+it, its columns past Dh read as zero (TMA's fill on the bf16 route, a
+masked load on the fp32 one) and never stored, so nothing is padded or
+copied on the host.
 TMA reads the bf16 operands, so their pointers must be 16-byte aligned
 and their strides in bytes multiples of 16 (``tma_operand_problems``).
 At the LM's shape (B = 4, H = 32, Hkv = 8, S = 4096, Dh = 64, bf16,
@@ -40,8 +45,11 @@ from repro_torch.kernels import _build
 __all__ = ["flash_attention_cuda", "flash_attention_plain",
            "tma_operand_problems"]
 
-#: head widths the CUDA kernel is built for (csrc/flash_attention.cu)
-HEAD_DIMS = (64, 128, 256)
+#: head widths the CUDA kernel takes
+HEAD_DIMS = range(1, 257)
+#: widths it is instantiated for (csrc/flash_attention.cu): a head width
+#: runs on the next of them at or above it
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
 def _check_shapes(q, k, v) -> None:
@@ -134,9 +142,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention through the CUDA kernel; counts its launches.
 
     ``q``, ``k``, ``v`` are float32 or bfloat16 CUDA tensors of one dtype,
-    Dh in ``HEAD_DIMS``, each with unit last stride (any batch, head and
-    sequence strides; in bf16 a 16-byte aligned pointer and strides of a
-    multiple of 16 bytes, else ``ValueError`` naming the condition).  The
+    any Dh from 1 to 256 (``HEAD_DIMS``; wider raises), each with unit
+    last stride (any batch, head and sequence strides; in bf16 a 16-byte
+    aligned pointer and strides of a multiple of 16 bytes, else
+    ``ValueError`` naming the condition).  The
     result is a new tensor of ``q``'s shape, dtype and layout
     (``torch.empty_like``).
     """
@@ -145,8 +154,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, sk = k.shape[1], k.shape[2]
     if dh not in HEAD_DIMS:
         raise ValueError(
-            f"the flash-attention kernel takes head widths {HEAD_DIMS}, "
-            f"not {dh}"
+            f"the flash-attention kernel takes head widths from 1 to "
+            f"{HEAD_DIMS[-1]}, not {dh}"
         )
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(

@@ -9,23 +9,36 @@ rank-sparse route the tokens are rows of the V factors, a tile is one
 block's ``r_pad`` rows, and the experts are the K-panels of B
 (``core.summa._exec_ranksparse_grouped``, ``kernels.ops.ranksparse_matmul``).
 
-The kernel (``csrc/grouped_gemm.cu``, tiles in ``csrc/tile.cuh``) gives
-each block of 256 threads one 64-row sub-tile of one token tile and one
-64-column tile of y; the block reads its tile's expert itself, in place of
-the TPU's scalar prefetch, and loops over D.  A tile shorter than 64 rows
-(``bt`` = 8, 16, 24) has a block of its own, so no block mixes experts.
-``w`` is read through its expert and row strides, so the K-panels of one
-row-major B serve as experts without a copy.  On the main path
-(``bt`` = 64, D = 256, F = 32768, fp32) the work is 2 T D F FLOP against
-4 (T D + E D F + T F) bytes: bound by the card's 67 TFLOP/s of fp32 FMA.
+The kernel (``csrc/grouped_gemm.cu`` on the engine of
+``csrc/split_gemm.cuh``) runs the products on the bf16 tensor cores
+(``wgmma``): an fp32 operand is split into hi = bf16(x) and lo =
+bf16(x - hi) and three products, hi·hi + hi·lo + lo·hi, are accumulated
+in fp32, which holds the reference's fp32 tolerance; bf16 operands take
+one product.  A block of 384 threads owns one 256-column tile of y and
+two 64-row *units* of one expert (a unit is a 64-row sub-tile of a token
+tile; a tile shorter than 64 rows, ``bt`` = 8, 16, 24, is one unit), one
+per consumer warpgroup, while a producer warpgroup streams the expert's
+W slice, split, into shared memory; so no block mixes experts and each
+slice of W read feeds 128 token rows.  The pairs are built on the host
+from the tile map (``tile_pairs``), where it is numpy, and handed to the
+kernel as an int32 list.  ``w`` is read through its expert and row
+strides, so the K-panels of one row-major B serve as experts without a
+copy.  On the main path (``bt`` = 64, D = 256, F = 32768, 128 experts,
+fp32) the work is 4 (T D + E D F + T F) = 12.9 GB against three bf16
+products of 2 T D F FLOP each: bound by bytes, 3.85 ms at the card's
+3.35 TB/s.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["grouped_gemm_cuda", "grouped_gemm_plain"]
+__all__ = ["grouped_gemm_cuda", "grouped_gemm_plain", "tile_pairs"]
+
+#: rows of a unit: one consumer warpgroup's wgmma rows (csrc/split_gemm.cuh)
+UNIT_ROWS = 64
 
 
 def _check_shapes(x, w, tile_expert, bt) -> None:
@@ -64,9 +77,40 @@ def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
     return y.reshape(t, -1).to(out_dtype or x.dtype)
 
 
+def tile_pairs(tile_expert, bt: int) -> np.ndarray:
+    """The kernel's work list: an int32 (P, 2) array of the first rows of
+    two units of one expert each, the second -1 where an expert's units
+    run out; every unit appears once.
+
+    A unit is a ``UNIT_ROWS``-row sub-tile of a ``bt``-row token tile (a
+    shorter tile is one unit).  Units are grouped by expert (stably, so in
+    token order within an expert) and taken two at a time; the pairs come
+    out ordered by expert, so blocks that run together share W's slices.
+    ``tile_expert`` is a host array (numpy or a CPU tensor).
+    """
+    te = np.asarray(tile_expert, dtype=np.int64).reshape(-1)
+    subs = -(-bt // UNIT_ROWS)
+    starts = (np.arange(te.size, dtype=np.int64)[:, None] * bt
+              + np.arange(subs, dtype=np.int64)[None, :] * UNIT_ROWS)
+    experts = np.repeat(te, subs)
+    order = np.argsort(experts, kind="stable")
+    starts, experts = starts.reshape(-1)[order], experts[order]
+    n = starts.size
+    first = np.r_[True, experts[1:] != experts[:-1]] if n else np.zeros(0, bool)
+    group_start = np.maximum.accumulate(np.where(first, np.arange(n), 0))
+    head = (np.arange(n) - group_start) % 2 == 0
+    nxt = np.arange(n) + 1
+    partnered = head & (nxt < n)
+    partnered[partnered] &= experts[nxt[partnered]] == experts[partnered]
+    second = np.full(n, -1, np.int64)
+    second[partnered] = starts[nxt[partnered]]
+    return np.stack([starts[head], second[head]], axis=1).astype(np.int32)
+
+
 def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
                       tile_expert: torch.Tensor, *, bt: int,
-                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                      out_dtype: torch.dtype | None = None,
+                      pairs: torch.Tensor | None = None) -> torch.Tensor:
     """The grouped product through the CUDA kernel; counts its launches.
 
     ``x`` (T, D) and ``w`` (E, D, F) are float32 or bfloat16 CUDA tensors
@@ -74,8 +118,11 @@ def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     ``tile_expert`` is a contiguous int32 (T/bt,) tensor on the same
     device whose entries lie in [0, E) — the caller checks that where it
     builds the map (``kernels.ops.grouped_gemm`` checks it on the host);
-    a tile naming no expert is never read and gives zeros.  The result is
-    a new contiguous (T, F) tensor of ``out_dtype`` (default ``x.dtype``).
+    a tile naming no expert is never read and gives zeros.  ``pairs`` is
+    ``tile_pairs`` of the same map as a contiguous int32 tensor on the
+    device; without it the wrapper copies the map to the host and builds
+    it, which waits for the card.  The result is a new contiguous (T, F)
+    tensor of ``out_dtype`` (default ``x.dtype``).
     """
     out_dtype = out_dtype or x.dtype
     _check_shapes(x, w, tile_expert, bt)
@@ -98,12 +145,23 @@ def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
         )
     t, d = x.shape
     e, _, f = w.shape
+    if t >= 2**31:
+        raise ValueError(f"the kernel indexes tokens in 32 bits, got T={t}")
+    if pairs is None:
+        pairs = torch.as_tensor(tile_pairs(tile_expert.cpu(), bt),
+                                device=x.device)
+    if (pairs.dtype != torch.int32 or pairs.device != x.device
+            or pairs.dim() != 2 or pairs.shape[1] != 2
+            or not pairs.is_contiguous()):
+        raise ValueError(
+            "pairs must be a contiguous int32 (P, 2) tensor on x's device, "
+            f"got {pairs.dtype} {tuple(pairs.shape)} on {pairs.device}")
     y = torch.empty((t, f), dtype=out_dtype, device=x.device)
     err = _build.load().grouped_gemm_launch(
-        x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(), y.data_ptr(),
-        t, f, d, x.stride(0), w.stride(0), w.stride(1), bt, e,
-        _build.dtype_code(x.dtype), _build.dtype_code(out_dtype),
-        _build.stream_handle(x.device),
+        x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(),
+        pairs.data_ptr(), y.data_ptr(), t, f, d, x.stride(0), w.stride(0),
+        w.stride(1), bt, e, pairs.shape[0], _build.dtype_code(x.dtype),
+        _build.dtype_code(out_dtype), _build.stream_handle(x.device),
     )
     _build.check(err, "grouped_gemm kernel launch")
     grouped_gemm_cuda.launches += 1

@@ -116,6 +116,31 @@ def test_flash_attention_plain_matches_reference(h, hkv, s, causal, window,
 
 
 @pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("dh", [8, 80, 112])
+def test_flash_attention_plain_head_widths(dh, name):
+    """Head widths off the kernel's instances (64, 128, 256): 8 (the
+    llama, qwen and command-r smoke configs), 80 (hubert-xlarge, 1280 /
+    16) and 112 (kimi-k2), causal with GQA and under a window."""
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _pair(shape, name, seed)
+        for seed, shape in enumerate([(2, 4, 128, dh), (2, 2, 128, dh),
+                                      (2, 2, 128, dh)], start=dh)
+    )
+    tol = _fa_tol(name)
+    for causal, window in ((True, None), (True, 24)):
+        got = ops.flash_attention(tq, tk, tv, causal=causal, window=window,
+                                  bq=64, bk=64)
+        assert got.shape == tq.shape and got.dtype == tq.dtype
+        pallas = ref_ops.flash_attention(jq, jk, jv, causal=causal,
+                                         window=window, bq=64, bk=64)
+        oracle = ref_attention_oracle(jq, jk, jv, causal=causal,
+                                      window=window)
+        for want in (pallas, oracle):
+            np.testing.assert_allclose(_np(got), _np(want), rtol=tol,
+                                       atol=tol)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
 def test_flash_attention_ragged_length(name):
     """S = 200 is no multiple of any tile: the reference's wrapper falls
     back to its oracle, the port's CPU route is its plain version (its
@@ -186,7 +211,8 @@ def test_flash_attention_cuda_wrapper_refuses_bad_operands():
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k, k)
     with pytest.raises(ValueError, match="head widths"):
-        flash_attention_cuda(q[..., :32], k[..., :32], k[..., :32])
+        wide_q, wide_k = torch.zeros((1, 4, 8, 320)), torch.zeros((1, 2, 8, 320))
+        flash_attention_cuda(wide_q, wide_k, wide_k)
     with pytest.raises(TypeError, match="dtypes differ"):
         flash_attention_cuda(q, k.bfloat16(), k)
     with pytest.raises(ValueError, match="multiple of kv heads"):

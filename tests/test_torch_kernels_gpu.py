@@ -159,6 +159,55 @@ def test_grouped_gemm_kernel_strided_experts_and_bad_maps(cuda):
 
 
 @pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize(
+    "bt,counts,f",
+    [(64, (8, 8, 8, 8), 600), (64, (3, 5, 1), 512), (8, (5, 2, 4), 300),
+     (24, (3, 4), 260), (128, (3, 2), 256)],
+)
+def test_grouped_gemm_split_kernel(cuda, bt, counts, f, name):
+    """The wgmma kernel at the main path's D = 256: 8 tiles an expert (4
+    full pairs), odd tile counts (a block whose second consumer idles),
+    tiles of 8 and 24 rows (one short unit) and of 128 (two units), with
+    the experts read in place as the K-panels of one row-major B, tokens
+    as a column slice, and a ragged F (not a multiple of the 256-column
+    tile; F = 300 and 260 also leave bf16 rows off 16 bytes).  Through the
+    wrapper (pairs from the host map) and directly (pairs built from the
+    device map)."""
+    d = 256
+    rng = np.random.default_rng(bt + f)
+    te = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
+    rng.shuffle(te)
+    t = te.size * bt
+    w = _rand((len(counts) * d, f), name, f, cuda).view(len(counts), d, f)
+    x = _rand((t, d + 40), name, t, cuda)[:, 40:]
+    want = grouped_gemm_plain(x, w, torch.as_tensor(te, device=cuda), bt=bt)
+    before = grouped_gemm_cuda.launches
+    got = ops.grouped_gemm(x, w, te, bt=bt)
+    assert grouped_gemm_cuda.launches == before + 1
+    assert got.shape == (t, f) and got.dtype == x.dtype
+    _close(got, want, name, d)
+    got = grouped_gemm_cuda(x, w, torch.as_tensor(te, device=cuda), bt=bt,
+                            out_dtype=torch.float32)
+    _close(got, want.float() if name == "float32" else
+           grouped_gemm_plain(x, w, torch.as_tensor(te, device=cuda), bt=bt,
+                              out_dtype=torch.float32), name, d)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_grouped_gemm_split_kernel_column_slice(cuda, name):
+    """Experts as a column slice of a wider buffer: the row stride (304)
+    allows 16-byte copies, and each row's last copy (F = 300) is a
+    partial one, zero-filled past F."""
+    d, f, bt = 256, 300, 64
+    te = np.array([1, 0, 1, 1, 0], np.int32)
+    w = _rand((2, d, 304), name, 7, cuda)[:, :, :f]
+    x = _rand((te.size * bt, d), name, 8, cuda)
+    got = ops.grouped_gemm(x, w, te, bt=bt)
+    _close(got, grouped_gemm_plain(x, w, torch.as_tensor(te, device=cuda),
+                                   bt=bt), name, d)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
 def test_ranksparse_matmul_on_the_card(cuda, name):
     """The single-launch local rank route against its densified oracle;
     a bf16 B is promoted to the fp32 factors' type."""
@@ -238,7 +287,8 @@ def test_flash_attention_kernel_dead_rows_and_refusals(cuda):
     _close_attention(got, flash_attention_plain(q, k, v, causal=False,
                                                 window=64), "float32")
     with pytest.raises(ValueError, match="head widths"):
-        flash_attention_cuda(q[..., :32], k[..., :32], v[..., :32])
+        wide = _rand((1, 2, 64, 320), "float32", 5, cuda)
+        flash_attention_cuda(wide, wide, wide)
     every_other = _rand((1, 2, 256, 128), "float32", 4, cuda)[..., ::2]
     with pytest.raises(ValueError, match="unit stride"):
         flash_attention_cuda(every_other, k, v)
@@ -311,6 +361,52 @@ def test_flash_attention_bf16_wide_heads_windows(cuda, dh, window):
                                                      window=window))
 
 
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("dh", [8, 32, 80, 112])
+def test_flash_attention_kernel_every_head_width(cuda, dh, name):
+    """Head widths off the kernel's instances (8: llama, qwen and
+    command-r smoke; 32: gemma smoke; 80: hubert-xlarge; 112: kimi-k2):
+    the next instance's columns past Dh read as zero and are not stored.
+    Causal with GQA, under windows narrower and wider than a key tile,
+    and without a mask, on transposed views."""
+    q = _heads_view(2, 300, 8, dh, name, dh, cuda)
+    k = _heads_view(2, 300, 2, dh, name, dh + 1, cuda)
+    v = _heads_view(2, 300, 2, dh, name, dh + 2, cuda)
+    for causal, window in ((True, None), (True, 8), (True, 100),
+                           (False, None)):
+        before = flash_attention_cuda.launches
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        assert flash_attention_cuda.launches == before + 1
+        assert got.shape == q.shape and got.dtype == q.dtype
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        if name == "bfloat16":
+            _close_bf16_attention(got, want)
+        else:
+            _close_attention(got, want, name)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("dh", [1, 33])
+def test_flash_attention_kernel_odd_head_widths(cuda, dh, name):
+    """Odd widths: the last column is stored alone, and the output rows
+    (``empty_like`` of a non-dense view is contiguous, row stride Dh) are
+    not 4-byte aligned.  bf16 operands are Dh-column views of a buffer
+    whose rows are padded to 16 bytes, the strides TMA can read."""
+    def operand(h, seed):
+        x = _heads_view(1, 200, h, -(-dh // 8) * 8, name, seed, cuda)
+        return x[..., :dh]
+
+    q, k, v = operand(4, dh), operand(2, dh + 1), operand(2, dh + 2)
+    for causal, window in ((True, None), (False, 50)):
+        got = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
+        assert got.shape == q.shape
+        if name == "bfloat16":
+            _close_bf16_attention(got, want)
+        else:
+            _close_attention(got, want, name)
+
+
 def test_flash_attention_bf16_refuses_what_tma_cannot_read(cuda):
     """A view one element off a 16-byte boundary, and a sequence stride of
     136 bytes: ValueErrors naming the condition, no launch."""
@@ -324,6 +420,32 @@ def test_flash_attention_bf16_refuses_what_tma_cannot_read(cuda):
     with pytest.raises(ValueError, match="sequence stride of 136 bytes"):
         flash_attention_cuda(shifted.contiguous(), padded, k)
     assert flash_attention_cuda.launches == before
+
+@pytest.mark.parametrize(
+    "arch", ["llama3.2-1b", "gemma-2b", "qwen2.5-32b", "command-r-35b"])
+def test_smoke_config_forward_through_the_kernel(cuda, arch):
+    """Each ported config's smoke variant as it is (head widths 8 and
+    32, bf16) and widened to fp32, through ``use_kernel=True``: one launch
+    per layer, logits near the plain-attention forward's (fp32 1e-3 of max
+    |logit|; bf16 8e-2, chip_smoke.py's bound for two bf16 forwards that
+    differ only in the order of fp32 sums)."""
+    for dtype, rel in (("bfloat16", 8e-2), ("float32", 1e-3)):
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+        model = init_model(cfg, generator=torch.Generator(cuda).manual_seed(0),
+                           device=cuda)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 130), device=cuda,
+                               generator=torch.Generator(cuda).manual_seed(1))
+        before = flash_attention_cuda.launches
+        got, _ = forward(model, {"tokens": tokens}, cfg, ParallelCtx(None),
+                         use_kernel=True)
+        assert flash_attention_cuda.launches == before + cfg.num_layers
+        want, _ = forward(model, {"tokens": tokens}, cfg, ParallelCtx(None))
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        scale = want.abs().max().item()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=rel * scale)
+
 
 def test_lm_forward_through_the_kernel_on_the_card(cuda):
     """A narrow llama (2 layers, Dh 64) on the card: one kernel launch per

@@ -35,7 +35,11 @@ from repro_torch.core.sparsity import (
     synthesize_rank_csr,
 )
 from repro_torch.kernels import ops
-from repro_torch.kernels.grouped_gemm import grouped_gemm_cuda, grouped_gemm_plain
+from repro_torch.kernels.grouped_gemm import (
+    grouped_gemm_cuda,
+    grouped_gemm_plain,
+    tile_pairs,
+)
 from test_torch_plan import FakeMesh, assert_plans_equal
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -126,6 +130,71 @@ def test_grouped_gemm_matches_reference(t, d, f, e, bt, name):
         got.float().numpy(), np.asarray(want, np.float32),
         rtol=_tol(name), atol=_tol(name) * d ** 0.5,
     )
+
+
+def _split_bf16(x: torch.Tensor):
+    """hi = bf16(x), lo = bf16(x - hi), as fp32 (csrc/split_gemm.cuh)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize(
+    "t,d,f,e,bt",
+    [(128, 256, 256, 2, 64), (256, 64, 96, 4, 64), (512, 128, 64, 8, 128),
+     (64, 32, 40, 3, 8)],
+)
+def test_split_bf16_product_holds_the_fp32_tolerance(t, d, f, e, bt):
+    """The CUDA kernel's arithmetic for fp32 operands, emulated: each
+    operand split into bf16 hi and lo, three products hi·hi + hi·lo +
+    lo·hi summed in fp32 (a bf16 product is exact in fp32), against the
+    reference's fp32 grouped GEMM at its fp32 tolerance (rtol 1e-4, atol
+    1e-4·√D) — at the main path's D = 256 and the reference's shapes."""
+    rng = np.random.default_rng(t + d)
+    x = rng.normal(size=(t, d)).astype(np.float32)
+    w = rng.normal(size=(e, d, f)).astype(np.float32)
+    te = rng.integers(0, e, size=t // bt).astype(np.int32)
+    want = np.asarray(ref_ops.grouped_gemm(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(te), bt=bt, bk=32,
+        bn=32), np.float32)
+    x_hi, x_lo = _split_bf16(torch.from_numpy(x))
+    w_hi, w_lo = _split_bf16(torch.from_numpy(w))
+    xt = [part.view(t // bt, bt, d) for part in (x_hi, x_lo)]
+    we = [part[torch.from_numpy(te).long()] for part in (w_hi, w_lo)]
+    got = (torch.bmm(xt[0], we[0]) + torch.bmm(xt[0], we[1])
+           + torch.bmm(xt[1], we[0])).reshape(t, f)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                               atol=1e-4 * d ** 0.5)
+    # one bf16 product does not hold it: the split is what carries fp32
+    one = torch.bmm(xt[0], we[0]).reshape(t, f).numpy()
+    assert not np.allclose(one, want, rtol=1e-4, atol=1e-4 * d ** 0.5)
+
+
+@pytest.mark.parametrize(
+    "te,bt",
+    [([3, 0, 0, 2, 1, 3, 2, 1], 8), ([1, 0, 1], 128), ([0, 1, 0, 1, 0], 64),
+     (list(np.tile(np.arange(128), 8)), 64), ([2, 2, 2], 100), ([], 64)],
+)
+def test_tile_pairs_cover_every_unit_once(te, bt):
+    """The kernel's work list: every 64-row unit of every tile once, two
+    units of one expert a pair (or one, the second -1), pairs ordered by
+    expert; on the main path's map (8 tiles for each of 128 experts) every
+    unit has a partner."""
+    te = np.asarray(te, np.int32)
+    pairs = tile_pairs(te, bt)
+    assert pairs.dtype == np.int32 and pairs.shape[1:] == (2,)
+    units = [tile * bt + sub for tile in range(te.size)
+             for sub in range(0, bt, 64)]
+    listed = pairs[pairs >= 0]
+    assert sorted(listed.tolist()) == units
+    experts = te[pairs[:, 0] // bt]
+    assert np.all(np.diff(experts) >= 0)
+    second = pairs[:, 1] >= 0
+    assert np.all(te[pairs[second, 1] // bt] == experts[second])
+    per_expert = np.bincount(te, minlength=int(te.max(initial=0)) + 1)
+    units_per_expert = per_expert * -(-bt // 64)
+    assert (~second).sum() == (units_per_expert % 2).sum()
+    if te.size == 1024:
+        assert second.all() and pairs.shape[0] == 512
 
 
 def test_grouped_gemm_wrapper_checks_its_map():
