@@ -670,41 +670,44 @@ def phase_times(a, b, sparse_plan, rank_plan, r_pad) -> dict:
 
 def _time_grouped(plan, r_pad, b) -> dict:
     """One main-path launch of ``grouped_gemm``: a chunk's V tokens against
-    the rank case's B panels, with the work list the wrapper builds on
-    the host (``tile_pairs``); the library call is one ``torch.bmm`` over
-    the same work grouped by expert (every live panel has one tile per
-    block row of the chunk).  The bound counts the three bf16 products of
-    the split at the tensor cores' peak against the operands' bytes; the
-    fp32-FMA bound of the earlier design is printed beside it."""
+    the rank case's B panels, through the wrapper as the route calls it
+    (its work list built on the host included); the library call is one
+    ``torch.bmm`` over the same work grouped by expert (every live panel
+    has one tile per block row of the chunk).  The bound counts the
+    function's 2 T D F FLOP at the bf16 tensor cores' peak against the
+    operands' bytes; the split design's own floor (three bf16 products)
+    and the fp32-FMA bound of the earlier design are printed beside it."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     x, w, te = _grouped_operands(plan, r_pad, torch.float32, gen, b=b)
     bt = r_pad
-    pairs = torch.as_tensor(tile_pairs(te.cpu(), bt), device=DEVICE)
+    n_pairs = tile_pairs(te.cpu(), bt).shape[0]
     t, d = x.shape
     e, _, f = w.shape
     live = len(plan.live_panels)
     flops = 2.0 * t * d * f
-    nbytes = (4.0 * (t * d + live * d * f + t * f) + te.numel() * 4
-              + pairs.numel() * 4)
-    ms = cuda_ms(lambda: grouped_gemm_cuda(x, w, te, bt=bt, pairs=pairs), 5)
+    nbytes = 4.0 * (t * d + live * d * f + t * f) + te.numel() * 4
+    ms = cuda_ms(lambda: grouped_gemm_cuda(x, w, te, bt=bt), 5)
     plain_ms = cuda_ms(lambda: grouped_gemm_plain(x, w, te, bt=bt), 3)
     rows = t // (live * bt)
     x_by_expert = (x.view(rows, live, bt, d).transpose(0, 1)
                    .reshape(live, rows * bt, d))
     w_live = w[torch.as_tensor(plan.live_panels, device=DEVICE)]
     lib_ms = cuda_ms(lambda: torch.bmm(x_by_expert, w_live), 5)
-    bound_ms, by = bound(3 * flops, nbytes, PEAK_BF16_FLOPS)
+    bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    split_ms, _ = bound(3 * flops, nbytes, PEAK_BF16_FLOPS)
     fma_ms, _ = bound(flops, nbytes)
     log(f"  grouped_gemm T={t} D={d} F={f} experts {live} bt={bt} fp32 "
-        f"({pairs.shape[0]} unit pairs): kernel {ms:.3f} ms "
+        f"({n_pairs} unit pairs): kernel {ms:.3f} ms "
         f"({flops / ms / 1e9:.2f} TFLOP/s of fp32 work), plain "
         f"{plain_ms:.3f} ms, torch.bmm (grouped by expert) {lib_ms:.3f} ms, "
         f"bound {bound_ms:.3f} ms ({by}: {nbytes:.4g} bytes at "
         f"{PEAK_HBM_BYTES_PER_S:.3g} B/s = "
-        f"{nbytes / PEAK_HBM_BYTES_PER_S * 1e3:.4f} ms; three bf16 products "
-        f"{3 * flops:.4g} FLOP at {PEAK_BF16_FLOPS:.3g} FLOP/s = "
-        f"{3 * flops / PEAK_BF16_FLOPS * 1e3:.4f} ms) [fp32-FMA bound "
-        f"{fma_ms:.3f} ms]")
+        f"{nbytes / PEAK_HBM_BYTES_PER_S * 1e3:.4f} ms; {flops:.4g} FLOP at "
+        f"{PEAK_BF16_FLOPS:.3g} FLOP/s = "
+        f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms) [the split's floor with "
+        f"its three bf16 products "
+        f"({3 * flops / PEAK_BF16_FLOPS * 1e3:.4f} ms of them): "
+        f"{split_ms:.3f} ms; fp32-FMA bound {fma_ms:.3f} ms]")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=by, flops=flops)
 

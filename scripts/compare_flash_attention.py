@@ -21,11 +21,8 @@ the hold; a variant that fails it is reported, not raised.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -35,6 +32,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from kernel_variants import build, card, in_turns, ms  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_plain,
@@ -42,26 +40,28 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 
 OUT = ROOT / "build" / "fa_variants"
 KERNEL = "fa_wgmma_kernel"
+FA = "flash_attention.cu"
 VARIANTS = {
     "source": [],
     # one bf16 P enters P V, and l sums that rounded P
     "one_bf16_p": [
-        ("    hopper::wgmma_rs_mn<DH>(o, lo[kk], dv);\n", ""),
-        ("  sum += x0 + x1;", "  sum += __low2float(h) + __high2float(h);"),
+        (FA, "    hopper::wgmma_rs_mn<DH>(o, lo[kk], dv);\n", ""),
+        (FA, "  sum += x0 + x1;",
+         "  sum += __low2float(h) + __high2float(h);"),
     ],
     # l sums the two bf16 parts instead of the fp32 P
     "l_from_hi_lo": [
-        ("  sum += x0 + x1;",
+        (FA, "  sum += x0 + x1;",
          "  sum += __low2float(h) + __high2float(h) + __low2float(l) +\n"
          "         __high2float(l);"),
     ],
     # three K/V stages at Dh 64 instead of four
-    "stages3_dh64": [("kStages = DH == 64 ? 4 :",
+    "stages3_dh64": [(FA, "kStages = DH == 64 ? 4 :",
                       "kStages = DH == 64 ? 3 :")],
     # O rescaled on every tile, not only when some row's max moved
     "rescale_always": [
-        ("if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {",
-         "{"),
+        (FA, "if (__any_sync(0xffffffffu, alpha[0] != 1.f || "
+             "alpha[1] != 1.f)) {", "{"),
     ],
 }
 CHECKS = (  # b, h, hkv, sq, sk, dh, causal, window
@@ -76,45 +76,8 @@ TIMES = ((4, 32, 8, 4096, 64), (1, 32, 8, 32768, 64), (4, 16, 4, 4096, 128),
          (2, 8, 1, 4096, 256))
 
 
-def build(names: list[str]) -> dict[str, ctypes.CDLL]:
-    src = (_build.CSRC / "flash_attention.cu").read_text()
-    procs = {}
-    for name in names:
-        text = src
-        for old, new in VARIANTS[name]:
-            if text.count(old) != 1:
-                raise RuntimeError(
-                    f"{name}: {old!r} is not in the source once")
-            text = text.replace(old, new)
-        d = OUT / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        (d / "fa.cu").write_text(text)
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-             str(_build.CSRC), "-o", str(d / "lib.so"), str(d / "fa.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
-        entry = None
-        for line in out.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                entry = m.group(1)
-            elif entry and KERNEL in entry and ("Used" in line
-                                                or "spill" in line):
-                dh = re.search(r"ILi(\d+)EE", entry).group(1)
-                print(f"  {name} Dh={dh}: "
-                      f"{line.replace('ptxas info    :', '').strip()}")
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        lib.flash_attention_launch.argtypes = _build._SIGNATURES[
-            "flash_attention_launch"]
-        lib.flash_attention_launch.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+def _label(entry: str) -> str:
+    return "Dh=" + re.search(r"ILi(\d+)EE", entry).group(1)
 
 
 def run(lib, q, k, v, causal=True, window=None) -> torch.Tensor:
@@ -131,19 +94,6 @@ def run(lib, q, k, v, causal=True, window=None) -> torch.Tensor:
     return o
 
 
-def ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("compare_flash_attention: no CUDA device")
@@ -152,13 +102,11 @@ def main() -> None:
     if unknown:
         sys.exit(f"compare_flash_attention: unknown variants {unknown}; "
                  f"known: {list(VARIANTS)}")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip(), flush=True)
+    print(card(), flush=True)
     print(f"build ({KERNEL}, ptxas):", flush=True)
-    libs = build(names)
+    libs = build({name: VARIANTS[name] for name in names}, main=FA,
+                 kernel=KERNEL, symbol="flash_attention_launch", out=OUT,
+                 label=_label)
 
     gen = torch.Generator(device="cuda").manual_seed(3)
 
@@ -191,13 +139,12 @@ def main() -> None:
                                                                   dh)
         flop = 4.0 * b * h * dh * s * (s + 1) / 2
         iters = 5 if s > 8192 else 20
-        times = {name: [] for name in libs}
-        for name in (list(libs) + list(libs)[::-1]) * 3:
-            times[name].append(ms(lambda: run(libs[name], q, k, v), iters))
+        times = in_turns({name: (lambda lib=lib: run(lib, q, k, v))
+                          for name, lib in libs.items()}, iters)
         sdpa = ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), iters)
         print(f"  B={b} H={h}/{hkv} S={s} Dh={dh}: " + ", ".join(
-            f"{name} {min(t):.4f} ms ({flop / min(t) / 1e9:.1f} TFLOP/s)"
+            f"{name} {t:.4f} ms ({flop / t / 1e9:.1f} TFLOP/s)"
             for name, t in times.items())
             + f", scaled_dot_product_attention {sdpa:.4f} ms", flush=True)
         del q, k, v

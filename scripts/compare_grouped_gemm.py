@@ -19,16 +19,16 @@ tol·√D, tol 1e-4 in fp32 and 2e-2 in bf16; over 1 fails), and times every
 variant in turns (forward, then backward order, three rounds; the least
 time is kept) at the rank-sparse main path's launch (T = 65536, D = 256,
 F = 32768, 128 experts read in place from one row-major B, 8 tiles of 64
-rows each), beside ``torch.bmm`` over the same work grouped by expert.
-It exits non-zero if ``source`` fails a hold; a variant that fails one is
+rows each), beside ``torch.bmm`` over the same work grouped by expert
+and, where ``source`` runs, beside ``grouped_gemm_cuda`` (``wrapper``:
+the repository's build of the source through its wrapper, which builds
+the work list on the host at every launch, where the variants take a
+list built once).  It exits non-zero if ``source`` fails a hold; a variant that fails one is
 reported, not raised.
 """
 from __future__ import annotations
 
-import ctypes
 import re
-import shutil
-import subprocess
 import sys
 from pathlib import Path
 
@@ -38,8 +38,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from kernel_variants import build, card, in_turns, ms  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.grouped_gemm import tile_pairs  # noqa: E402
+from repro_torch.kernels.grouped_gemm import (  # noqa: E402
+    grouped_gemm_cuda,
+    tile_pairs,
+)
 
 OUT = ROOT / "build" / "gg_variants"
 KERNEL = "grouped_gemm_kernel"
@@ -107,49 +111,9 @@ CHECKS = (  # t, d, f, e, bt
 MAIN = (65536, 256, 32768, 128, 64)
 
 
-def build(names: list[str]) -> dict[str, ctypes.CDLL]:
-    sources = {f: (_build.CSRC / f).read_text() for f in (GG, SG)}
-    procs = {}
-    for name in names:
-        if VARIANTS[name] is None:
-            continue
-        text = dict(sources)
-        for f, old, new in VARIANTS[name]:
-            if text[f].count(old) != 1:
-                raise RuntimeError(
-                    f"{name}: {old!r} is not in {f} once")
-            text[f] = text[f].replace(old, new)
-        d = OUT / name
-        shutil.rmtree(d, ignore_errors=True)
-        d.mkdir(parents=True)
-        for f, body in text.items():
-            (d / f).write_text(body)
-        # the variant's directory comes first for "split_gemm.cuh"
-        procs[name] = subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(d),
-             "-I", str(_build.CSRC), "-o", str(d / "lib.so"), str(d / GG)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
-        entry = None
-        for line in out.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                entry = m.group(1)
-            elif entry and KERNEL in entry and ("Used" in line
-                                                or "spill" in line):
-                types = re.search(rf"{KERNEL}I(\w+?)EEv", entry)
-                print(f"  {name} {types.group(1) if types else entry}: "
-                      f"{line.replace('ptxas info    :', '').strip()}")
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        lib.grouped_gemm_launch.argtypes = _build._SIGNATURES[
-            "grouped_gemm_launch"]
-        lib.grouped_gemm_launch.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+def _label(entry: str) -> str:
+    types = re.search(rf"{KERNEL}I(\w+?)EEv", entry)
+    return types.group(1) if types else entry
 
 
 def work_lists(te: np.ndarray, bt: int) -> dict[str, torch.Tensor]:
@@ -177,19 +141,6 @@ def run(lib, x, w, te, pairs, bt) -> torch.Tensor:
     return y
 
 
-def ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("compare_grouped_gemm: no CUDA device")
@@ -201,13 +152,12 @@ def main() -> None:
     if "unpaired" in names and "source" not in names:
         names.append("source")
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip(), flush=True)
+    print(card(), flush=True)
     print(f"build ({KERNEL}, ptxas):", flush=True)
-    libs = build(names)
+    libs = build({name: VARIANTS[name] for name in names
+                  if VARIANTS[name] is not None},
+                 main=GG, kernel=KERNEL, symbol="grouped_gemm_launch",
+                 out=OUT, label=_label)
     runs = {name: (libs["source" if VARIANTS[name] is None else name],
                    "alone" if name == "unpaired" else "paired")
             for name in names}
@@ -243,19 +193,19 @@ def main() -> None:
     te_np = np.tile(np.arange(e, dtype=np.int32), t // bt // e)
     te = torch.as_tensor(te_np, device="cuda")
     lists = work_lists(te_np, bt)
-    times = {name: [] for name in runs}
-    order = list(runs)
-    for name in (order + order[::-1]) * 3:
-        lib, which = runs[name]
-        times[name].append(ms(lambda: run(lib, x, w, te, lists[which], bt),
-                              5))
+    fns = {name: (lambda lib=lib, which=which:
+                  run(lib, x, w, te, lists[which], bt))
+           for name, (lib, which) in runs.items()}
+    if "source" in runs:
+        fns["wrapper"] = lambda: grouped_gemm_cuda(x, w, te, bt=bt)
+    times = in_turns(fns, 5)
     rows = t // bt // e
     x_by_expert = x.view(rows, e, bt, d).transpose(0, 1).reshape(e, -1, d)
     bmm = ms(lambda: torch.bmm(x_by_expert, w), 5)
     flop = 2.0 * t * d * f
     print(f"ms a launch (least of 6 in turns), fp32, T={t} D={d} F={f} "
           f"experts {e} bt={bt}: " + ", ".join(
-              f"{name} {min(v):.4f} ms ({flop / min(v) / 1e9:.1f} TFLOP/s)"
+              f"{name} {v:.4f} ms ({flop / v / 1e9:.1f} TFLOP/s)"
               for name, v in times.items())
           + f", torch.bmm {bmm:.4f} ms", flush=True)
     if failed:

@@ -19,9 +19,9 @@ two 64-row *units* of one expert (a unit is a 64-row sub-tile of a token
 tile; a tile shorter than 64 rows, ``bt`` = 8, 16, 24, is one unit), one
 per consumer warpgroup, while a producer warpgroup streams the expert's
 W slice, split, into shared memory; so no block mixes experts and each
-slice of W read feeds 128 token rows.  The pairs are built on the host
-from the tile map (``tile_pairs``), where it is numpy, and handed to the
-kernel as an int32 list.  ``w`` is read through its expert and row
+slice of W read feeds 128 token rows.  The wrapper builds the pairs on
+the host from a copy of the tile map (``tile_pairs``) and hands them to
+the kernel as an int32 list.  ``w`` is read through its expert and row
 strides, so the K-panels of one row-major B serve as experts without a
 copy.  On the main path (``bt`` = 64, D = 256, F = 32768, 128 experts,
 fp32) the work is 4 (T D + E D F + T F) = 12.9 GB against three bf16
@@ -109,8 +109,7 @@ def tile_pairs(tile_expert, bt: int) -> np.ndarray:
 
 def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
                       tile_expert: torch.Tensor, *, bt: int,
-                      out_dtype: torch.dtype | None = None,
-                      pairs: torch.Tensor | None = None) -> torch.Tensor:
+                      out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The grouped product through the CUDA kernel; counts its launches.
 
     ``x`` (T, D) and ``w`` (E, D, F) are float32 or bfloat16 CUDA tensors
@@ -118,10 +117,9 @@ def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     ``tile_expert`` is a contiguous int32 (T/bt,) tensor on the same
     device whose entries lie in [0, E) — the caller checks that where it
     builds the map (``kernels.ops.grouped_gemm`` checks it on the host);
-    a tile naming no expert is never read and gives zeros.  ``pairs`` is
-    ``tile_pairs`` of the same map as a contiguous int32 tensor on the
-    device; without it the wrapper copies the map to the host and builds
-    it, which waits for the card.  The result is a new contiguous (T, F)
+    a tile naming no expert is never read and gives zeros.  The kernel's
+    work list (``tile_pairs``) is built here from a host copy of the map,
+    which waits for the card.  The result is a new contiguous (T, F)
     tensor of ``out_dtype`` (default ``x.dtype``).
     """
     out_dtype = out_dtype or x.dtype
@@ -147,15 +145,8 @@ def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
     e, _, f = w.shape
     if t >= 2**31:
         raise ValueError(f"the kernel indexes tokens in 32 bits, got T={t}")
-    if pairs is None:
-        pairs = torch.as_tensor(tile_pairs(tile_expert.cpu(), bt),
-                                device=x.device)
-    if (pairs.dtype != torch.int32 or pairs.device != x.device
-            or pairs.dim() != 2 or pairs.shape[1] != 2
-            or not pairs.is_contiguous()):
-        raise ValueError(
-            "pairs must be a contiguous int32 (P, 2) tensor on x's device, "
-            f"got {pairs.dtype} {tuple(pairs.shape)} on {pairs.device}")
+    pairs = torch.as_tensor(tile_pairs(tile_expert.cpu(), bt),
+                            device=x.device)
     y = torch.empty((t, f), dtype=out_dtype, device=x.device)
     err = _build.load().grouped_gemm_launch(
         x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(),

@@ -34,7 +34,6 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.kernels.grouped_gemm import (
     grouped_gemm_cuda,
     grouped_gemm_plain,
-    tile_pairs,
 )
 from repro_torch.kernels.tiled_matmul import (
     tiled_matmul_cuda,
@@ -162,11 +161,9 @@ def grouped_gemm(
     over ``bt``-row tiles of ``x`` (T, D), experts ``w`` (E, D, F).
 
     ``tile_expert`` is a host array (numpy or a CPU tensor) of T/bt expert
-    indices; it is checked here and moved to ``x``'s device, and on the
-    CUDA route the kernel's work list (``tile_pairs``) is built from it
-    here too.  The reference's ``bk``/``bn`` tile choices have no
-    counterpart: the kernel tiles D and F itself and masks their edges, so
-    nothing is padded.
+    indices; it is checked here and moved to ``x``'s device.  The
+    reference's ``bk``/``bn`` tile choices have no counterpart: the kernel
+    tiles D and F itself and masks their edges, so nothing is padded.
     """
     t = x.shape[0]
     if t % bt:
@@ -177,11 +174,8 @@ def grouped_gemm(
         raise ValueError(
             f"tile_expert names an expert outside [0, {w.shape[0]})"
         )
-    te_dev = torch.as_tensor(te, device=x.device)
-    if run is grouped_gemm_cuda:
-        return run(x, w, te_dev, bt=bt, out_dtype=out_dtype,
-                   pairs=torch.as_tensor(tile_pairs(te, bt), device=x.device))
-    return run(x, w, te_dev, bt=bt, out_dtype=out_dtype)
+    return run(x, w, torch.as_tensor(te, device=x.device), bt=bt,
+               out_dtype=out_dtype)
 
 
 def ranksparse_matmul(

@@ -170,9 +170,8 @@ def test_grouped_gemm_split_kernel(cuda, bt, counts, f, name):
     tiles of 8 and 24 rows (one short unit) and of 128 (two units), with
     the experts read in place as the K-panels of one row-major B, tokens
     as a column slice, and a ragged F (not a multiple of the 256-column
-    tile; F = 300 and 260 also leave bf16 rows off 16 bytes).  Through the
-    wrapper (pairs from the host map) and directly (pairs built from the
-    device map)."""
+    tile; F = 300 and 260 also leave bf16 rows off 16 bytes).  Through
+    ``ops`` (a host map) and through the wrapper directly (a device map)."""
     d = 256
     rng = np.random.default_rng(bt + f)
     te = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
