@@ -18,10 +18,11 @@ script exits non-zero:
    sm_90a), with ptxas' register and spill report (and the bf16
    flash-attention kernel's shared memory at each Dh), and each kernel's
    count of ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync) instructions in its
-   SASS; the bf16 flash-attention kernel and every instance of the
-   grouped GEMM must have ``HGMMA``;
+   SASS; the bf16 flash-attention kernel and every instance of
+   ``tiled_matmul``, ``bsmm`` and the grouped GEMM must have ``HGMMA``;
 3. kernel vs plain version on the card, at the reference test shapes and
-   at the shapes the main path gives each kernel, fp32 and bf16, and
+   at the shapes the main path gives each kernel, fp32 and bf16, each
+   with its worst element as a share of the hold, and
    ``flash_attention`` also at head widths off its instances (8, 80,
    112);
 4. main path, dense: 128 K panels through the ``tiled_matmul`` kernel,
@@ -39,9 +40,10 @@ script exits non-zero:
    products only), and a small case past the dense crossover (r_pad 136
    > r* = 128) whose panels all go through ``tiled_matmul``;
 7. times of each kernel at the main path's shapes beside its plain
-   version, one library call and the card's bound (``grouped_gemm``'s
-   counts its three bf16 products, with the fp32-FMA bound of its
-   earlier design beside it);
+   version, one library call and the card's bound (the three matmul
+   kernels' bound counts the function's FLOP at the bf16 peak, with the
+   split's own floor of three bf16 products and the fp32-FMA bound of
+   their earlier designs beside it);
 8. LM forward: llama3.2-1b at full size (16 layers, d_model 2048, 32/8
    heads, d_ff 8192, vocab 128256, bf16, tied embeddings), weights from
    ``init_model`` with a seeded generator, 4 prompts x 4096 tokens.  An
@@ -170,16 +172,19 @@ def compare(got, want, k: int, dtype, what: str) -> float:
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
     t = tol(dtype)
-    err, bad = 0.0, 0
+    err, worst, bad = 0.0, 0.0, 0
     for r in range(0, got.shape[0], 4096):  # row chunks bound the temporaries
         g, w = got[r:r + 4096].float(), want[r:r + 4096].float()
         if not torch.isfinite(g).all():
             raise AssertionError(f"{what}: non-finite values")
         diff = (g - w).abs()
+        limit = t * math.sqrt(k) + t * w.abs()
         err = max(err, diff.max().item())
-        bad += (diff > t * math.sqrt(k) + t * w.abs()).sum().item()
+        worst = max(worst, (diff / limit).max().item())
+        bad += (diff > limit).sum().item()
     log(f"  {what}: max_abs_err={err:.6g} (atol={t * math.sqrt(k):.4g}, "
-        f"rtol={t}) -> {'ok' if not bad else f'{bad} elements out of tolerance'}")
+        f"rtol={t}; worst element {worst:.4g} of the hold) -> "
+        f"{'ok' if not bad else f'{bad} elements out of tolerance'}")
     if bad:
         raise AssertionError(f"{what}: {bad} elements out of tolerance")
     return err
@@ -206,6 +211,25 @@ def bound(flops: float, nbytes: float,
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def split_bound(flops: float, nbytes: float) -> tuple[float, str, str]:
+    """The bound of a product on the split-bf16 engine: the function's
+    ``flops`` at the bf16 tensor cores' peak against its bytes; and a text
+    that also gives the split's own floor (three bf16 products) and the
+    fp32-FMA bound of the earlier designs beside it."""
+    bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    split_ms, _ = bound(3 * flops, nbytes, PEAK_BF16_FLOPS)
+    fma_ms, _ = bound(flops, nbytes)
+    text = (f"bound {bound_ms:.3f} ms ({by}: {nbytes:.4g} bytes at "
+            f"{PEAK_HBM_BYTES_PER_S:.3g} B/s = "
+            f"{nbytes / PEAK_HBM_BYTES_PER_S * 1e3:.4f} ms; {flops:.4g} FLOP "
+            f"at {PEAK_BF16_FLOPS:.3g} FLOP/s = "
+            f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms) [the split's floor "
+            f"with its three bf16 products "
+            f"({3 * flops / PEAK_BF16_FLOPS * 1e3:.4f} ms of them): "
+            f"{split_ms:.3f} ms; fp32-FMA bound {fma_ms:.3f} ms]")
+    return bound_ms, by, text
 
 
 def kron_mask(x: torch.Tensor, mask: np.ndarray) -> torch.Tensor:
@@ -250,9 +274,10 @@ def phase_device() -> tuple[str, int]:
 
 #: the bf16 flash-attention kernel's name in the built library
 FA_TENSOR_CORE_KERNEL = "fa_wgmma_kernel"
-#: the grouped GEMM's kernel, one instance per (input, output) dtype pair,
-#: each on split-bf16 wgmma
-GROUPED_KERNEL, GROUPED_INSTANCES = "grouped_gemm_kernel", 4
+#: the matmul kernels on split-bf16 wgmma, each with one instance per
+#: (input, output) dtype pair
+SPLIT_KERNELS = ("tiled_matmul_kernel", "bsmm_kernel", "grouped_gemm_kernel")
+SPLIT_INSTANCES = 4
 
 
 def _cuda_tool(name: str) -> str | None:
@@ -338,12 +363,14 @@ def phase_build() -> None:
         raise AssertionError(
             f"the bf16 flash-attention kernel ({FA_TENSOR_CORE_KERNEL}, one "
             f"per Dh in {KERNEL_HEAD_DIMS}) must run on wgmma: found {fa}")
-    gg = {n: ops for n, ops in census.items() if GROUPED_KERNEL in n}
-    if len(gg) != GROUPED_INSTANCES or any(
-            ops["HGMMA"] == 0 for ops in gg.values()):
-        raise AssertionError(
-            f"the grouped GEMM ({GROUPED_KERNEL}, one per dtype pair) must "
-            f"run on wgmma: found {gg}")
+    for kernel in SPLIT_KERNELS:
+        found = {names[n]: ops["HGMMA"] for n, ops in census.items()
+                 if kernel in n}
+        log(f"  {kernel}: HGMMA per instance {found}")
+        if len(found) != SPLIT_INSTANCES or 0 in found.values():
+            raise AssertionError(
+                f"{kernel} (one instance per dtype pair) must run on wgmma "
+                f"in every instance: found {found}")
 
 
 def phase_kernels(sparse_plan, rank_plan, r_pad) -> dict:
@@ -630,12 +657,13 @@ def phase_times(a, b, sparse_plan, rank_plan, r_pad) -> dict:
     ms = cuda_ms(lambda: tiled_matmul_cuda(a_panel, b_panel), 5)
     plain_ms = cuda_ms(lambda: tiled_matmul_plain(a_panel, b_panel), 5)
     lib_ms = cuda_ms(lambda: torch.matmul(a_panel, b_panel), 5)
-    bound_ms, by = bound(flops, nbytes)
+    bound_ms, by, bound_text = split_bound(flops, nbytes)
     out["tiled_matmul"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                bound_ms=bound_ms, bound_by=by, flops=flops)
-    log(f"  tiled_matmul ({N},{BLOCK})x({BLOCK},{N}) fp32: kernel {ms:.3f} ms "
-        f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.3f} ms, "
-        f"torch.matmul {lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({by})")
+    log(f"  tiled_matmul ({N},{BLOCK}; lda={a_panel.stride(0)})x({BLOCK},{N}) "
+        f"fp32: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s of fp32 "
+        f"work), plain {plain_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, "
+        f"{bound_text}")
 
     # the main path's bsmm call: the masked operands' live panels, gathered
     plan = sparse_plan
@@ -654,14 +682,14 @@ def phase_times(a, b, sparse_plan, rank_plan, r_pad) -> dict:
         lambda: bsmm_plain(a_g, b_g, cols, bm=bm, bk=bk, bn=bn), 3
     )
     lib_ms = cuda_ms(lambda: torch.matmul(a_g, b_g), 3)
-    bound_ms, by = bound(flops, nbytes)
+    bound_ms, by, bound_text = split_bound(flops, nbytes)
     out["bsmm"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound_ms, bound_by=by, flops=flops)
     log(f"  bsmm ({N},{a_g.shape[1]}) live blocks {live_blocks} "
         f"({live_blocks / cols.shape[0] / (a_g.shape[1] // bk):.4f} of A's): "
-        f"kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain "
-        f"{plain_ms:.3f} ms, torch.matmul (dense, masked operands) "
-        f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({by})")
+        f"kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s of fp32 work), "
+        f"plain {plain_ms:.3f} ms, torch.matmul (dense, masked operands) "
+        f"{lib_ms:.3f} ms, {bound_text}")
     del a_g, b_g
     torch.cuda.empty_cache()
     out["grouped_gemm"] = _time_grouped(rank_plan, r_pad, b_rank)
@@ -675,8 +703,7 @@ def _time_grouped(plan, r_pad, b) -> dict:
     ``torch.bmm`` over the same work grouped by expert (every live panel
     has one tile per block row of the chunk).  The bound counts the
     function's 2 T D F FLOP at the bf16 tensor cores' peak against the
-    operands' bytes; the split design's own floor (three bf16 products)
-    and the fp32-FMA bound of the earlier design are printed beside it."""
+    operands' bytes (``split_bound``)."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     x, w, te = _grouped_operands(plan, r_pad, torch.float32, gen, b=b)
     bt = r_pad
@@ -693,21 +720,12 @@ def _time_grouped(plan, r_pad, b) -> dict:
                    .reshape(live, rows * bt, d))
     w_live = w[torch.as_tensor(plan.live_panels, device=DEVICE)]
     lib_ms = cuda_ms(lambda: torch.bmm(x_by_expert, w_live), 5)
-    bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-    split_ms, _ = bound(3 * flops, nbytes, PEAK_BF16_FLOPS)
-    fma_ms, _ = bound(flops, nbytes)
+    bound_ms, by, bound_text = split_bound(flops, nbytes)
     log(f"  grouped_gemm T={t} D={d} F={f} experts {live} bt={bt} fp32 "
         f"({n_pairs} unit pairs): kernel {ms:.3f} ms "
         f"({flops / ms / 1e9:.2f} TFLOP/s of fp32 work), plain "
         f"{plain_ms:.3f} ms, torch.bmm (grouped by expert) {lib_ms:.3f} ms, "
-        f"bound {bound_ms:.3f} ms ({by}: {nbytes:.4g} bytes at "
-        f"{PEAK_HBM_BYTES_PER_S:.3g} B/s = "
-        f"{nbytes / PEAK_HBM_BYTES_PER_S * 1e3:.4f} ms; {flops:.4g} FLOP at "
-        f"{PEAK_BF16_FLOPS:.3g} FLOP/s = "
-        f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms) [the split's floor with "
-        f"its three bf16 products "
-        f"({3 * flops / PEAK_BF16_FLOPS * 1e3:.4f} ms of them): "
-        f"{split_ms:.3f} ms; fp32-FMA bound {fma_ms:.3f} ms]")
+        f"{bound_text}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=by, flops=flops)
 

@@ -38,11 +38,13 @@ def build(variants: dict[str, list[tuple[str, str, str]]], *, main: str,
     signature from ``_build``."""
     procs = {}
     for name, edits in variants.items():
-        # main is always copied: a file's own directory comes first for
-        # its quoted includes, so the variant's headers must sit beside it
-        text = {main: (_build.CSRC / main).read_text()}
+        # main and every header are copied: a file's own directory comes
+        # first for its quoted includes, so a header that includes an
+        # edited one must sit beside it too
+        text = {f: (_build.CSRC / f).read_text()
+                for f in (main, *_build.HEADERS)}
         for f, old, new in edits:
-            body = text.get(f, (_build.CSRC / f).read_text())
+            body = text[f]
             if body.count(old) != 1:
                 raise RuntimeError(f"{name}: {old!r} is not in {f} once")
             text[f] = body.replace(old, new)
@@ -53,7 +55,7 @@ def build(variants: dict[str, list[tuple[str, str, str]]], *, main: str,
             (d / f).write_text(body)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(d),
-             "-I", str(_build.CSRC), "-o", str(d / "lib.so"), str(d / main)],
+             "-o", str(d / "lib.so"), str(d / main)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():

@@ -5,57 +5,59 @@
 // bsmm_pallas).  A is dense-stored in (bm x bk) blocks; cols is an
 // (M/bm, S) int32 map whose row i lists the live block columns of block
 // row i, padded with -1.  The TPU kernel gets cols through scalar prefetch
-// and walks S as a sequential grid axis; here each thread block owns one
-// 64-row sub-tile of one block row and one 64-column tile of C, reads its
-// row of cols itself and walks it until the first entry that is not a block
-// column of A (-1, or one at or past K/bk, which is never read).  Only live
-// (bm x bk) . (bk x N-tile) products are loaded and multiplied; a block row
-// with no live block writes zeros.
+// and walks S as a sequential grid axis; here each block reads its block
+// row of cols itself and walks it until the first entry that is not a
+// block column of A (-1, or one at or past K/bk, which is never read),
+// summing the live (bm x bk) . (bk x 256-column tile) products in
+// registers.  Only live blocks are loaded and multiplied; a block row with
+// no live block stores zeros.
 //
-// Bound on an H100: FLOPs follow the live blocks (2 bm bk N per live block),
-// which at the SUMMA shapes (bm = bk = 256, N = 32768, block fill 0.3) is
-// compute-bound on the 67 TFLOP/s of fp32 FMA, like the dense kernel.  The
-// simple design leaves on the table what tiled_matmul.cu lists, plus
-// load balance: block rows with more live blocks run longer and nothing
-// redistributes their work.
-#include "tile.cuh"
+// Bound on an H100 at the SUMMA shapes (bm = bk = 256, N = 32768, block
+// fill 0.3: 4916 live blocks of a gathered (32768 x 13312) A): the
+// function's 2 bm bk N FLOP a live block, 2.1e13, take 21.4 ms at the
+// bf16 tensor cores' 989 TFLOP/s, against 9.9 GB of operands (2.9 ms at
+// 3.35 TB/s): bound by operations.  The split's three bf16 products
+// (split_gemm.cuh) take 64 ms at that peak.
+//
+// Design (block_rows.cuh on split_gemm.cuh): the dense kernel's
+// (tiled_matmul.cu) split-bf16 wgmma engine, where a work item is two
+// 64-row units of one block row (bm < 64: one unit, the second consumer
+// idling; a bm that is no multiple of 64 leaves a short unit) by a
+// 256-column tile of C.  Producer and consumers walk the block row's live
+// blocks in the map's order, ceil(bk / 32) k-slabs each (k past the
+// block zero-filled), so the block's sum runs over a k of up to S bk in
+// one sum (in parts of K = 2048 where C is fp32: block_rows.cuh).  The
+// column tiles go in groups of kColGroup = 2: the pairs in flight share
+// the group's B rows (two 13.6 MB column tiles of B on the main path),
+// and two blocks that keep pace share each pair's A.  Load balance is
+// left to the persistent walk: block rows with more live blocks give
+// longer items, spread over 32768 items on the main path.
+#include "block_rows.cuh"
+#include "dtypes.cuh"
 
 namespace repro_torch {
 namespace {
 
+namespace br = block_rows;
+
+constexpr int kColGroup = 2;  // column tiles a pair runs over in a row
+
 template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(split_gemm::kThreads, 1)
     bsmm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
-                const int* __restrict__ cols, TOut* __restrict__ c, int64_t m,
-                int64_t n, int64_t lda, int64_t ldb, int s_steps,
-                int k_blocks, int bm, int bk, int sub_tiles) {
-  __shared__ TileSmem sm;
-  float acc[4][4] = {};
-  const int64_t block_row = blockIdx.y / sub_tiles;
-  const int sub = blockIdx.y % sub_tiles;
-  const int64_t row0 = block_row * bm + static_cast<int64_t>(sub) * kTileM;
-  const int64_t block_end = (block_row + 1) * bm;
-  const int64_t row_end = block_end < m ? block_end : m;
-  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kTileN;
-  const int* row_cols = cols + block_row * s_steps;
-  for (int s = 0; s < s_steps; ++s) {
-    const int kk = row_cols[s];  // the same for every thread of the block
-    if (kk < 0 || kk >= k_blocks) break;
-    const int64_t k0 = static_cast<int64_t>(kk) * bk;
-    accumulate_tile(a, lda, b, ldb, row0, row_end, col0, n, k0, k0 + bk, sm,
-                    acc);
-  }
-  store_tile(c, n, row0, row_end, col0, n, acc);
+                TOut* __restrict__ c, const __grid_constant__ br::Params p) {
+  br::run<TIn, TOut, kColGroup>(a, b, c, p);
 }
 
 template <typename TIn, typename TOut>
-void launch(const void* a, const void* b, const int* cols, void* c, int64_t m,
-            int64_t n, int64_t lda, int64_t ldb, int s_steps, int k_blocks,
-            int bm, int bk, int sub_tiles, dim3 grid, cudaStream_t stream) {
-  bsmm_kernel<TIn, TOut><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TIn*>(a), static_cast<const TIn*>(b), cols,
-      static_cast<TOut*>(c), m, n, lda, ldb, s_steps, k_blocks, bm, bk,
-      sub_tiles);
+cudaError_t launch(const void* a, const void* b, const int* cols, void* c,
+                   int64_t m, int64_t n, int64_t lda, int64_t ldb,
+                   int s_steps, int k_blocks, int bm, int bk,
+                   cudaStream_t stream) {
+  const br::Params p = br::make_params(
+      false, a, b, cols, c, m, n, lda, ldb, bm, bk, s_steps, k_blocks,
+      static_cast<int>(sizeof(TIn)), static_cast<int>(sizeof(TOut)));
+  return br::launch<TIn, TOut>(bsmm_kernel<TIn, TOut>, a, b, c, p, stream);
 }
 
 }  // namespace
@@ -73,32 +75,24 @@ extern "C" int bsmm_launch(const void* a, const void* b, const void* cols,
                            int64_t ldb, int s_steps, int k_blocks, int bm,
                            int bk, int in_dtype, int out_dtype, void* stream) {
   if (m <= 0 || n <= 0) return cudaSuccess;
-  if (bm <= 0 || bk <= 0 || m % bm) return cudaErrorInvalidValue;
-  const int sub_tiles = (bm + kTileM - 1) / kTileM;
-  const int64_t tiles_m = (m / bm) * sub_tiles;
-  const int64_t tiles_n = (n + kTileN - 1) / kTileN;
-  if (tiles_m > 65535 || tiles_n > 2147483647LL) {
-    return cudaErrorInvalidConfiguration;
+  if (bm <= 0 || bk <= 0 || m % bm || s_steps < 0) {
+    return cudaErrorInvalidValue;
   }
-  const dim3 grid(static_cast<unsigned>(tiles_n),
-                  static_cast<unsigned>(tiles_m));
   const int* cmap = static_cast<const int*>(cols);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype == kFloat32 && out_dtype == kFloat32) {
-    launch<float, float>(a, b, cmap, c, m, n, lda, ldb, s_steps, k_blocks, bm,
-                         bk, sub_tiles, grid, s);
+    return launch<float, float>(a, b, cmap, c, m, n, lda, ldb, s_steps,
+                                k_blocks, bm, bk, s);
   } else if (in_dtype == kFloat32 && out_dtype == kBFloat16) {
-    launch<float, __nv_bfloat16>(a, b, cmap, c, m, n, lda, ldb, s_steps,
-                                 k_blocks, bm, bk, sub_tiles, grid, s);
+    return launch<float, __nv_bfloat16>(a, b, cmap, c, m, n, lda, ldb,
+                                        s_steps, k_blocks, bm, bk, s);
   } else if (in_dtype == kBFloat16 && out_dtype == kFloat32) {
-    launch<__nv_bfloat16, float>(a, b, cmap, c, m, n, lda, ldb, s_steps,
-                                 k_blocks, bm, bk, sub_tiles, grid, s);
+    return launch<__nv_bfloat16, float>(a, b, cmap, c, m, n, lda, ldb,
+                                        s_steps, k_blocks, bm, bk, s);
   } else if (in_dtype == kBFloat16 && out_dtype == kBFloat16) {
-    launch<__nv_bfloat16, __nv_bfloat16>(a, b, cmap, c, m, n, lda, ldb,
-                                         s_steps, k_blocks, bm, bk, sub_tiles,
-                                         grid, s);
-  } else {
-    return cudaErrorInvalidValue;
+    return launch<__nv_bfloat16, __nv_bfloat16>(a, b, cmap, c, m, n, lda,
+                                                ldb, s_steps, k_blocks, bm,
+                                                bk, s);
   }
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }

@@ -98,7 +98,7 @@
 // tile.  The epilogue divides by l in fp32 and writes bf16 pairs through
 // O's strides.
 #include "hopper.cuh"
-#include "tile.cuh"
+#include "dtypes.cuh"
 
 #include <climits>
 #include <cmath>

@@ -15,7 +15,7 @@
 // 12.9 GB of operands at 3.35 TB/s is 3.85 ms, and the three bf16 products
 // of the split (split_gemm.cuh) are 3.3e12 FLOP, 3.34 ms at 989 TFLOP/s:
 // bound by bytes.  The earlier design of this file (64 x 64 tiles on fp32
-// FMA, tile.cuh) had a floor of 16.4 ms at the FMA units' 67 TFLOP/s and
+// FMA) had a floor of 16.4 ms at the FMA units' 67 TFLOP/s and
 // took 46.4 ms, more than torch.bmm over the same work.
 //
 // Design (split_gemm.cuh): the products run on the bf16 tensor cores as
@@ -41,7 +41,7 @@
 // same slices of W, which then come from L2.  A block's producer runs
 // into its next item's slabs while the consumers store the last tile.
 #include "split_gemm.cuh"
-#include "tile.cuh"  // dtype codes
+#include "dtypes.cuh"
 
 namespace repro_torch {
 namespace {

@@ -1,6 +1,8 @@
 // A block-level product engine for Hopper (sm_90a) that keeps fp32
 // accuracy on the bf16 tensor cores: C tile (64 rows per consumer x 256
-// columns, fp32) = A rows . B[k0:k1, col0:col0 + 256].
+// columns, fp32) = A rows . B[k, col0:col0 + 256] summed over one range
+// k0:k1 (grouped_gemm.cu) or over several, one per live block of a
+// block-sparse row (block_rows.cuh).
 //
 // Arithmetic.  An fp32 operand x is split into hi = bf16(x) and lo =
 // bf16(x - hi), and A.B is accumulated in fp32 as three wgmma products,
@@ -32,8 +34,10 @@
 //  - Each consumer warpgroup owns 64 rows of A.  It builds the hi and lo
 //    A fragments of its rows in registers straight from A in device
 //    memory (a slab's loads are issued under the products of the slab
-//    before it), issues m64n256k16 wgmma with B from the stage, waits for
-//    them, and arrives on the stage's "empty" mbarrier.
+//    before it, the next range's first slab under the last one's), issues
+//    m64n256k16 wgmma with B from the stage, waits for them, and arrives
+//    on the stage's "empty" mbarrier.  Producer and consumers walk the
+//    same sequence of k-ranges, so their slab counts agree.
 //  - 128 fp32 accumulators a consumer thread; setmaxnreg gives the
 //    consumers 216 registers and the producer 72.
 // Rows past A's `rows` load as zero and are never stored; so are columns
@@ -377,28 +381,42 @@ __device__ __forceinline__ void load_a(const __nv_bfloat16* __restrict__ a,
   }
 }
 
-// A consumer warpgroup's loop: acc (zeroed here) = A[0:rows, k0:k1] .
-// B[k0:k1, tile], B from the ring's slabs it0 .. it0 + n_slabs - 1.  A
-// points at the warpgroup's first row; `vec` as load_a's.
-template <typename T>
-__device__ __forceinline__ void consume(const T* __restrict__ a, int64_t lda,
-                                        int rows, int64_t k0, int64_t k1,
-                                        bool vec, int n_slabs, uint32_t it0,
-                                        uint32_t ring, uint32_t full_bar,
-                                        uint32_t empty_bar,
-                                        float (&acc)[kCols / 2]) {
-#pragma unroll
-  for (int i = 0; i < kCols / 2; ++i) acc[i] = 0.f;
+// The k-range of each slab a consumer multiplies, handed out in order by
+// `next(k, k_end)`: slab n covers k .. k + kSlabK - 1, with k at or past
+// k_end read as zero.  SlabRange is one dense range k0 .. k1 - 1.
+struct SlabRange {
+  int64_t k, k1;
+
+  __device__ __forceinline__ void next(int64_t& from, int64_t& end) {
+    from = k;
+    end = k1;
+    k += kSlabK;
+  }
+};
+
+// A consumer warpgroup's loop: acc += A[0:rows, slab k-ranges] .
+// B[those k, tile], over the next n_slabs k-ranges `walk` hands out (a
+// later call goes on where this one stopped), B from the ring's
+// slabs it0 .. it0 + n_slabs - 1 (the producer's sequence of the same
+// ranges).  A points at the warpgroup's first row; `vec` as load_a's,
+// for every range.  The caller zeroes acc.
+template <typename T, typename Walk>
+__device__ __forceinline__ void consume_walk(
+    const T* __restrict__ a, int64_t lda, int rows, Walk& walk, bool vec,
+    int n_slabs, uint32_t it0, uint32_t ring, uint32_t full_bar,
+    uint32_t empty_bar, float (&acc)[kCols / 2]) {
   const AThread at = a_thread(rows);
   constexpr int kSteps = kSlabK / 16;  // wgmma k-steps a slab
   float cur[kSteps][8];  // A's values of a slab, fp32
-  auto load_slab = [&](int n) {
+  auto load_slab = [&]() {  // the walk's next slab
+    int64_t k, end;
+    walk.next(k, end);
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
-      load_a(a, lda, at, k0 + n * kSlabK + 16 * s, k1, vec, cur[s]);
+      load_a(a, lda, at, k + 16 * s, end, vec, cur[s]);
     }
   };
-  if (n_slabs > 0) load_slab(0);
+  if (n_slabs > 0) load_slab();
   for (int n = 0; n < n_slabs; ++n) {
     const uint32_t it = it0 + n;
     const int st = it % kStages;
@@ -439,11 +457,26 @@ __device__ __forceinline__ void consume(const T* __restrict__ a, int64_t lda,
     hopper::wgmma_commit();
     // cur is free (the fragments are registers of their own): the next
     // slab's loads run under these products
-    if (n + 1 < n_slabs) load_slab(n + 1);
+    if (n + 1 < n_slabs) load_slab();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
     hopper::mbar_arrive(empty_bar + 8 * st);
   }
+}
+
+// consume_walk over one dense range k0 .. k1 - 1, with acc zeroed here.
+template <typename T>
+__device__ __forceinline__ void consume(const T* __restrict__ a, int64_t lda,
+                                        int rows, int64_t k0, int64_t k1,
+                                        bool vec, int n_slabs, uint32_t it0,
+                                        uint32_t ring, uint32_t full_bar,
+                                        uint32_t empty_bar,
+                                        float (&acc)[kCols / 2]) {
+#pragma unroll
+  for (int i = 0; i < kCols / 2; ++i) acc[i] = 0.f;
+  SlabRange range{k0, k1};
+  consume_walk(a, lda, rows, range, vec, n_slabs, it0, ring, full_bar,
+               empty_bar, acc);
 }
 
 template <typename TOut>
@@ -469,35 +502,75 @@ __device__ __forceinline__ void release(int n_slabs, uint32_t it0,
   }
 }
 
+// Columns col and col + 1 of a row of c (those below col_end) := x0, x1;
+// `pairs`: two neighbouring columns may go as one store.
+template <typename TOut>
+__device__ __forceinline__ void put2(TOut* row, int64_t col, int64_t col_end,
+                                     bool pairs, float x0, float x1) {
+  if (pairs && col + 1 < col_end) {
+    if constexpr (sizeof(TOut) == 4) {
+      *reinterpret_cast<float2*>(row + col) = make_float2(x0, x1);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(row + col) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+  } else {
+    if (col < col_end) row[col] = out_cast<TOut>(x0);
+    if (col + 1 < col_end) row[col + 1] = out_cast<TOut>(x1);
+  }
+}
+
+// The same two columns of an fp32 row, read (zero past col_end).
+__device__ __forceinline__ float2 get2(const float* row, int64_t col,
+                                       int64_t col_end, bool pairs) {
+  if (pairs && col + 1 < col_end) {
+    return *reinterpret_cast<const float2*>(row + col);
+  }
+  return make_float2(col < col_end ? row[col] : 0.f,
+                     col + 1 < col_end ? row[col + 1] : 0.f);
+}
+
+// Column pairs of a row whose reads are in flight together when a sum is
+// added to C
+constexpr int kAddBatch = 8;
+
 // Stores this consumer thread's accumulators: rows r, r + 8 of the
 // warpgroup's 64 (those below `rows`) into c (row stride ldc, pointing at
 // the warpgroup's first row), columns col0 + 8 i + q2, + 1 (those below
 // col_end).  `pairs`: two neighbouring columns may go as one store.
-template <typename TOut>
+// kAdd: add them to what an fp32 c holds, kAddBatch column pairs read
+// before any of them is written.
+template <typename TOut, bool kAdd = false>
 __device__ __forceinline__ void store(TOut* __restrict__ c, int64_t ldc,
                                       int rows, int64_t col0,
                                       int64_t col_end, bool pairs,
                                       const float (&acc)[kCols / 2]) {
+  static_assert(!kAdd || sizeof(TOut) == 4, "a sum is added in fp32");
   const AThread at = a_thread(rows);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (!(h ? at.live1 : at.live0)) continue;
     TOut* row = c + (at.r + 8 * h) * ldc;
+    if constexpr (kAdd) {
 #pragma unroll
-    for (int i = 0; i < kCols / 8; ++i) {
-      const int64_t col = col0 + 8 * i + at.q2;
-      const float x0 = acc[4 * i + 2 * h];
-      const float x1 = acc[4 * i + 2 * h + 1];
-      if (pairs && col + 1 < col_end) {
-        if constexpr (sizeof(TOut) == 4) {
-          *reinterpret_cast<float2*>(row + col) = make_float2(x0, x1);
-        } else {
-          *reinterpret_cast<__nv_bfloat162*>(row + col) =
-              __floats2bfloat162_rn(x0, x1);
+      for (int i0 = 0; i0 < kCols / 8; i0 += kAddBatch) {
+        float2 was[kAddBatch];
+#pragma unroll
+        for (int i = 0; i < kAddBatch; ++i) {
+          was[i] = get2(row, col0 + 8 * (i0 + i) + at.q2, col_end, pairs);
         }
-      } else {
-        if (col < col_end) row[col] = out_cast<TOut>(x0);
-        if (col + 1 < col_end) row[col + 1] = out_cast<TOut>(x1);
+#pragma unroll
+        for (int i = 0; i < kAddBatch; ++i) {
+          const int j = 4 * (i0 + i) + 2 * h;
+          put2(row, col0 + 8 * (i0 + i) + at.q2, col_end, pairs,
+               was[i].x + acc[j], was[i].y + acc[j + 1]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kCols / 8; ++i) {
+        put2(row, col0 + 8 * i + at.q2, col_end, pairs, acc[4 * i + 2 * h],
+             acc[4 * i + 2 * h + 1]);
       }
     }
   }

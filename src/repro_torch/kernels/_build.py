@@ -29,7 +29,7 @@ __all__ = ["build", "load", "check", "dtype_code", "stream_handle"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("tiled_matmul.cu", "bsmm.cu", "grouped_gemm.cu",
            "flash_attention.cu")
-HEADERS = ("tile.cuh", "hopper.cuh", "split_gemm.cuh")
+HEADERS = ("dtypes.cuh", "hopper.cuh", "split_gemm.cuh", "block_rows.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = (
@@ -37,7 +37,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/tile.cuh
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/dtypes.cuh
 _i64, _int, _ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
 _f32 = ctypes.c_float
 _SIGNATURES = {

@@ -7,18 +7,22 @@ CSR column map ``cols`` of shape (M/bm, S), int32, each row padded with
 -1 after its live entries (``BlockCSR.padded_cols``, the planner's
 ``plan.local_cols``).
 
-The kernel (``csrc/bsmm.cu``) gives each block of 256 threads one 64-row
-sub-tile of one block row and one 64-column tile of C.  It reads that
-block row's entries of ``cols`` itself — in place of the TPU's scalar
-prefetch — and walks them until the first entry that is not a block
-column of A (-1, or one at or past K/bk, which is never read),
-multiplying only live blocks; a block row with no live block writes
-zeros.  Accumulation is
-fp32 FMA, inputs fp32 or bf16.  Its FLOPs follow the live blocks
-(2 bm bk N each): at the main path's shapes (bm = bk = 256, N = 32768,
-fill 0.3) it is bound by the card's 67 TFLOP/s of fp32 FMA.  Besides what
-the dense kernel leaves on the table, nothing balances block rows with
-more live blocks against those with fewer.
+The kernel (``csrc/bsmm.cu``) is the dense kernel's split-bf16 ``wgmma``
+design (``kernels/tiled_matmul.py``, ``csrc/block_rows.cuh``), where a
+work item is two 64-row units of one block row by one 256-column tile of
+C (a block row of fewer than 64 rows is one unit, and the second consumer
+idles).  Each block reads its block row's entries of ``cols`` itself —
+in place of the TPU's scalar prefetch — and walks them until the first
+entry that is not a block column of A (-1, or one at or past K/bk, which
+is never read), summing every live block's k-slabs in fp32 (an fp32 C
+takes the sum in parts of K = 2048: the tensor cores' accumulation
+loses precision over a long sum); a block row with no live block writes
+zeros.  Its FLOPs
+follow the live blocks (2 bm bk N each): at the main path's shapes
+(bm = bk = 256, N = 32768, fill 0.3) it is bound by operations, 21.4 ms
+of them at the bf16 peak (the split's three products: 64 ms).
+Nothing balances block rows with more live blocks against those with
+fewer beyond the persistent walk over many items.
 """
 from __future__ import annotations
 
@@ -80,7 +84,7 @@ def bsmm_cuda(a: torch.Tensor, b: torch.Tensor, cols: torch.Tensor, *,
     [0, K/bk), in the kernel, so a launch never waits on the card to check
     the map (``kernels.ops.bsmm_cols`` refuses such a map on the host).
     ``bn`` only has to divide N (the reference's tile contract); the
-    kernel tiles N by 64.
+    kernel tiles N by 256 and masks the edge.
     """
     out_dtype = out_dtype or a.dtype
     _check_shapes(a, b, cols, bm, bk, bn)

@@ -8,8 +8,8 @@ goes to the CUDA kernel (which raises if it cannot run), a CPU tensor to
 the kernel's plain PyTorch version — the counterpart of the reference's
 interpret mode, so the CPU tests check the same wrapper logic.
 
-The CUDA kernels run their own 64 x 64 tiling and mask every ragged
-edge, so a CUDA operand goes to its kernel unpadded.  On the CPU route
+The CUDA kernels run their own tiling and mask every ragged edge, so a
+CUDA operand goes to its kernel unpadded.  On the CPU route
 ``tiled_matmul`` and ``bsmm`` zero-pad to the tiles ``_pick_tile`` picks
 and cut the result back, exactly as the reference's ``repro.kernels.ops``
 does.  Index maps (``bsmm``'s column map, ``grouped_gemm``'s tile

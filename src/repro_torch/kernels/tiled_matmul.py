@@ -5,16 +5,22 @@ tiled_matmul_kernel`` (driven by ``tiled_matmul_pallas``), the local
 block-multiply engine of task-based SUMMA: every panel product of
 ``core.summa._local_dot`` on the ``local_matmul="pallas"`` route.
 
-The kernel (``csrc/tiled_matmul.cu``, tiles in ``csrc/tile.cuh``) gives
-each block of 256 threads one 64 x 64 tile of C and loops over K inside
-the block, 16 at a time through shared memory, accumulating in fp32 with
-FMA — not TF32, which would miss the reference's fp32 tolerance.  It takes
-A and B with a row stride, so SUMMA's K-panel views of a shard need no
-copy.  At the main path's panel shape, (32768 x 256) . (256 x 32768) in
-fp32, the work is 5.5e11 FLOP against 4.4 GB moved: bound by the card's
-67 TFLOP/s of fp32 FMA (8.2 ms), not by memory (1.3 ms at 3.35 TB/s).
-The simple design leaves tensor cores, TMA, a multi-stage load pipeline
-and larger per-thread tiles for later work.
+The kernel (``csrc/tiled_matmul.cu`` on ``csrc/block_rows.cuh`` and the
+engine of ``csrc/split_gemm.cuh``) runs the products on the bf16 tensor
+cores (``wgmma``): an fp32 operand is split into hi = bf16(x) and lo =
+bf16(x - hi) and three products, hi·hi + hi·lo + lo·hi, are accumulated
+in fp32, which holds the reference's fp32 tolerance; bf16 operands take
+one product.  One persistent block a multiprocessor walks work items of
+two 64-row units of A by one 256-column tile of C, computed on the card
+from the item's index; a producer warpgroup streams B's k-slabs, split,
+into shared memory, and each of two consumer warpgroups builds its unit's
+A fragments in registers.  It takes A and B with a row stride, so
+SUMMA's K-panel views of a shard need no copy, and masks every edge of
+M, N and K; an fp32 C takes a K past 2048 in parts, as the tensor
+cores' accumulation loses precision over a long sum.  At the main path's panel shape, (32768 x 256) . (256 x
+32768) in fp32, the function's 5.5e11 FLOP take 0.56 ms at the bf16
+peak against 4.4 GB moved, 1.3 ms at 3.35 TB/s: bound by bytes, by
+writing C.
 """
 from __future__ import annotations
 

@@ -83,6 +83,40 @@ def test_bsmm_empty_rows_give_zero():
     _close(out, ref_ops.bsmm(ja, jb, mask, bn=32), "float32", 128)
 
 
+def _split_bf16(x: torch.Tensor):
+    """hi = bf16(x), lo = bf16(x - hi), as fp32 (csrc/split_gemm.cuh)."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("case", ["dense_panel", "bsmm_row_of_52"])
+def test_split_bf16_product_holds_the_fp32_tolerance(case):
+    """The arithmetic of the CUDA tiled_matmul and bsmm kernels for fp32
+    operands, emulated: each operand split into bf16 hi and lo, three
+    products hi·hi + hi·lo + lo·hi summed in fp32 (a bf16 product is exact
+    in fp32), against the reference's kernels in interpret mode at the
+    fp32 tolerance (rtol 1e-4, atol 1e-4·√K): the main path's K = 256
+    panel, and a block row of 52 live 256-wide blocks (K = 13312 in one
+    accumulator) at a narrow M and N.  One bf16 product fails the hold."""
+    if case == "dense_panel":
+        m, k, n = 64, 256, 128
+    else:
+        m, k, n = 8, 52 * 256, 16
+    (ja, ta), (jb, tb) = _operands([(m, k), (k, n)], "float32", seed=k)
+    if case == "dense_panel":
+        want = ref_ops.tiled_matmul(ja, jb, bm=64, bk=64, bn=64)
+    else:
+        want = ref_ops.bsmm(ja, jb, np.ones((1, 52), bool), bn=16)
+    want = np.asarray(want, np.float32)
+    a_hi, a_lo = _split_bf16(ta)
+    b_hi, b_lo = _split_bf16(tb)
+    got = a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                               atol=1e-4 * k ** 0.5)
+    one = (a_hi @ b_hi).numpy()
+    assert not np.allclose(one, want, rtol=1e-4, atol=1e-4 * k ** 0.5)
+
+
 @pytest.mark.parametrize("dim", [1, 7, 8, 36, 60, 64, 100, 255, 256, 300, 1000])
 @pytest.mark.parametrize("pref", [64, 256])
 def test_pick_tile_matches_reference(dim, pref):

@@ -120,6 +120,110 @@ def test_bsmm_kernel_empty_rows_and_bad_maps(cuda):
         tiled_matmul_cuda(a.t(), b)
 
 
+#: (input, output) dtype pairs the matmul kernels take
+DTYPE_PAIRS = [(i, o) for i in DTYPES for o in DTYPES]
+
+
+def _pair_name(pair):
+    """The reference's tolerance for a pair: bf16 if either side is."""
+    return "bfloat16" if "bfloat16" in pair else "float32"
+
+
+@pytest.mark.parametrize("pair", DTYPE_PAIRS, ids="-".join)
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize(
+    "m,k,n", [(200, 256, 300), (130, 100, 520), (70, 33, 260),
+              (1, 256, 700), (300, 256, 1), (257, 77, 513)])
+def test_tiled_matmul_split_kernel_edges(cuda, m, k, n, offset, pair):
+    """The wgmma kernel's edges: M off its 128-row pairs and N off its
+    256-column tiles, K off its 32-deep slabs and odd, one row and one
+    column; A as a column slice one element in (``offset`` 1: an odd or
+    even row stride k + 1 and a pointer off 8 bytes), in every (input,
+    output) dtype pair."""
+    a = _rand((m, k + offset), pair[0], m + k, cuda)[:, offset:]
+    b = _rand((k, n), pair[0], n, cuda)
+    out = DTYPES[pair[1]]
+    before = tiled_matmul_cuda.launches
+    got = tiled_matmul_cuda(a, b, out)
+    assert tiled_matmul_cuda.launches == before + 1
+    assert got.shape == (m, n) and got.dtype == out
+    _close(got, tiled_matmul_plain(a, b, out), _pair_name(pair), k)
+
+
+@pytest.mark.parametrize("pair", DTYPE_PAIRS, ids="-".join)
+@pytest.mark.parametrize("k", [2049, 13312, 32768])
+def test_tiled_matmul_split_kernel_long_k(cuda, k, pair):
+    """Long sums: an fp32 C takes the accumulator's sum in parts of
+    K = 2048 (one part and a 1-deep rest, 6.5 parts, 16 parts), held at
+    the reference's tolerance."""
+    a = _rand((192, k), pair[0], k, cuda)
+    b = _rand((k, 300), pair[0], k + 1, cuda)
+    out = DTYPES[pair[1]]
+    got = tiled_matmul_cuda(a, b, out)
+    _close(got, tiled_matmul_plain(a, b, out), _pair_name(pair), k)
+
+
+def _map(mask: np.ndarray, cuda) -> torch.Tensor:
+    csr = block_csr_from_mask(mask)
+    return torch.as_tensor(csr.padded_cols(max(csr.max_row_nnz, 1)),
+                           dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("pair", DTYPE_PAIRS, ids="-".join)
+@pytest.mark.parametrize("bk", [8, 32, 256])
+@pytest.mark.parametrize("bm", [32, 64, 96, 256])
+def test_bsmm_split_kernel_blocks(cuda, bm, bk, pair):
+    """Block rows of one short unit (32), one unit (64), a full and a
+    short unit (96) and two pairs (256); blocks of 8 k (a quarter of a
+    slab), one slab and eight; a block row with no live block, and N off
+    the 256-column tile, in every dtype pair."""
+    mb, kb, n = 4, 6, 300
+    mask = random_block_mask(mb, kb, 0.5, seed=bm + bk)
+    mask[2] = False
+    a = _rand((mb * bm, kb * bk), pair[0], bm, cuda)
+    b = _rand((kb * bk, n), pair[0], bk, cuda)
+    cols, out = _map(mask, cuda), DTYPES[pair[1]]
+    before = bsmm_cuda.launches
+    got = bsmm_cuda(a, b, cols, bm=bm, bk=bk, bn=4, out_dtype=out)
+    assert bsmm_cuda.launches == before + 1
+    assert got.shape == (mb * bm, n) and got.dtype == out
+    _close(got, bsmm_plain(a, b, cols, bm=bm, bk=bk, bn=4, out_dtype=out),
+           _pair_name(pair), kb * bk)
+    assert torch.all(got[2 * bm:3 * bm] == 0)
+
+
+@pytest.mark.parametrize("bm,bk", [(256, 256), (96, 8)])
+def test_bsmm_split_kernel_walk_ends_past_k(cuda, bm, bk):
+    """A row's walk ends at an entry at or past K/bk even with live-looking
+    entries after it: the kernel reads the map as the plain version does."""
+    kb = 5
+    a = _rand((3 * bm, kb * bk), "float32", 3, cuda)
+    b = _rand((kb * bk, 260), "float32", 4, cuda)
+    cols = torch.tensor([[1, 4, 5, 0], [3, 9, 2, -1], [7, 0, 1, 2]],
+                        dtype=torch.int32, device=cuda)
+    kept = torch.tensor([[1, 4, -1, -1], [3, -1, -1, -1],
+                         [-1, -1, -1, -1]], dtype=torch.int32, device=cuda)
+    got = bsmm_cuda(a, b, cols, bm=bm, bk=bk, bn=4)
+    _close(got, bsmm_plain(a, b, kept, bm=bm, bk=bk, bn=4), "float32",
+           kb * bk)
+    assert torch.all(got[2 * bm:] == 0)
+
+
+@pytest.mark.parametrize("pair", DTYPE_PAIRS, ids="-".join)
+def test_bsmm_split_kernel_long_row(cuda, pair):
+    """The main path's longest block row: 52 live (256 x 256) blocks, a
+    K of 13312 in one accumulator, at the reference's tolerance."""
+    bm = bk = 256
+    mask = np.ones((2, 52), bool)
+    mask[1, ::2] = False
+    a = _rand((2 * bm, 52 * bk), pair[0], 52, cuda)
+    b = _rand((52 * bk, 512), pair[0], 53, cuda)
+    cols, out = _map(mask, cuda), DTYPES[pair[1]]
+    got = bsmm_cuda(a, b, cols, bm=bm, bk=bk, bn=256, out_dtype=out)
+    _close(got, bsmm_plain(a, b, cols, bm=bm, bk=bk, bn=256, out_dtype=out),
+           _pair_name(pair), 52 * bk)
+
+
 @pytest.mark.parametrize("name", list(DTYPES))
 @pytest.mark.parametrize(
     "t,d,f,e,bt",
