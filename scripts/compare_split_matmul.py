@@ -129,7 +129,8 @@ VARIANTS = {
 #: bm, bk, n, fill)
 CHECKS = {
     "tiled": ((200, 256, 300, 256), (130, 100, 520, 101), (70, 33, 260, 33),
-              (1, 256, 700, 256), (256, 13312, 512, 13312)),
+              (1, 256, 700, 256), (256, 13312, 512, 13312),
+              (192, 32768, 300, 32768)),
     "bsmm": ((4, 6, 96, 8, 300, 0.5), (3, 5, 256, 256, 512, 0.6),
              (2, 52, 256, 256, 512, 1.0), (4, 6, 32, 32, 260, 0.5)),
 }

@@ -52,8 +52,7 @@ namespace sg = split_gemm;
 constexpr int kSumSlabs = 64;
 
 struct Params {
-  const int* cols;  // (m / bm, s_steps) column map (unread when dense)
-  int dense;        // no map: one block row, one range [0, k)
+  const int* cols;  // (m / bm, s_steps) column map; null: the dense product
   int64_t m, n, lda, ldb;
   int64_t bm, bk;       // dense: bm = m, bk = k
   int s_steps, k_blocks;
@@ -89,9 +88,11 @@ __device__ __forceinline__ Item item_at(const Params& p, int64_t item) {
   const int64_t left_b = left_a - sg::kRows;
   it.rows_a = static_cast<int>(left_a < sg::kRows ? left_a : sg::kRows);
   it.rows_b = static_cast<int>(left_b < sg::kRows ? left_b : sg::kRows);
-  if (p.dense) {
+  if (p.cols == nullptr) {
+    // the dense product's one range [0, k) (k = 0: nothing to multiply),
+    // or an empty bsmm map (s_steps = 0), whose data may be null
     it.cols = nullptr;
-    it.n_live = p.slabs_per_block > 0;  // k = 0: nothing to multiply
+    it.n_live = p.s_steps > 0 && p.slabs_per_block > 0;
   } else {
     it.cols = p.cols + block_row * p.s_steps;
     int n = 0;
@@ -235,14 +236,12 @@ inline bool aligned(const void* ptr, uintptr_t bytes) {
 // The launch's parameters; the dense product has no map (cols null,
 // bm = m, bk = k, s_steps = k_blocks = 1).  in_size and out_size are the
 // element sizes in bytes.
-inline Params make_params(bool dense, const void* a, const void* b,
-                          const int* cols, void* c, int64_t m, int64_t n,
-                          int64_t lda, int64_t ldb, int64_t bm, int64_t bk,
-                          int s_steps, int k_blocks, int in_size,
-                          int out_size) {
+inline Params make_params(const void* a, const void* b, const int* cols,
+                          void* c, int64_t m, int64_t n, int64_t lda,
+                          int64_t ldb, int64_t bm, int64_t bk, int s_steps,
+                          int k_blocks, int in_size, int out_size) {
   Params p{};
   p.cols = cols;
-  p.dense = dense;
   p.m = m;
   p.n = n;
   p.lda = lda;

@@ -55,7 +55,7 @@ cudaError_t launch(const void* a, const void* b, const int* cols, void* c,
                    int s_steps, int k_blocks, int bm, int bk,
                    cudaStream_t stream) {
   const br::Params p = br::make_params(
-      false, a, b, cols, c, m, n, lda, ldb, bm, bk, s_steps, k_blocks,
+      a, b, cols, c, m, n, lda, ldb, bm, bk, s_steps, k_blocks,
       static_cast<int>(sizeof(TIn)), static_cast<int>(sizeof(TOut)));
   return br::launch<TIn, TOut>(bsmm_kernel<TIn, TOut>, a, b, c, p, stream);
 }

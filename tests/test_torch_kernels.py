@@ -91,13 +91,17 @@ def _split_bf16(x: torch.Tensor):
 
 @pytest.mark.parametrize("case", ["dense_panel", "bsmm_row_of_52"])
 def test_split_bf16_product_holds_the_fp32_tolerance(case):
-    """The arithmetic of the CUDA tiled_matmul and bsmm kernels for fp32
+    """The split of the CUDA tiled_matmul and bsmm kernels for fp32
     operands, emulated: each operand split into bf16 hi and lo, three
-    products hi·hi + hi·lo + lo·hi summed in fp32 (a bf16 product is exact
-    in fp32), against the reference's kernels in interpret mode at the
-    fp32 tolerance (rtol 1e-4, atol 1e-4·√K): the main path's K = 256
-    panel, and a block row of 52 live 256-wide blocks (K = 13312 in one
-    accumulator) at a narrow M and N.  One bf16 product fails the hold."""
+    products hi·hi + hi·lo + lo·hi (a bf16 product is exact in fp32),
+    against the reference's kernels in interpret mode at the fp32
+    tolerance (rtol 1e-4, atol 1e-4·√K): the main path's K = 256 panel,
+    and a block row of 52 live 256-wide blocks (K = 13312) at a narrow M
+    and N.  One bf16 product fails the hold.  The sums here are torch's
+    on the CPU, true fp32: this pins the split's rounding only.  The
+    tensor cores' accumulation, and the fp32 C's sum in parts of
+    K = 2048, are the GPU tests' (``test_tiled_matmul_split_kernel_long_k``,
+    ``test_bsmm_split_kernel_long_row``)."""
     if case == "dense_panel":
         m, k, n = 64, 256, 128
     else:

@@ -155,7 +155,8 @@ def test_tiled_matmul_split_kernel_edges(cuda, m, k, n, offset, pair):
 def test_tiled_matmul_split_kernel_long_k(cuda, k, pair):
     """Long sums: an fp32 C takes the accumulator's sum in parts of
     K = 2048 (one part and a 1-deep rest, 6.5 parts, 16 parts), held at
-    the reference's tolerance."""
+    the reference's tolerance.  With one accumulator over all of K the
+    fp32 case at K = 32768 misses the hold on an H100."""
     a = _rand((192, k), pair[0], k, cuda)
     b = _rand((k, 300), pair[0], k + 1, cuda)
     out = DTYPES[pair[1]]
@@ -209,10 +210,27 @@ def test_bsmm_split_kernel_walk_ends_past_k(cuda, bm, bk):
     assert torch.all(got[2 * bm:] == 0)
 
 
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_bsmm_split_kernel_empty_map(cuda, name):
+    """A column map with no entries (S = 0, whose data pointer may be
+    null) stores zeros in every row: it is not read as the dense
+    product's map-less launch."""
+    a = _rand((128, 512), name, 5, cuda)
+    b = _rand((512, 300), name, 6, cuda)
+    cols = torch.zeros((2, 0), dtype=torch.int32, device=cuda)
+    before = bsmm_cuda.launches
+    got = bsmm_cuda(a, b, cols, bm=64, bk=256, bn=4)
+    assert bsmm_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.shape == (128, 300) and torch.all(got == 0)
+    _close(got, bsmm_plain(a, b, cols, bm=64, bk=256, bn=4), name, 512)
+
+
 @pytest.mark.parametrize("pair", DTYPE_PAIRS, ids="-".join)
 def test_bsmm_split_kernel_long_row(cuda, pair):
     """The main path's longest block row: 52 live (256 x 256) blocks, a
-    K of 13312 in one accumulator, at the reference's tolerance."""
+    K of 13312, at the reference's tolerance; an fp32 C takes the sum in
+    parts of K = 2048 (``kSumSlabs``), a bf16 C in one accumulator."""
     bm = bk = 256
     mask = np.ones((2, 52), bool)
     mask[1, ::2] = False
