@@ -7,11 +7,12 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``::
 
 It runs the paper's SUMMA engine at the commodity-cluster size of
 ``configs/paper_mm.py`` (N = 32768, block 256) on the 1x1 grid of one
-card, through the entry point a user calls (``DistributedMatmul``), then
-the LM forward of llama3.2-1b at its full width and depth through
+card, through the entry points a user calls (``DistributedMatmul``, with
+and without the schedule tuner, and ``NonuniformMatmul``), then the LM
+forward of llama3.2-1b at its full width and depth through
 ``models.model.forward``, and checks every hand-written kernel against
-its plain PyTorch version.  Phases, in order — any failure raises, so the
-script exits non-zero:
+its plain PyTorch version.  Phases, in the order they run — any failure
+raises, so the script exits non-zero:
 
 1. device: the card's name and power limit; TF32 off;
 2. build: the four CUDA kernels from the checkout's sources (nvcc,
@@ -31,6 +32,11 @@ script exits non-zero:
    plan's CSR map, checked against ``reference_blocksparse_matmul`` and
    against ``torch.matmul`` of operands masked here, independently of the
    port's own masking;
+
+   [tuned] the same two products with ``tune=True``: the schedule tuner's
+   record, ``tiled_matmul`` launched as the tuned executor issues it (one
+   per K panel, or once for the all-gather schedule) and ``bsmm`` once, C
+   against ``torch.matmul``;
 6. main path, rank-sparse: A as low-rank block factors
    (``make_rank_factors``: 2342 of 16384 blocks, ranks up to 64, r_pad
    64), ``DistributedMatmul(None, b, a_ranks=rcsr)`` with stage 1 through
@@ -44,6 +50,25 @@ script exits non-zero:
    kernels' bound counts the function's FLOP at the bf16 peak, with the
    split's own floor of three bf16 products and the fp32-FMA bound of
    their earlier designs beside it);
+
+   [tuner] ``tune_plan`` on abstract 4x4 and 16x16 grids at N with 128
+   blocks, uniform and nonuniform, on the host, and ``python -m
+   repro_torch.sched --grid 4 4 --extent 32768 --blocks 128
+   --nonuniform``, whose JSON must parse;
+
+   [autotune] a fresh ``KernelAutotuner`` times every route on the card
+   (square buckets 128, 256, 512 in fp32 and bf16; the panel bucket
+   (4096, 256, 4096) in fp32); ``tiled_matmul``, ``bsmm`` and
+   ``grouped_gemm`` must each launch; its file must round-trip with a
+   stable fingerprint; installed, it must steer a dense N = 4096 product's
+   ``_local_dot`` to its bucket's winner;
+
+   [nonuniform] the paper's commodity nonuniform product
+   (``make_nonuniform_case(32768, 256)``) through ``NonuniformMatmul``
+   (tile 256, ``k_blocks=185``, ``tune=True``) against ``torch.matmul``
+   of the compact operands, its walls, peak memory, padding and the cost
+   of its gathers; then ``tile="auto"`` on the autotune cache at
+   ``nonuniform_medium`` (N = 4096);
 8. LM forward: llama3.2-1b at full size (16 layers, d_model 2048, 32/8
    heads, d_ff 8192, vocab 128256, bf16, tied embeddings), weights from
    ``init_model`` with a seeded generator, 4 prompts x 4096 tokens.  An
@@ -58,7 +83,17 @@ script exits non-zero:
    through the kernel (finite logits); the kernel's times beside its
    plain version (at 4096 only), ``scaled_dot_product_attention`` and
    its bound, at both lengths; and the kernel beside SDPA at 4 × 4096 with
-   head widths 80 and 112 (hubert-xlarge's and kimi-k2's).
+   head widths 80 and 112 (hubert-xlarge's and kimi-k2's);
+
+   [auto forward] llama3.2-1b at full width cut to 2 layers, 1 × 4096
+   tokens, under ``matmul_strategy="auto"`` (the FFN projections on the
+   tuner's schedule): 2 ``flash_attention`` launches, logits against the
+   ``"summa"`` forward of the same weights within the bf16 pair hold.
+
+Every product runs on an empty autotune cache, so its launch counts do
+not depend on the cache, except the two that check the cache: the end of
+[autotune] and the ``tile="auto"`` product of [nonuniform] install the
+tuned cache and reset it after.
 
 The line before the last is a JSON object listing every kernel; the last
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -85,11 +120,15 @@ import torch  # noqa: E402
 from repro_torch import DistributedMatmul, Grid  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.configs.paper_mm import (  # noqa: E402
+    BENCH_CONFIGS,
     COMMODITY_BLOCK,
     COMMODITY_N,
     make_case,
+    make_nonuniform_case,
     make_rank_factors,
 )
+from repro_torch.core import NonuniformMatmul, plan_matmul  # noqa: E402
+from repro_torch.core.blocking import bucketize, nonuniform_tiling  # noqa: E402
 from repro_torch.core.sparsity import (  # noqa: E402
     block_csr_from_mask,
     random_block_mask,
@@ -101,6 +140,11 @@ from repro_torch.core.summa import (  # noqa: E402
 )
 from repro_torch.dist.context import ParallelCtx  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.autotune import (  # noqa: E402
+    KernelAutotuner,
+    bucket_key,
+    set_autotune_cache,
+)
 from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     KERNEL_HEAD_DIMS,
@@ -117,6 +161,7 @@ from repro_torch.kernels.tiled_matmul import (  # noqa: E402
     tiled_matmul_plain,
 )
 from repro_torch.models.model import LM, forward, init_model  # noqa: E402
+from repro_torch.sched import abstract_summa_config, tune_plan  # noqa: E402
 
 N, BLOCK = COMMODITY_N, COMMODITY_BLOCK
 K_PANELS = N // BLOCK  # 128 K panels of width 256
@@ -124,6 +169,19 @@ SPARSE_FILL = 0.3
 MAX_RANK = 64  # the rank-sparse case: r_pad 64, below r* = 128
 FALLBACK_N, FALLBACK_RANK = 4096, 136  # r_pad 136 > r*: dense panels
 SEED = 0
+ROOT = Path(__file__).resolve().parent
+#: [tuner]: abstract square grids the schedule tuner plans at N with
+#: K_PANELS blocks
+TUNER_GRIDS = (4, 16)
+#: [autotune]: the square buckets tuned in fp32 and bf16, and the bucket a
+#: main-path panel (N x 256) . (256 x N) looks up (clamped to 4096)
+AUTOTUNE_SQUARES = (128, 256, 512)
+AUTOTUNE_PANEL = (4096, BLOCK, 4096)
+AUTOTUNE_N = 4096  # the dense product that consults the tuned cache
+#: [nonuniform]: 256-wide K panels of the padded inner extent 47360
+NONUNIFORM_K_BLOCKS = 185
+#: [auto forward]: llama3.2-1b at full width, depth cut to 2 layers
+AUTO_LAYERS, AUTO_SEQ = 2, 4096
 #: the LM forward: full llama3.2-1b, train_4k's length and prefill_32k's
 LM_ARCH = "llama3.2-1b"
 LM_BATCH, LM_SEQ, LM_LONG_SEQ = 4, 4096, 32768
@@ -562,6 +620,314 @@ def phase_sparse(mm, a, b, a_mask, b_mask) -> tuple[int, float]:
     compare(c, want, N, torch.float32,
             "block-sparse C vs torch.matmul of independently masked operands")
     return counts["bsmm"], wall
+
+
+def expected_tiled_launches(plan) -> int:
+    """``tiled_matmul`` launches of a dense plan's executor: one per K
+    panel, or one for the all-gather schedule's single product."""
+    return 1 if plan.cfg.strategy == "allgather" else plan.k_steps
+
+
+def tuned_text(tuned: dict) -> str:
+    keys = ("strategy", "k_blocks", "lookahead", "stationarity", "comm_mode",
+            "makespan_s", "static_strategy", "static_makespan_s",
+            "speedup_vs_static", "n_candidates")
+    return ", ".join(f"{k}={tuned[k]}" for k in keys)
+
+
+def phase_tuned(mm, a, b, a_mask, b_mask) -> dict:
+    """[tuned] The commodity products with ``tune=True``: the schedule
+    tuner's plan, executed through the kernels."""
+    out = {}
+    for name, masks, kernel in (
+            ("dense", {}, "tiled_matmul"),
+            (f"block-sparse fill {SPARSE_FILL}",
+             dict(a_mask=a_mask, b_mask=b_mask), "bsmm")):
+        t0 = time.perf_counter()
+        plan = mm.plan(N, N, N, tune=True, **masks)
+        tune_s = time.perf_counter() - t0
+        log(f"[tuned] DistributedMatmul(taskbased, k_blocks={K_PANELS}, "
+            f"local_matmul=pallas)(tune=True), {name}: local_impl="
+            f"{plan.local_impl}, executed strategy {plan.cfg.strategy}, "
+            f"k_steps {plan.k_steps}, lookahead {plan.resolve_lookahead()}; "
+            f"tuned record: {tuned_text(plan.tuned)}; tuner host "
+            f"{tune_s:.3f} s")
+        c, wall, counts = run_path(mm, a, b, kernel, tune=True, **masks)
+        if kernel == "tiled_matmul":
+            want = expected_tiled_launches(plan)
+            if counts["tiled_matmul"] != want or counts["bsmm"]:
+                raise AssertionError(
+                    f"expected {want} tiled_matmul launches (the tuned "
+                    f"{plan.cfg.strategy} executor), got {counts}")
+            ref = torch.matmul(a, b)
+        else:
+            if counts["bsmm"] != 1 or counts["tiled_matmul"]:
+                raise AssertionError(
+                    f"expected 1 bsmm and 0 tiled_matmul launches, got "
+                    f"{counts}")
+            ref = torch.matmul(kron_mask(a, a_mask), kron_mask(b, b_mask))
+        compare(c, ref, N, torch.float32,
+                f"tuned {name} C vs torch.matmul")
+        del c, ref
+        torch.cuda.empty_cache()
+        out[name] = dict(wall=wall, tuned=plan.tuned,
+                         launches=counts[kernel])
+    if out["dense"]["tuned"]["strategy"] == "allgather":
+        # the one product of the all-gather schedule, alone
+        ms = cuda_ms(lambda: tiled_matmul_cuda(a, b), 1)
+        out["dense"]["kernel_ms"] = ms
+        log(f"  the tuned dense product's one tiled_matmul ({N}x{N})x({N}x"
+            f"{N}) alone: {ms:.3f} ms (CUDA events, one launch after a "
+            f"warm-up)")
+    return out
+
+
+def phase_tuner() -> None:
+    """[tuner] ``tune_plan`` on abstract grids, on the host, and the
+    scheduler's command line."""
+    tilings = [nonuniform_tiling(N, N // BLOCK, seed=SEED + s)
+               for s in range(3)]
+    shapes = {"uniform": (N, N, N),
+              "nonuniform": tuple(bucketize(t, BLOCK).padded_extent
+                                  for t in tilings)}
+    log(f"[tuner] tune_plan over abstract grids (host only), N={N}, "
+        f"k_blocks={K_PANELS}; nonuniform = the bucketized extents "
+        f"{shapes['nonuniform']} of nonuniform_tiling(N, {N // BLOCK}) at "
+        f"tile {BLOCK}")
+    for g in TUNER_GRIDS:
+        for name, shape in shapes.items():
+            cfg = abstract_summa_config(g, g, strategy="taskbased",
+                                        k_blocks=K_PANELS)
+            t0 = time.perf_counter()
+            plan = tune_plan(plan_matmul(*shape, cfg))
+            host_s = time.perf_counter() - t0
+            t = plan.tuned
+            log(f"  {g}x{g} {name}: {tuned_text(t)}; tuner host "
+                f"{host_s:.3f} s")
+            if t["makespan_s"] > t["static_makespan_s"] * (1 + 1e-9):
+                raise AssertionError(f"{g}x{g} {name}: tuned worse than static")
+    cmd = [sys.executable, "-m", "repro_torch.sched", "--grid", "4", "4",
+           "--extent", str(N), "--blocks", str(K_PANELS), "--nonuniform"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(ROOT / "src"), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=600, check=True)
+    cli = json.loads(proc.stdout)
+    log(f"  python -m repro_torch.sched {' '.join(cmd[3:])}: "
+        f"{time.perf_counter() - t0:.2f} s; sim {cli['sim']}; tasks "
+        f"{cli['tasks']}")
+    if not cli["sim"]["makespan_s"] > 0:
+        raise AssertionError("the scheduler's command line gave no makespan")
+
+
+def phase_autotune(repeats: int = 5) -> KernelAutotuner:
+    """[autotune] A fresh ``KernelAutotuner`` times every route on the
+    card; its file round-trips; a dense product consults it."""
+    log(f"[autotune] KernelAutotuner.tune on the card: square buckets "
+        f"{AUTOTUNE_SQUARES} in fp32 and bf16, and the panel bucket "
+        f"{AUTOTUNE_PANEL} in fp32; best of {repeats} after a warm call")
+    tuner = KernelAutotuner()
+    for fn in COUNTERS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for c in AUTOTUNE_SQUARES:
+        for dtype in DTYPES:
+            tuner.tune(c, c, c, dtype=dtype, repeats=repeats, device=DEVICE)
+    tuner.tune(*AUTOTUNE_PANEL, dtype=torch.float32, repeats=repeats,
+               device=DEVICE)
+    counts = {name: fn.launches for name, fn in COUNTERS.items()}
+    log(f"  tuning took {time.perf_counter() - t0:.2f} s; launches {counts}")
+    for key, entry in tuner.table.items():
+        times = ", ".join(f"{r} {t * 1e6:.2f}"
+                          for r, t in entry["times_s"].items())
+        log(f"  bucket {key}: winner {entry['winner']}; us: {times}; "
+            f"tiles {entry['tiles']}")
+    for name in ("tiled_matmul", "bsmm", "grouped_gemm"):
+        if counts[name] == 0:
+            raise AssertionError(f"the autotuner never launched {name}")
+    path = ROOT / "build" / "chip_smoke_autotune.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tuner.save(str(path))
+    back = KernelAutotuner()
+    n = back.load(str(path))
+    fp = tuner.fingerprint()
+    kind = torch.cuda.get_device_name(0)
+    if (n != len(tuner.table) or back.table != tuner.table
+            or back.fingerprint() != fp or tuner.fingerprint() != fp
+            or not fp or back.device_kind != kind
+            or tuner.device_kind != kind):
+        raise AssertionError("the autotune cache did not round-trip")
+    log(f"  save/load round-trip of {n} entries ({path.name}); fingerprint "
+        f"{fp} stable; measured on {back.device_kind}")
+    set_autotune_cache(tuner)
+    try:
+        winner = tuner.winner(AUTOTUNE_N, BLOCK, AUTOTUNE_N, device=DEVICE)
+        mm = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                               k_blocks=AUTOTUNE_N // BLOCK,
+                               local_matmul="pallas")
+        plan = mm.plan(AUTOTUNE_N, AUTOTUNE_N, AUTOTUNE_N)
+        want = 0 if winner == "xla" else plan.k_steps
+        log(f"  with the cache installed: N={AUTOTUNE_N}, {plan.k_steps} "
+            f"panels ({AUTOTUNE_N}x{BLOCK})x({BLOCK}x{AUTOTUNE_N}), whose "
+            f"bucket's winner is {winner}: expect {want} tiled_matmul "
+            f"launches")
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+        a = randn((AUTOTUNE_N, AUTOTUNE_N), torch.float32, gen)
+        b = randn((AUTOTUNE_N, AUTOTUNE_N), torch.float32, gen)
+        c, _, counts = run_path(mm, a, b, "tiled_matmul" if want else None)
+        if counts["tiled_matmul"] != want:
+            raise AssertionError(
+                f"_local_dot took the wrong route: {counts}, want {want}")
+        compare(c, torch.matmul(a, b), AUTOTUNE_N, torch.float32,
+                "dense C on the autotuned route vs torch.matmul")
+    finally:
+        set_autotune_cache(None)
+    return tuner
+
+
+def fastest_square_bucket(tuner, max_block: int) -> tuple[int, dict]:
+    """The tile ``tile="auto"`` should take, read off the table itself:
+    the fp32 square bucket (c, c, c) of ``AUTOTUNE_SQUARES`` whose
+    winner's time per FLOP is least, among those no wider than
+    ``max_block`` rounded up to a power of two (256 if none was tuned).
+    Returns it and each candidate's seconds per c**3."""
+    cap = 1 << (max_block - 1).bit_length()
+    per_flop = {}
+    for c in AUTOTUNE_SQUARES:
+        entry = tuner.table.get((c, c, c, 0, "float32"))
+        if c <= cap and entry:
+            per_flop[c] = entry["times_s"][entry["winner"]] / c ** 3
+    return (min(per_flop, key=per_flop.get) if per_flop else 256), per_flop
+
+
+def phase_nonuniform(tuner) -> dict:
+    """[nonuniform] The paper's commodity nonuniform product through
+    ``NonuniformMatmul`` (tile 256, tuned), then ``tile="auto"`` at
+    ``nonuniform_medium`` with the autotune cache."""
+    t0 = time.perf_counter()
+    tilings, a_h, b_h = make_nonuniform_case(N, BLOCK, seed=SEED)
+    log(f"[nonuniform] make_nonuniform_case({N}, {BLOCK}, seed={SEED}) on the "
+        f"host: {time.perf_counter() - t0:.1f} s; logical blocks "
+        f"{[t.num_blocks for t in tilings]}, largest "
+        f"{[max(t.sizes) for t in tilings]}, smallest "
+        f"{[min(t.sizes) for t in tilings]}")
+    a = torch.from_numpy(a_h).to(DEVICE)
+    b = torch.from_numpy(b_h).to(DEVICE)
+    del a_h, b_h
+    mm = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                           k_blocks=NONUNIFORM_K_BLOCKS, local_matmul="pallas")
+    nm = NonuniformMatmul(mm, *tilings, tile=BLOCK)
+    extents = (nm.row_b.padded_extent, nm.inner_b.padded_extent,
+               nm.col_b.padded_extent)
+    work = math.prod(extents) / N ** 3
+    t0 = time.perf_counter()
+    plan = nm.plan(tune=True)
+    tune_s = time.perf_counter() - t0
+    want = expected_tiled_launches(plan)
+    log(f"  NonuniformMatmul(tile={BLOCK}, k_blocks={NONUNIFORM_K_BLOCKS}, "
+        f"local_matmul=pallas, tune=True): padded extents {extents} "
+        f"({work:.4f} x the compact product's FLOP); padding_waste "
+        f"{nm.padding_waste}; executed strategy {plan.cfg.strategy}, "
+        f"k_steps {plan.k_steps}; tuned record: {tuned_text(plan.tuned)}; "
+        f"tuner host {tune_s:.3f} s; expect {want} tiled_matmul launches")
+    out = dict(extents=extents, work=work, waste=nm.padding_waste,
+               tuned=plan.tuned, launches=want)
+    resident = torch.cuda.memory_allocated()
+    for key in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        c, out[key + "_wall"], counts = run_path(nm, a, b, "tiled_matmul",
+                                                 tune=True)
+        out[key + "_peak"] = torch.cuda.max_memory_allocated()
+        if counts["tiled_matmul"] != want or counts["bsmm"]:
+            raise AssertionError(
+                f"expected {want} tiled_matmul launches, got {counts}")
+        log(f"  {key} call: peak device memory "
+            f"{out[key + '_peak'] / 2**30:.2f} GiB ({resident / 2**30:.2f} "
+            f"GiB resident before the call)")
+        if key == "cold":
+            if c.shape != (N, N) or c.dtype != torch.float32:
+                raise AssertionError(f"nonuniform C is {tuple(c.shape)} "
+                                     f"{c.dtype}")
+            ref = torch.matmul(a, b)
+            out["err"] = compare(c, ref, N, torch.float32,
+                                 "nonuniform C vs torch.matmul of the "
+                                 "compact operands")
+            del ref
+        del c
+        torch.cuda.empty_cache()
+    # the gathers into and out of the padded layout, alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a_p = nm._expand(nm._expand(a, nm.row_b, 0), nm.inner_b, 1)
+    b_p = nm._expand(nm._expand(b, nm.inner_b, 0), nm.col_b, 1)
+    torch.cuda.synchronize()
+    out["expand_s"] = time.perf_counter() - t0
+    if plan.cfg.strategy == "allgather":  # its one product, alone
+        out["kernel_ms"] = cuda_ms(lambda: tiled_matmul_cuda(a_p, b_p), 1)
+        log(f"  the one tiled_matmul ({extents[0]}x{extents[1]})x"
+            f"({extents[1]}x{extents[2]}) alone: {out['kernel_ms']:.3f} ms "
+            f"(CUDA events, one launch after a warm-up)")
+    del a, b, a_p, b_p
+    c_p = torch.zeros((extents[0], extents[2]), device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c = nm._compact(c_p)
+    torch.cuda.synchronize()
+    out["compact_s"] = time.perf_counter() - t0
+    del c, c_p
+    torch.cuda.empty_cache()
+    log(f"  the gathers alone: expand A and B {out['expand_s']:.3f} s, "
+        f"compact C {out['compact_s']:.3f} s (of the warm "
+        f"{out['warm_wall']:.3f} s)")
+    # tile="auto" on the autotune cache, at nonuniform_medium
+    cfg = BENCH_CONFIGS["nonuniform_medium"]
+    tilings, a_h, b_h = make_nonuniform_case(cfg.n, cfg.block, seed=cfg.seed)
+    max_block = max(max(t.sizes) for t in tilings)
+    want_tile, per_flop = fastest_square_bucket(tuner, max_block)
+    set_autotune_cache(tuner)
+    try:
+        nm = NonuniformMatmul(
+            DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                              local_matmul="pallas"),
+            *tilings, tile="auto")
+        log(f"  nonuniform_medium (N={cfg.n}), tile='auto' on the autotune "
+            f"cache: largest block {max_block}; fp32 square buckets, "
+            f"winner's s per FLOP {per_flop}: expect tile {want_tile}; "
+            f"NonuniformMatmul took {nm.tile}; padding_waste "
+            f"{nm.padding_waste}")
+        if nm.tile != want_tile:
+            raise AssertionError(f"tile {nm.tile} != expected {want_tile}")
+        # K panels BLOCK wide where the tile allows, so that they look up
+        # the tuned panel bucket AUTOTUNE_PANEL
+        width = BLOCK if nm.tile % BLOCK == 0 else nm.tile
+        nm.mm = DistributedMatmul(
+            Grid.local(DEVICE), strategy="taskbased",
+            k_blocks=nm.inner_b.padded_extent // width,
+            local_matmul="pallas")
+        plan = nm.plan()
+        (mp, kp), (_, np_) = plan.padded_shapes
+        key = (mp, plan.kb_width, np_)
+        entry = tuner.table.get(bucket_key(*key, dtype=torch.float32))
+        winner = entry["winner"] if entry else None
+        want = 0 if winner == "xla" else plan.k_steps
+        log(f"  its {plan.k_steps} panels {key} fall in bucket "
+            f"{bucket_key(*key, dtype=torch.float32)}, whose winner is "
+            f"{winner}: expect {want} tiled_matmul launches")
+        a = torch.from_numpy(a_h).to(DEVICE)
+        b = torch.from_numpy(b_h).to(DEVICE)
+        c, _, counts = run_path(nm, a, b, "tiled_matmul" if want else None)
+        if counts["tiled_matmul"] != want:
+            raise AssertionError(
+                f"_local_dot took the wrong route: {counts}, want {want}")
+        compare(c, torch.matmul(a, b), cfg.n, torch.float32,
+                "nonuniform_medium C (tile='auto') vs torch.matmul")
+        out["auto_tile"] = nm.tile
+        del a, b, c
+    finally:
+        set_autotune_cache(None)
+    torch.cuda.empty_cache()
+    return out
 
 
 def densify_here(rcsr) -> torch.Tensor:
@@ -1084,6 +1450,52 @@ def phase_lm(cfg) -> dict:
     return out
 
 
+def phase_auto_forward() -> dict:
+    """[auto forward] llama3.2-1b at full width, depth cut to AUTO_LAYERS,
+    under ``matmul_strategy="auto"`` (the FFN projections on the tuned
+    schedule), against the ``"summa"`` forward of the same weights."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=AUTO_LAYERS)
+    log(f"[auto forward] {cfg.name} at full width, {cfg.num_layers} layers, "
+        f"B=1 S={AUTO_SEQ}, bf16, ParallelCtx(Grid.local, "
+        f"matmul_strategy='auto') against matmul_strategy='summa'")
+    model = init_model(cfg, generator=torch.Generator(
+        device=DEVICE).manual_seed(SEED), device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, (1, AUTO_SEQ),
+                           generator=torch.Generator(
+                               device=DEVICE).manual_seed(SEED + 8),
+                           device=DEVICE)
+    auto = ParallelCtx(Grid.local(DEVICE), matmul_strategy="auto")
+    summa = ParallelCtx(Grid.local(DEVICE), matmul_strategy="summa")
+    got, cold_wall, counts, _ = run_forward(
+        model, tokens, cfg, auto, use_kernel=True,
+        what="forward(use_kernel=True, matmul_strategy='auto'), first call "
+             "(tunes each projection shape)")
+    for plan in auto.matmul()._plan_cache.values():
+        log(f"  tuned projection {plan.m}x{plan.k}x{plan.n}: executed "
+            f"strategy {plan.cfg.strategy}, k_steps {plan.k_steps}; "
+            f"{tuned_text(plan.tuned)}")
+    want, _, _, _ = run_forward(
+        model, tokens, cfg, summa, use_kernel=True,
+        what="forward(use_kernel=True, matmul_strategy='summa')")
+    rel, share = logit_distance(got, want,
+                                "bf16 auto forward vs bf16 summa forward")
+    hold(rel <= LM_BF16_PAIR_REL and share >= LM_BF16_PAIR_AGREE,
+         f"bf16 auto forward vs bf16 summa forward within "
+         f"{LM_BF16_PAIR_REL} and at least {LM_BF16_PAIR_AGREE}")
+    del got, want
+    _, wall, _, peak = run_forward(
+        model, tokens, cfg, auto, use_kernel=True,
+        what="warm forward(use_kernel=True, matmul_strategy='auto')")
+    _, summa_wall, _, _ = run_forward(
+        model, tokens, cfg, summa, use_kernel=True,
+        what="warm forward(use_kernel=True, matmul_strategy='summa')")
+    del model
+    torch.cuda.empty_cache()
+    return dict(rel=rel, agree=share, launches=counts["flash_attention"],
+                cold_wall=cold_wall, wall=wall, summa_wall=summa_wall,
+                peak=peak)
+
+
 def main() -> None:
     kind, count = phase_device()
     phase_build()
@@ -1119,6 +1531,7 @@ def main() -> None:
     sparse_launches, sparse_wall = phase_sparse(mm, a, b, a_mask, b_mask)
     torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated()
+    tuned = phase_tuned(mm, a, b, a_mask, b_mask)
     rank = phase_rank(rcsr, a)
     phase_rank_fallback()
     torch.cuda.empty_cache()
@@ -1132,8 +1545,21 @@ def main() -> None:
         f"{rank['xla']['wall']:.3f} s "
         f"(peak {rank['xla']['peak'] / 2**30:.2f} GiB); a first product "
         f"adds the layout's {layout_s:.3f} s")
+    log(f"  tuned products (host clock): dense "
+        f"{tuned['dense']['wall']:.3f} s ({tuned['dense']['launches']} "
+        f"tiled_matmul, {tuned['dense']['tuned']['strategy']}), "
+        f"block-sparse {tuned[f'block-sparse fill {SPARSE_FILL}']['wall']:.3f}"
+        f" s")
     del a, b
     torch.cuda.empty_cache()
+    phase_tuner()
+    tuner = phase_autotune()
+    nonuniform = phase_nonuniform(tuner)
+    log(f"  nonuniform product (host clock, warm): {nonuniform['warm_wall']:.3f}"
+        f" s for {nonuniform['work']:.4f} x the uniform product's FLOP "
+        f"(uniform: {dense_wall:.3f} s taskbased, "
+        f"{tuned['dense']['wall']:.3f} s tuned); peak "
+        f"{nonuniform['warm_peak'] / 2**30:.2f} GiB")
     lm = phase_lm(lm_cfg)
     times["flash_attention"] = lm["times"]
     log(f"  LM forward (host clock, ending in synchronize): B={LM_BATCH} "
@@ -1143,6 +1569,10 @@ def main() -> None:
         f"{lm['summa_wall']:.3f} s with summa FFN projections; B=1 "
         f"S={LM_LONG_SEQ} {lm['long_wall']:.3f} s (peak "
         f"{lm['long_peak'] / 2**30:.2f} GiB)")
+    auto = phase_auto_forward()
+    log(f"  auto forward ({AUTO_LAYERS} layers, B=1 S={AUTO_SEQ}): warm "
+        f"{auto['wall']:.3f} s (summa {auto['summa_wall']:.3f} s), "
+        f"{auto['launches']} flash_attention launches")
     launches = {"tiled_matmul": dense_launches, "bsmm": sparse_launches,
                 "grouped_gemm": rank["pallas"]["launches"],
                 "flash_attention": lm["launches"]}

@@ -12,7 +12,12 @@ for module (``repro_torch/core/plan.py`` is the port of
   a_ranks=RankCSR)`` -> ``execute_rank_plan`` — through ``grouped_gemm``;
 * the LM forward of the dense-attention family — ``models.model.forward``
   and ``loss_fn`` with ``dist.context.ParallelCtx`` and
-  ``dist.collective_matmul.project`` — through ``flash_attention``.
+  ``dist.collective_matmul.project`` — through ``flash_attention``;
+* the paper's scheduler — the task graph, its simulator and the schedule
+  tuner (``sched``), which ``tune=True`` and ``matmul_strategy="auto"``
+  execute — with the kernel autotune cache (``kernels.autotune``),
+  ``NonuniformMatmul`` over ``core.blocking``, and the pull and A-/B-
+  stationary routes of mask plans.
 
 Each of the reference's four Pallas kernels is a hand-written CUDA kernel
 for Hopper (``csrc/``).  Entry points run on ``cuda`` unless the caller
@@ -22,6 +27,7 @@ from repro_torch.core import (
     DistributedMatmul,
     Grid,
     MatmulPlan,
+    NonuniformMatmul,
     SummaConfig,
     execute_plan,
     plan_matmul,
@@ -31,6 +37,7 @@ __all__ = [
     "DistributedMatmul",
     "Grid",
     "MatmulPlan",
+    "NonuniformMatmul",
     "SummaConfig",
     "execute_plan",
     "plan_matmul",

@@ -9,7 +9,8 @@ The system multiplies data rather than running a model, so it has no
 weights: :func:`make_case` and :func:`make_rank_case` stand in for them.
 They build the operands and block structure of one product from a seed
 with numpy, so the tests can hand the same arrays to the JAX package and
-to this one.
+to this one; :func:`make_nonuniform_case` builds the paper's nonuniformly
+blocked product the same way.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core.blocking import Tiling, nonuniform_tiling
 from repro_torch.core.sparsity import (
     RankCSR,
     decay_rank_map,
@@ -29,7 +31,9 @@ __all__ = [
     "COMMODITY_N",
     "COMMODITY_BLOCK",
     "MMConfig",
+    "BENCH_CONFIGS",
     "make_case",
+    "make_nonuniform_case",
     "make_rank_factors",
     "make_rank_case",
 ]
@@ -49,6 +53,13 @@ class MMConfig:
     @property
     def num_blocks(self) -> int:
         return self.n // self.block
+
+
+# a scaled-down version of the commodity configuration (same structure);
+# the reference's table has three more entries that nothing here runs
+BENCH_CONFIGS = {
+    "nonuniform_medium": MMConfig(n=4096, block=256, nonuniform=True),
+}
 
 
 def make_case(
@@ -109,3 +120,25 @@ def make_rank_case(
     a_ranks = make_rank_factors(n, block, max_rank, seed)
     b = np.random.default_rng(seed).standard_normal((n, n), dtype=np.float32)
     return a_ranks, b
+
+
+def make_nonuniform_case(
+    n: int, avg_block: int, seed: int = 0
+) -> tuple[tuple[Tiling, Tiling, Tiling], np.ndarray, np.ndarray]:
+    """The paper's nonuniformly blocked ``n x n`` product (§4.1).
+
+    Returns ``((row, inner, col), a, b)``: the three logical tilings
+    ``nonuniform_tiling(n, n // avg_block, seed + s)`` for s = 0, 1, 2 (as
+    the scheduler's command line builds them with ``--nonuniform``) and
+    float32 standard-normal operands from ``np.random.default_rng(seed)``,
+    A first — the same arrays as :func:`make_case`'s for that seed.
+    """
+    if n % avg_block:
+        raise ValueError(f"n={n} is not a multiple of avg_block={avg_block}")
+    tilings = tuple(
+        nonuniform_tiling(n, n // avg_block, seed=seed + s) for s in range(3)
+    )
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n), dtype=np.float32)
+    b = rng.standard_normal((n, n), dtype=np.float32)
+    return tilings, a, b

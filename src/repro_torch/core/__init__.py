@@ -1,5 +1,9 @@
 """Core: task-based SUMMA for block-sparse tensor computing (the paper)."""
-from repro_torch.core.api import DistributedMatmul, pad_to_multiple
+from repro_torch.core.api import (
+    DistributedMatmul,
+    NonuniformMatmul,
+    pad_to_multiple,
+)
 from repro_torch.core.grid import Grid
 from repro_torch.core.plan import (
     MatmulPlan,

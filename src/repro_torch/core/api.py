@@ -11,9 +11,13 @@ A ``RankCSR`` in ``a_ranks`` with ``a=None`` is the rank-sparse factor
 route: A is multiplied as its block factors U·V (``core.summa.
 execute_rank_plan``).
 
-The port of ``repro.core.api``.  ``NonuniformMatmul`` (ROADMAP A5),
-``contract``/``contract_chain`` (A6) and the schedule tuner behind
-``tune=True`` (A1) are not ported yet.
+``tune=True`` runs the schedule tuner (``sched.tuner.tune_plan``) over
+the plan and executes its winner.  ``NonuniformMatmul`` multiplies
+nonuniformly blocked matrices by bucketing their logical blocks into
+uniform physical tiles (``core.blocking``) around a ``DistributedMatmul``.
+
+The port of ``repro.core.api``.  ``contract``/``contract_chain`` (ROADMAP
+A6) are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import blocking as bk
 from repro_torch.core import summa as sm
 from repro_torch.core.grid import Grid
 from repro_torch.core.plan import MatmulPlan, mask_key, plan_matmul, rank_key
@@ -33,7 +38,7 @@ from repro_torch.core.sparsity import (
     rank_csr_norms,
 )
 
-__all__ = ["DistributedMatmul", "pad_to_multiple"]
+__all__ = ["DistributedMatmul", "NonuniformMatmul", "pad_to_multiple"]
 
 
 def pad_to_multiple(x: torch.Tensor, multiples: tuple[int, ...]) -> torch.Tensor:
@@ -131,18 +136,20 @@ class DistributedMatmul:
         route (``local_impl="ranksparse"`` where the grid allows); a
         ``BlockRankMap`` refines the cost model of a dense-stored A only.
         The two are keyed apart, so one structure given both ways gets two
-        plans.  ``tune=True`` raises ``NotImplementedError``.
+        plans.  ``tune=True`` runs the schedule tuner
+        (``sched.tuner.tune_plan``) over the plan: the cached result
+        carries the simulated-makespan-optimal strategy / k_blocks /
+        lookahead / comm mode / stationarity, and its ``tuned`` record.
+        ``tune`` is part of the cache key, so tuned and untuned plans of
+        one product never alias.  ``lookahead`` pins the window; it
+        overrides a tuned one.
         """
-        if tune:
-            raise NotImplementedError(
-                "tune=True needs the schedule tuner (repro.sched), which is "
-                "not ported yet (ROADMAP A1)"
-            )
         rank_payload = isinstance(a_ranks, RankCSR)
         key = (
             m, k, n, mask_key(a_mask), mask_key(b_mask), rank_key(a_ranks),
-            rank_payload, strategy or self.strategy, itemsize, lookahead,
-            rank_key(b_ranks), mask_key(c_mask), comm_mode, stationarity,
+            rank_payload, strategy or self.strategy, itemsize, tune,
+            lookahead, rank_key(b_ranks), mask_key(c_mask), comm_mode,
+            stationarity,
         )
         if k_blocks is not None:
             key = key + ("k_blocks", int(k_blocks))
@@ -167,6 +174,10 @@ class DistributedMatmul:
                 itemsize=itemsize, a_norms=a_norms, b_norms=b_norms,
                 filter_eps=filter_eps,
             )
+            if tune:
+                from repro_torch.sched.tuner import tune_plan  # no cycle
+
+                plan = tune_plan(plan)
             if lookahead is not None:
                 plan = dataclasses.replace(plan, lookahead=int(lookahead))
             self._plan_cache[key] = plan
@@ -343,3 +354,157 @@ class DistributedMatmul:
         raise NotImplementedError(
             "contract_chain is not ported yet (ROADMAP A6)"
         )
+
+
+@dataclasses.dataclass
+class NonuniformMatmul:
+    """Matmul over *nonuniformly blocked* matrices (paper §4.1/§4.4).
+
+    Logical nonuniform tilings are bucketed into uniform physical tiles
+    (``core.blocking.bucketize``); operands are gathered into the padded
+    physical layout (zeros in the pad), multiplied through the wrapped
+    ``DistributedMatmul``, and the result is gathered back to the compact
+    layout.  Zero padding is exact: pad rows/cols contribute nothing.
+    The gathers run on the operands' device; ``padding_waste`` quantifies
+    the cost of the adaptation.
+
+    ``tile="auto"`` takes the physical tile from the kernel autotune cache
+    (``kernels.autotune.preferred_tile``): the measured-fastest square
+    bucket, per FLOP, that the logical blocks can fill; 256 on a cold
+    cache.  A cache measured on another kind of device than the grid's
+    is refused.
+    """
+
+    mm: DistributedMatmul
+    row_tiling: bk.Tiling
+    inner_tiling: bk.Tiling
+    col_tiling: bk.Tiling
+    tile: int | str = 256
+
+    def __post_init__(self):
+        if self.tile == "auto":
+            from repro_torch.kernels.autotune import preferred_tile
+
+            max_block = max(
+                max(self.row_tiling.sizes),
+                max(self.inner_tiling.sizes),
+                max(self.col_tiling.sizes),
+            )
+            self.tile = (
+                preferred_tile(max_block, device=self.mm.grid.device) or 256
+            )
+        self.row_b = bk.bucketize(self.row_tiling, self.tile)
+        self.inner_b = bk.bucketize(self.inner_tiling, self.tile)
+        self.col_b = bk.bucketize(self.col_tiling, self.tile)
+
+    @property
+    def padding_waste(self) -> dict[str, float]:
+        return {
+            "rows": self.row_b.padding_waste,
+            "inner": self.inner_b.padding_waste,
+            "cols": self.col_b.padding_waste,
+        }
+
+    def plan(
+        self,
+        *,
+        a_ranks: np.ndarray | None = None,
+        itemsize: int = 4,
+        lookahead: int | None = None,
+        tune: bool = False,
+    ) -> MatmulPlan:
+        """The underlying uniform-tile plan for the bucketized product.
+
+        ``a_ranks`` is a *logical* (row_blocks, inner_blocks) per-block
+        rank map; see :meth:`physical_rank_map`.
+        """
+        return self.mm.plan(
+            self.row_b.padded_extent,
+            self.inner_b.padded_extent,
+            self.col_b.padded_extent,
+            a_ranks=(
+                self.physical_rank_map(a_ranks)
+                if a_ranks is not None else None
+            ),
+            itemsize=itemsize,
+            lookahead=lookahead,
+            tune=tune,
+        )
+
+    def physical_rank_map(self, logical_ranks: np.ndarray) -> BlockRankMap:
+        """Expand a logical per-block rank map onto the physical tile grid.
+
+        Every physical tile inherits its logical block's rank, clamped by
+        the tile's valid extents (a submatrix cannot exceed its parent
+        block's rank, nor its own dimensions).  Rank 0 means the logical
+        block is screened out — its tiles are pruned like masked blocks.
+        """
+        ranks = np.asarray(logical_ranks, dtype=np.int32)
+        want = (self.row_tiling.num_blocks, self.inner_tiling.num_blocks)
+        if ranks.shape != want:
+            raise ValueError(
+                f"logical rank map {ranks.shape} must match the logical "
+                f"block grid {want}"
+            )
+        bid_r = np.asarray(self.row_b.block_id)
+        bid_i = np.asarray(self.inner_b.block_id)
+        valid_r = np.asarray(self.row_b.valid)
+        valid_i = np.asarray(self.inner_b.valid)
+        phys = ranks[np.ix_(bid_r, bid_i)]
+        cap = np.minimum(valid_r[:, None], valid_i[None, :])
+        return BlockRankMap(
+            ranks=np.minimum(phys, cap).astype(np.int32),
+            bm=self.tile,
+            bk=self.tile,
+        )
+
+    def _expand(self, x: torch.Tensor, bdim: bk.BucketedTiling, axis: int):
+        """``x`` gathered along ``axis`` into the padded physical layout
+        (one gather, then the pad zeroed in place)."""
+        idx = torch.as_tensor(bdim.gather_indices(), device=x.device)
+        out = x.index_select(axis, idx.clamp(min=0))
+        pad = (idx < 0).nonzero().flatten()
+        out.index_fill_(axis, pad, 0)
+        return out
+
+    def _compact(self, c: torch.Tensor) -> torch.Tensor:
+        ridx = self.row_b.gather_indices()
+        cidx = self.col_b.gather_indices()
+        rsel = torch.as_tensor(np.nonzero(ridx >= 0)[0], device=c.device)
+        csel = torch.as_tensor(np.nonzero(cidx >= 0)[0], device=c.device)
+        # physical order of valid elements == logical order (blocks packed
+        # in order, tiles in order within a block)
+        return c.index_select(0, rsel).index_select(1, csel)
+
+    def __call__(
+        self,
+        a,
+        b,
+        *,
+        a_ranks: np.ndarray | None = None,
+        lookahead: int | None = None,
+        tune: bool = False,
+    ) -> torch.Tensor:
+        """C = A @ B for compact operands of the logical tilings' extents.
+        ``a_ranks`` (logical per-block rank map) plans A's physical tiles
+        rank-sparse: rank-0 logical blocks are screened out of the product
+        and the plan's costs/schedule follow the tile ranks."""
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        if tuple(a.shape) != (self.row_tiling.extent, self.inner_tiling.extent):
+            raise ValueError(f"A shape {tuple(a.shape)} mismatches tilings")
+        if tuple(b.shape) != (self.inner_tiling.extent, self.col_tiling.extent):
+            raise ValueError(f"B shape {tuple(b.shape)} mismatches tilings")
+        a_p = self._expand(self._expand(a, self.row_b, 0), self.inner_b, 1)
+        b_p = self._expand(self._expand(b, self.inner_b, 0), self.col_b, 1)
+        c_p = self.mm(
+            a_p,
+            b_p,
+            a_ranks=(
+                self.physical_rank_map(a_ranks)
+                if a_ranks is not None else None
+            ),
+            lookahead=lookahead,
+            tune=tune,
+        )
+        del a_p, b_p
+        return self._compact(c_p)

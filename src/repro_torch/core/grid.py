@@ -19,8 +19,8 @@ Three ways to build one:
   NCCL on a multi-card host).
 * ``Grid(sizes=(p_row, p_col))`` — a planning-only grid: the planner reads
   only ``shape``, so plans for any grid can be built (and compared with
-  the reference's) without processes; a collective over an axis with
-  peers raises.
+  the reference's) without processes; ``check_world`` refuses it at
+  execution, and a collective over an axis with peers raises.
 
 Every grid is on ``cuda`` unless its caller names another device: a grid
 built without one never runs on the CPU.
@@ -100,6 +100,22 @@ class Grid:
         """This rank's coordinate along ``axis``."""
         return self.coords[self._dim(axis)]
 
+    def check_world(self) -> None:
+        """Raise unless this grid can execute: a grid of more than one rank
+        must span the initialised ``torch.distributed`` world exactly.  A
+        planning-only grid (``Grid(sizes=...)`` with no world behind it)
+        plans any grid but never runs a plan; the 1x1 grid always runs."""
+        size = self.sizes[0] * self.sizes[1]
+        if size == 1:
+            return
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if world != size:
+            raise ValueError(
+                f"grid {self.sizes[0]}x{self.sizes[1]} has {size} ranks but "
+                f"the torch.distributed world has {world}: a planning-only "
+                "grid cannot execute a plan"
+            )
+
     def fingerprint(self) -> tuple:
         """What ``MatmulPlan.digest`` hashes in place of mesh devices."""
         return (self.axis_names, self.sizes, self.device.type)
@@ -163,4 +179,26 @@ class Grid:
             (size * x0.shape[0], *x0.shape[1:]), dtype=x.dtype, device=x.device
         )
         dist.all_gather_into_tensor(out, x0, group=group)
+        return out.movedim(0, dim).contiguous()
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """Sum every rank's ``x`` and keep this rank's slice of ``dim``, in
+        axis order (the reference's ``psum_scatter(..., tiled=True)``);
+        ``x.shape[dim]`` must divide by the axis size.  The identity on an
+        axis of one rank."""
+        size = self.shape[axis]
+        if size == 1:
+            return x
+        group = self._group(axis)
+        x0 = x.movedim(dim, 0).contiguous()
+        if x0.shape[0] % size:
+            raise ValueError(
+                f"dim {dim} of {tuple(x.shape)} does not divide by the "
+                f"{size} ranks of axis {axis!r}"
+            )
+        out = torch.empty(
+            (x0.shape[0] // size, *x0.shape[1:]), dtype=x.dtype,
+            device=x.device,
+        )
+        dist.reduce_scatter_tensor(out, x0, group=group)
         return out.movedim(0, dim).contiguous()

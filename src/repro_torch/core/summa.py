@@ -51,9 +51,24 @@ Both factored stages run over chunks of local block rows whose stage-1
 output stays within ``RANK_CHUNK_BYTES``: at the paper's size the whole
 stage-1 output of one card would be 128 GiB.
 
+Two more routes of mask plans (repro.spgemm):
+
+* ``comm_mode="pull"`` — the one-sided gets read exactly the live panels
+  in the masked DAG's order, which is what ``_exec_sparse_dag``
+  broadcasts and multiplies, so pull plans run it: pull equals broadcast
+  bitwise, and only live panels move.  The fetch-level cost model that
+  sets pull apart (factor-1.0 bytes, owner-clock contention) lives in
+  ``sched.taskgraph``;
+* ``_exec_stationary`` — ``stationarity="A"``/``"B"``: one local product
+  of the stationary tile with the re-laid-out other operand, then a
+  reduce-scatter of the partial C into C's layout.
+
+Every local panel product goes through ``_local_dot``, which consults
+the kernel autotune cache (``kernels.autotune``) lookup-only: an empty or
+disabled cache changes nothing.
+
 Routes of the reference not ported yet raise ``NotImplementedError``
-naming their ROADMAP item: A-/B-stationary schedules and the one-sided
-pull route of mask plans (A7), ``summa_25d_matmul`` and the digest-keyed
+naming their ROADMAP item: ``summa_25d_matmul`` and the digest-keyed
 executable cache (A3).
 """
 from __future__ import annotations
@@ -67,6 +82,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.grid import Grid
+from repro_torch.kernels.autotune import autotune_cache
 
 __all__ = [
     "SummaConfig",
@@ -227,21 +243,32 @@ def _wait(*works) -> None:
 
 
 def _local_dot(a_panel, b_panel, accum, cfg: SummaConfig) -> torch.Tensor:
-    """``accum += a_panel @ b_panel``, in place.
+    """``accum += a_panel @ b_panel``, in place; consults the kernel
+    autotune cache.
 
-    ``local_matmul="pallas"`` takes the hand-written tiled kernel, whose
-    product is cast to the operand dtype before it is added (the
-    reference's ``kernels.ops.tiled_matmul`` semantics); ``"xla"`` runs
-    ``torch.matmul`` in ``accum_dtype``.  The reference's autotune-cache
-    consult is left out: its empty cache changes nothing, and
-    ``kernels/autotune.py`` is queued (ROADMAP A4).
+    ``cfg.local_matmul`` is the static policy: ``"pallas"`` takes the
+    hand-written tiled kernel, whose product is cast to the operand dtype
+    before it is added (the reference's ``kernels.ops.tiled_matmul``
+    semantics); ``"xla"`` runs ``torch.matmul`` in ``accum_dtype``.  When
+    the autotune cache holds a measured ``pallas`` or ``xla`` winner for
+    this panel shape's bucket, that route overrides the policy.  The
+    consult is a lookup only, so a cold or disabled cache launches exactly
+    what the policy launches; a cache measured on another kind of device
+    is refused (``KernelAutotuner.lookup``).
     """
-    if cfg.local_matmul == "pallas":
+    route = "pallas" if cfg.local_matmul == "pallas" else "xla"
+    entry = autotune_cache().lookup(
+        a_panel.shape[0], a_panel.shape[1], b_panel.shape[1],
+        dtype=a_panel.dtype, device=a_panel.device,
+    )
+    if entry is not None and entry["winner"] in ("pallas", "xla"):
+        route = entry["winner"]
+    if route == "pallas":
         from repro_torch.kernels import ops as kops
 
-        return accum.add_(
-            kops.tiled_matmul(a_panel, b_panel, accum_dtype=cfg.accum_dtype)
-        )
+        return accum.add_(kops.tiled_matmul(
+            a_panel, b_panel, accum_dtype=cfg.accum_dtype
+        ))
     return accum.addmm_(a_panel.to(cfg.accum_dtype), b_panel.to(cfg.accum_dtype))
 
 
@@ -359,6 +386,49 @@ def _exec_sparse_dag(a_loc, b_loc, plan):
     for a_bc, b_bc in zip(*_bcast_live_panels(a_loc, b_loc, plan)):
         _local_dot(a_bc, b_bc, c, cfg)
     return c
+
+
+def _exec_stationary(a_loc, b_loc, plan):
+    """A-/B-stationary schedule (``plan.stationarity`` "A" or "B").
+
+    The stationary operand keeps its (row, col) tile; the other is re-laid
+    out with K over the opposite grid axis — the reference's in_specs
+    ``P(col_axis, None)`` for B under "A", ``P(None, row_axis)`` for A
+    under "B" — and one local product of the two gives this rank's partial
+    C, which a reduce-scatter along that axis sums into C's tile.  No K
+    pipeline: masked blocks were zeroed by the caller, so structure
+    prunes only at the value level, as in the reference.
+
+    The re-layout is an all-gather of the moving operand along both grid
+    axes and a slice of this rank's K shard: every rank receives the whole
+    moving operand (``(p_row·p_col − 1)`` tiles of it), where the
+    reference's re-layout delivers only its K shard.  The task graph
+    (``sched.taskgraph._emit_stationary``) prices the reference's
+    re-layout.  On the 1x1 grid both collectives are the identity.
+    """
+    cfg = plan.cfg
+    grid = cfg.grid
+    if plan.stationarity == "A":
+        b_all = grid.all_gather(
+            grid.all_gather(b_loc, cfg.row_axis, dim=0), cfg.col_axis, dim=1
+        )
+        w = plan.k_pad // cfg.p_col
+        j = grid.axis_index(cfg.col_axis)
+        b_rel = b_all[j * w:(j + 1) * w]
+        part = torch.zeros((a_loc.shape[0], b_rel.shape[1]),
+                           dtype=cfg.accum_dtype, device=a_loc.device)
+        _local_dot(a_loc, b_rel, part, cfg)
+        return grid.reduce_scatter(part, cfg.col_axis, dim=1)
+    a_all = grid.all_gather(
+        grid.all_gather(a_loc, cfg.col_axis, dim=1), cfg.row_axis, dim=0
+    )
+    w = plan.k_pad // cfg.p_row
+    i = grid.axis_index(cfg.row_axis)
+    a_rel = a_all[:, i * w:(i + 1) * w]
+    part = torch.zeros((a_rel.shape[0], b_loc.shape[1]),
+                       dtype=cfg.accum_dtype, device=b_loc.device)
+    _local_dot(a_rel, b_loc, part, cfg)
+    return grid.reduce_scatter(part, cfg.row_axis, dim=0)
 
 
 def _exec_sparse_bsmm(a_loc, b_loc, cols_loc, plan):
@@ -695,22 +765,15 @@ def execute_plan(
 
     ``a_loc``/``b_loc`` are this rank's tiles of the operands padded to
     ``plan.padded_shapes`` (``core.api.DistributedMatmul`` cuts them); the
-    result is this rank's ``(m_pad/p_row, n_pad/p_col)`` tile of C.  Runs
+    result is this rank's ``(m_pad/p_row, n_pad/p_col)`` tile of C.  The
+    plan's grid must be the world's (``Grid.check_world``): a plan over a
+    planning-only grid (``sched.abstract_summa_config``) is refused.  Runs
     eagerly: the reference's digest-keyed executable cache is queued
     (ROADMAP A3).
     """
     cfg = plan.cfg
     _check_plan_operands(a_loc, b_loc, plan)
-    if plan.stationarity != "C":
-        raise NotImplementedError(
-            f"stationarity={plan.stationarity!r}: A-/B-stationary execution "
-            "is not ported yet (ROADMAP A7)"
-        )
-    if plan.comm_mode != "broadcast":
-        raise NotImplementedError(
-            f"comm_mode={plan.comm_mode!r}: the one-sided pull route is not "
-            "ported yet (ROADMAP A7)"
-        )
+    cfg.grid.check_world()
     out_dtype = out_dtype or a_loc.dtype
     row, col = cfg.grid.axis_index(cfg.row_axis), cfg.grid.axis_index(
         cfg.col_axis
@@ -727,12 +790,14 @@ def execute_plan(
             b_loc, plan.b_mask, _block_of(plan.b_mask, plan.k_pad, plan.n_pad),
             origin=(row * b_loc.shape[0], col * n_loc),
         )
-    if plan.local_impl == "bsmm":
+    if plan.stationarity != "C":
+        c = _exec_stationary(a_loc, b_loc, plan)
+    elif plan.local_impl == "bsmm":
         c = _exec_sparse_bsmm(a_loc, b_loc, plan.local_cols[row, col], plan)
     elif plan.local_impl in ("masked", "ranksparse"):
         # Rank plans given dense-stored operands run the masked DAG, as in
         # the reference: without factors there is nothing rank-sized to
-        # multiply.
+        # multiply.  Pull plans run it too (module docstring).
         c = _exec_sparse_dag(a_loc, b_loc, plan)
     else:
         c = _EXEC_IMPLS[cfg.strategy](a_loc, b_loc, plan)
@@ -811,6 +876,7 @@ def execute_rank_plan(
     """
     cfg = plan.cfg
     r_pad = _check_rank_operands(u_loc, v_loc, b_loc, plan)
+    cfg.grid.check_world()
     out_dtype = out_dtype or b_loc.dtype
     row = cfg.grid.axis_index(cfg.row_axis)
     col = cfg.grid.axis_index(cfg.col_axis)

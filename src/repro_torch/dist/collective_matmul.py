@@ -14,8 +14,12 @@ It routes by ``ctx.matmul_strategy``:
   over the TP axis instead when tp > 1 and no mask is given
   (``allgather_matmul``); that ring is not ported (ROADMAP A8) and
   raises.
-* ``"auto"`` — the schedule tuner's per-shape pick, not ported (ROADMAP
-  A1): raises.
+* ``"auto"`` — per-shape pick by *simulated time*: the schedule tuner
+  (``sched.tuner``) searches lookahead x k_blocks x strategy over the
+  discrete-event simulator and the engine executes the winner.  Where
+  the ring is eligible (tp > 1) and its pipeline estimate
+  (``ring_makespan``) beats the tuned makespan, the reference runs the
+  ring; here that raises (ROADMAP A8).
 
 ``project`` also accepts an optional block mask over the weight
 (``w_mask``, or one registered in ``ctx.weight_block_masks``): the
@@ -69,22 +73,39 @@ def project(
         if w_mask is not None:
             w = _mask_weight(w, w_mask)
         return matmul_f32(x, w).to(x.dtype)
-    strategy = ctx.matmul_strategy
-    if strategy == "auto":
-        raise NotImplementedError(
-            "matmul_strategy='auto' needs the schedule tuner (repro.sched), "
-            "which is not ported yet (ROADMAP A1)"
-        )
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    if strategy == "allgather" and w_mask is None and _ring_eligible(
-        ctx, x2, w
-    ):
+    strategy = ctx.matmul_strategy
+    ring_ok = _ring_eligible(ctx, x2, w)
+    tune = False
+    if strategy == "auto":
+        if w_mask is not None:
+            # Masked plans always execute the planned broadcast schedule
+            # (DAG or BSMM); the tuner still picks the lookahead window.
+            strategy = "summa"
+            tune = True
+        else:
+            # One cached tuned plan per shape: the simulator-searched
+            # schedule, vs. the ring's pipeline estimate where the ring
+            # is eligible.
+            from repro_torch.sched.tuner import ring_makespan
+
+            plan = ctx.matmul().plan(
+                x2.shape[0], x2.shape[1], w.shape[1],
+                itemsize=x2.element_size(), tune=True,
+            )
+            if ring_ok and ring_makespan(plan) < plan.tuned["makespan_s"]:
+                strategy = "ring"
+            else:
+                strategy = "summa"
+                tune = True
+    if strategy in ("allgather", "ring") and ring_ok and w_mask is None:
         raise NotImplementedError(
             "the tp > 1 ring collective matmul (allgather_matmul) is not "
             "ported yet (ROADMAP A8)"
         )
+    summa_strategy = None if strategy == "summa" else strategy
     out = ctx.matmul()(
-        x2, w, b_mask=w_mask, strategy=None if strategy == "summa" else strategy
+        x2, w, b_mask=w_mask, strategy=summa_strategy, tune=tune
     )
     return out.reshape(*lead, w.shape[-1])

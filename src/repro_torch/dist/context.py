@@ -35,7 +35,7 @@ _MATMUL_STRATEGIES = {
     "xla": None,  # plain torch.matmul (the reference's einsum)
     "summa": "taskbased",  # paper Eq. (1) multiple-issue SUMMA
     "allgather": "allgather",  # I = K endpoint of Eq. (1)
-    # per-shape pick by the schedule tuner (not ported: ROADMAP A1)
+    # per-shape pick by the schedule tuner (repro_torch.sched.tuner)
     "auto": "taskbased",
 }
 
@@ -158,9 +158,12 @@ class ParallelCtx:
     ):
         """Pre-build (and cache) the plan for an (m, d_in)x(d_in, d_out)
         projection, so the first forward finds it in the engine's plan
-        cache.  No-op (``None``) on the xla path.  ``tune=True`` needs the
-        schedule tuner and raises (ROADMAP A1), as does a stationarity
-        other than ``"C"`` at execution (A7).
+        cache.  No-op (``None``) on the xla path.  ``tune=True``
+        additionally runs the schedule tuner (what the ``"auto"`` strategy
+        executes).  ``stationarity`` forwards to the planner (``"auto"``
+        lets the comm-volume model pick the A-/B-/C-stationary schedule).
+        ``strategy`` / ``lookahead`` / ``comm_mode`` / ``k_blocks`` pin a
+        previously tuned schedule explicitly.
         """
         if (
             not self.has_grid

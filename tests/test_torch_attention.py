@@ -413,16 +413,45 @@ def test_context_matches_reference_fields_and_validation():
 
 
 def test_unported_projection_routes_raise():
-    x, w = torch.ones((4, 64)), torch.ones((64, 96))
-    with pytest.raises(NotImplementedError, match="A1"):
-        project(x, w, ParallelCtx(Grid.local("cpu"), matmul_strategy="auto"))
+    """The ring (A8) still raises: under "allgather", and under "auto"
+    where its pipeline estimate beats the tuned schedule, as the
+    reference's tuner also finds.  "auto" (A1), which raised here until
+    the tuner was ported, now equals the reference's projection, masked
+    or not, and ``plan_projection(tune=True)`` the reference's tuned
+    plan."""
+    from repro.core.plan import plan_matmul as ref_plan_matmul
+    from repro.sched import abstract_summa_config, ring_makespan, tune_plan
+
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((4, 64), dtype=np.float32)
+    w = rng.standard_normal((64, 96), dtype=np.float32)
+    w_mask = np.eye(4, 6, dtype=bool) | np.eye(4, 6, 1, dtype=bool)
+    auto = ParallelCtx(Grid.local("cpu"), matmul_strategy="auto")
+    ref_auto = RefCtx(make_host_mesh(1, 1), matmul_strategy="auto")
+    for kw in ({}, dict(w_mask=w_mask)):
+        got = project(torch.from_numpy(x), torch.from_numpy(w), auto, **kw)
+        want = ref_project(jnp.asarray(x), jnp.asarray(w), ref_auto, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=ORACLE_ATOL, rtol=ORACLE_RTOL)
+    tuned = [p for p in auto.matmul()._plan_cache.values()]
+    assert len(tuned) == 2 and all(p.tuned is not None for p in tuned)
     ring = ParallelCtx(Grid(sizes=(1, 2), device=torch.device("cpu")),
                        matmul_strategy="allgather")
     with pytest.raises(NotImplementedError, match="A8"):
-        project(x, w, ring)
-    with pytest.raises(NotImplementedError, match="A1"):
-        ParallelCtx(Grid.local("cpu"), matmul_strategy="summa"
-                    ).plan_projection(8, 64, 96, tune=True)
+        project(torch.from_numpy(x), torch.from_numpy(w), ring)
+    ring_auto = ParallelCtx(Grid(sizes=(1, 2), device=torch.device("cpu")),
+                            matmul_strategy="auto")
+    xr, wr = torch.ones((16, 64)), torch.ones((64, 4096))
+    with pytest.raises(NotImplementedError, match="A8"):
+        project(xr, wr, ring_auto)
+    ref_plan = tune_plan(ref_plan_matmul(
+        16, 64, 4096, abstract_summa_config(1, 2, strategy="taskbased")))
+    assert ring_makespan(ref_plan) < ref_plan.tuned["makespan_s"]
+    plan = ParallelCtx(Grid.local("cpu"), matmul_strategy="summa"
+                       ).plan_projection(8, 64, 96, tune=True)
+    ref_plan = RefCtx(make_host_mesh(1, 1), matmul_strategy="summa"
+                      ).plan_projection(8, 64, 96, tune=True)
+    assert plan.tuned == ref_plan.tuned and plan.tuned is not None
 
 
 # ---------------------------------------------------------------------------

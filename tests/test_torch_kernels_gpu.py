@@ -587,3 +587,61 @@ def test_lm_forward_through_the_kernel_on_the_card(cuda):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-3, atol=1e-3 * scale)
+
+
+#: the nonuniform product's padded extents at tile 256 (N = 32768, seeds
+#: 0/1/2): rows, inner, cols
+NONUNIFORM_EXTENTS = (47872, 47360, 47616)
+
+
+@pytest.mark.parametrize("pair", DTYPE_PAIRS, ids="-".join)
+@pytest.mark.parametrize("k", [256, 47360])
+def test_tiled_matmul_split_kernel_nonuniform_panel(cuda, k, pair):
+    """The nonuniform product's shapes, M cut to three 128-row pairs: a
+    256-wide K-panel of A read as a column slice with row stride 47360
+    (≠ K) against the full 47616 columns of B, and the whole K = 47360 of
+    the one product a tuned all-gather schedule issues."""
+    m = 384
+    _, inner, cols = NONUNIFORM_EXTENTS
+    a = _rand((m, inner), pair[0], 19, cuda)[:, inner - k:]
+    assert a.stride(0) == inner
+    b = _rand((k, cols if k == 256 else 300), pair[0], 20, cuda)
+    out = DTYPES[pair[1]]
+    got = tiled_matmul_cuda(a, b, out)
+    _close(got, tiled_matmul_plain(a, b, out), _pair_name(pair), k)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_bsmm_split_kernel_nonuniform_extents(cuda, name):
+    """``bsmm`` over the nonuniform inner extent, 185 block columns of 256
+    at fill 0.3, M cut to three 128-row blocks and N to 520."""
+    m, inner, n = 384, NONUNIFORM_EXTENTS[1], 520
+    mask = random_block_mask(m // 128, inner // 256, 0.3, seed=4)
+    a = _rand((m, inner), name, 21, cuda)
+    b = _rand((inner, n), name, 22, cuda)
+    cols = _map(mask, cuda)
+    before = bsmm_cuda.launches
+    got = bsmm_cuda(a, b, cols, bm=128, bk=256, bn=n)
+    assert bsmm_cuda.launches == before + 1
+    _close(got, bsmm_plain(a, b, cols, bm=128, bk=256, bn=n), name,
+           int(mask.sum(axis=1).max()) * 256)
+
+
+def test_autotuner_times_each_kernel_on_the_card(cuda):
+    """``KernelAutotuner.tune`` on the 128 bucket launches every route's
+    kernel and records a winner among the routes it timed, measured on
+    this card's kind; the CPU refuses the table."""
+    from repro_torch.kernels.autotune import KernelAutotuner
+
+    counters = (tiled_matmul_cuda, bsmm_cuda, grouped_gemm_cuda)
+    before = [fn.launches for fn in counters]
+    tuner = KernelAutotuner()
+    entry = tuner.tune(128, 128, 128, repeats=2, device=cuda)
+    assert all(fn.launches > n for fn, n in zip(counters, before))
+    assert set(entry["times_s"]) == {"xla", "pallas", "bsmm", "grouped"}
+    assert entry["winner"] in entry["times_s"]
+    assert entry["tiles"] == [128, 128, 128]
+    assert tuner.device_kind == torch.cuda.get_device_name(cuda)
+    assert tuner.winner(100, 120, 128, device=cuda) == entry["winner"]
+    with pytest.raises(ValueError, match="not on cpu"):
+        tuner.lookup(100, 120, 128, device="cpu")

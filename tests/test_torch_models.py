@@ -325,16 +325,25 @@ def test_unported_architectures_raise(arch, item):
             LM(cfg, device="cpu")
 
 
-def test_unported_strategy_raises_in_the_forward():
-    cfg = registry.get_config("llama3.2-1b", smoke=True)
-    model = init_model(cfg, generator=torch.Generator().manual_seed(0),
-                       device="cpu")
-    tokens = {"tokens": torch.zeros((1, 8), dtype=torch.int64)}
+def test_unported_strategy_raises_in_the_forward(cases):
+    """``matmul_strategy="auto"`` (A1), which raised here until the tuner
+    was ported, now gives the reference's forward on the 1x1 grid; a
+    forward without tokens still raises."""
+    from repro.launch.mesh import make_host_mesh
+
+    c = _case(cases, "llama3.2-1b", "float32")
     ctx = ParallelCtx(Grid.local("cpu"), matmul_strategy="auto")
-    with pytest.raises(NotImplementedError, match="A1"):
-        forward(model, tokens, cfg, ctx)
+    logits, _ = forward(c["model"], {"tokens": torch.from_numpy(c["tokens"])},
+                        c["cfg"], ctx)
+    ref_ctx = RefCtx(make_host_mesh(1, 1), matmul_strategy="auto")
+    want, _ = _reference(lambda params, tokens: ref_model.forward(
+        params, {"tokens": tokens}, c["rcfg"], ref_ctx),
+        (c["params"], jnp.asarray(c["tokens"])), "float32")
+    _hold(logits.numpy(), want, "float32")
+    plans = list(ctx.matmul()._plan_cache.values())
+    assert plans and all(p.tuned is not None for p in plans)
     with pytest.raises(ValueError, match="tokens"):
-        forward(model, {}, cfg, ParallelCtx(None))
+        forward(c["model"], {}, c["cfg"], ParallelCtx(None))
 
 
 def test_model_defaults_to_the_card():

@@ -330,7 +330,7 @@ def test_pull_equals_broadcast_bitwise_1x1():
 
 
 def test_rank_call_errors_and_densify_fallback():
-    port, _ = _rank_pair(4, 4, 8, 8, max_rank=4, decay=0.8, seed=1)
+    port, ref_rcsr = _rank_pair(4, 4, 8, 8, max_rank=4, decay=0.8, seed=1)
     b = np.ones((32, 16), np.float32)
     mm = DistributedMatmul(Grid.local("cpu"))
     with pytest.raises(ValueError, match="a=None"):
@@ -341,11 +341,15 @@ def test_rank_call_errors_and_densify_fallback():
         mm(None, b, a_ranks=port, a_mask=np.ones((4, 4), bool))
     with pytest.raises(ValueError, match="contraction"):
         mm(None, np.ones((24, 16), np.float32), a_ranks=port)
-    # A-stationary plans cannot carry factors: densified, masked DAG
+    # B-stationary plans cannot carry factors: densified and run on the
+    # stationary route (ROADMAP A7), as the reference does
     plan = mm.plan(32, 32, 16, a_ranks=port, stationarity="B")
     assert plan.local_impl == "masked"
-    with pytest.raises(NotImplementedError, match="A7"):
-        mm(None, b, a_ranks=port, stationarity="B")
+    want = RefDistributedMatmul(make_host_mesh(1, 1))(
+        None, jnp.asarray(b), a_ranks=ref_rcsr, stationarity="B")
+    np.testing.assert_allclose(
+        mm(None, b, a_ranks=port, stationarity="B").numpy(),
+        np.asarray(want), atol=ORACLE_ATOL, rtol=ORACLE_RTOL)
     with pytest.raises(ValueError, match="not a rank-sparse plan"):
         sm.execute_rank_plan(torch.ones(32, 16), torch.ones(16, 32),
                              torch.ones(32, 16), plan)

@@ -5,6 +5,7 @@ processes against the float64 oracle.
 The operands come from ``conftest.oracle_case`` (numpy, seeded) and go
 to both packages; both sides are held to ``ORACLE_ATOL``/``ORACLE_RTOL``.
 """
+import json
 import os
 import subprocess
 import sys
@@ -26,6 +27,8 @@ from repro_torch.core.summa import (
     reference_blocksparse_matmul,
     reference_matmul,
 )
+
+from test_torch_plan import assert_plans_equal  # noqa: E402
 
 FAMILIES = ("dense", "random", "banded", "decay", "one_sided")
 STRATEGIES = ("procedural", "taskbased", "allgather")
@@ -150,21 +153,85 @@ def test_reference_oracles_and_block_mask():
 
 
 def test_unported_routes_raise():
+    """``contract`` still raises A6.  The tuner (A1) and the pull and
+    stationary routes (A7), which raised here until they were ported, now
+    give the reference's products."""
     mm = DistributedMatmul(Grid.local("cpu"))
-    a = np.ones((16, 16), np.float32)
+    ref = RefDistributedMatmul(make_host_mesh(1, 1))
+    a = np.random.default_rng(4).normal(size=(16, 16)).astype(np.float32)
     mask = np.eye(2, dtype=bool)
-    with pytest.raises(NotImplementedError, match="A1"):
-        mm(a, a, tune=True)
-    with pytest.raises(NotImplementedError, match="A7"):
-        mm(a, a, a_mask=mask, b_mask=mask, comm_mode="pull")
-    with pytest.raises(NotImplementedError, match="A7"):
-        mm(a, a, a_mask=mask, b_mask=mask, stationarity="A")
+    for kw in (dict(tune=True),
+               dict(a_mask=mask, b_mask=mask, comm_mode="pull"),
+               dict(a_mask=mask, b_mask=mask, stationarity="A"),
+               dict(stationarity="B")):
+        np.testing.assert_allclose(
+            mm(a, a, **kw).numpy(), np.asarray(ref(jnp.asarray(a),
+                                                   jnp.asarray(a), **kw)),
+            atol=ORACLE_ATOL, rtol=ORACLE_RTOL, err_msg=str(kw))
     with pytest.raises(NotImplementedError, match="A6"):
         mm.contract("ab,bc->ac", a, a)
     # a dense-stored rank map plans rank-aware and runs the masked DAG
-    got = mm(a, a, a_ranks=BlockRankMap(
+    ones = np.ones((16, 16), np.float32)
+    got = mm(ones, ones, a_ranks=BlockRankMap(
         ranks=np.eye(2, dtype=np.int32) * 3, bm=8, bk=8))
-    np.testing.assert_allclose(got.numpy(), (a * np.kron(np.eye(2), np.ones((8, 8)))) @ a)
+    np.testing.assert_allclose(
+        got.numpy(), (ones * np.kron(np.eye(2), np.ones((8, 8)))) @ ones)
+
+
+@pytest.mark.parametrize("mode", ["pull", "A", "B"])
+@pytest.mark.parametrize("local_matmul", ["xla", "pallas"])
+@pytest.mark.parametrize("family", ["random", "banded"])
+def test_pull_and_stationary_match_reference_1x1(family, local_matmul, mode):
+    """The one-sided pull route and the A-/B-stationary schedules against
+    the reference's, and pull against the broadcast masked DAG bitwise
+    (one card reads the same panels in the same order), as the reference
+    pins it."""
+    case = oracle_case(family, seed=5)
+    masks = dict(a_mask=case["a_mask"], b_mask=case["b_mask"])
+    kw = dict(comm_mode="pull") if mode == "pull" else dict(stationarity=mode)
+    mm = DistributedMatmul(Grid.local("cpu"), local_matmul=local_matmul)
+    ref = RefDistributedMatmul(make_host_mesh(1, 1),
+                               local_matmul=local_matmul)
+    plan = mm.plan(*case["shape"], **masks, **kw)
+    assert (plan.comm_mode, plan.stationarity) == (
+        kw.get("comm_mode", "broadcast"), kw.get("stationarity", "C"))
+    got = mm(case["a"], case["b"], **masks, **kw)
+    want = np.asarray(ref(jnp.asarray(case["a"]), jnp.asarray(case["b"]),
+                          **masks, **kw))
+    np.testing.assert_allclose(got.numpy(), want, atol=ORACLE_ATOL,
+                               rtol=ORACLE_RTOL)
+    np.testing.assert_allclose(got.numpy(), case["ref"], atol=ORACLE_ATOL,
+                               rtol=ORACLE_RTOL)
+    if mode == "pull" and mm.plan(*case["shape"], **masks).local_impl == (
+            "masked"):  # the bsmm route is a different algorithm
+        assert torch.equal(got, mm(case["a"], case["b"], **masks))
+
+
+@pytest.mark.parametrize("local_matmul", ["xla", "pallas"])
+@pytest.mark.parametrize("family", ["dense", "random"])
+def test_tuned_product_matches_reference_1x1(family, local_matmul):
+    """``tune=True``: the tuned plan equals the reference's (its ``tuned``
+    record included), tuned and untuned plans are cached apart, and the
+    product equals the reference's tuned product."""
+    case = oracle_case(family, seed=6)
+    masks = dict(a_mask=case["a_mask"], b_mask=case["b_mask"])
+    mm = DistributedMatmul(Grid.local("cpu"), k_blocks=8,
+                           local_matmul=local_matmul)
+    ref = RefDistributedMatmul(make_host_mesh(1, 1), k_blocks=8,
+                               local_matmul=local_matmul)
+    plan = mm.plan(*case["shape"], **masks, tune=True)
+    ref_plan = ref.plan(*case["shape"], **masks, tune=True)
+    assert plan.tuned == ref_plan.tuned and plan.tuned is not None
+    assert_plans_equal(plan, ref_plan)
+    assert mm.plan(*case["shape"], **masks).tuned is None
+    assert mm.cache_stats()["plan"]["size"] == 2
+    got = mm(case["a"], case["b"], **masks, tune=True)
+    want = np.asarray(ref(jnp.asarray(case["a"]), jnp.asarray(case["b"]),
+                          **masks, tune=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=ORACLE_ATOL,
+                               rtol=ORACLE_RTOL)
+    np.testing.assert_allclose(got.numpy(), case["ref"], atol=ORACLE_ATOL,
+                               rtol=ORACLE_RTOL)
 
 
 def test_grid_geometry_and_local_collectives():
@@ -211,13 +278,15 @@ def test_grid_without_device_never_computes_on_the_cpu():
 # ---------------------------------------------------------------------------
 
 _RANK_PROGRAM = r"""
+import json
 import sys
 import numpy as np
 import torch
 import torch.distributed as dist
 from repro_torch.core import DistributedMatmul, Grid
 
-rank, rdv, data = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+rank, rdv, data, spec = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                         sys.argv[4])
 dist.init_process_group("gloo", init_method="file://" + rdv, rank=rank,
                         world_size=4)
 grid = Grid.from_process_group(2, 2, device="cpu")
@@ -225,36 +294,63 @@ case = np.load(data)
 masks = {name: case[name] for name in ("a_mask", "b_mask")
          if name in case.files}
 out = {}
-for route, strategy in (("xla", "taskbased"), ("pallas", "taskbased"),
-                        ("xla", "procedural"), ("xla", "allgather")):
-    mm = DistributedMatmul(grid, strategy=strategy, k_blocks=8,
-                           local_matmul=route)
-    plan = mm.plan(64, 128, 96, **masks)
-    c = mm(case["a"], case["b"], **masks)
-    out[f"{route}-{strategy}"] = c.numpy()
-    out[f"{route}-{strategy}-impl"] = np.array(plan.local_impl)
+for name, mm_kw, call_kw, masked in json.loads(spec):
+    mm = DistributedMatmul(grid, k_blocks=8, **mm_kw)
+    kw = dict(call_kw, **(masks if masked else {}))
+    plan = mm.plan(64, 128, 96, **kw)
+    c = mm(case["a"], case["b"], **kw)
+    out[name] = c.numpy()
+    out[name + "-impl"] = np.array(plan.local_impl)
+    out[name + "-route"] = np.array(
+        [plan.cfg.strategy, plan.comm_mode, plan.stationarity,
+         str(plan.tuned is not None)])
 if rank == 0:
     np.savez(data.replace("case", "out"), **out)
 dist.destroy_process_group()
 """
 
+_ENGINE = [("xla", "taskbased"), ("pallas", "taskbased"),
+           ("xla", "procedural"), ("xla", "allgather")]
 
-@pytest.mark.parametrize("family", ["dense", "banded"])
+
+def _runs(family):
+    """(name, DistributedMatmul kwargs, call kwargs, masked) of a family."""
+    if family in ("dense", "banded"):
+        return [(f"{route}-{strategy}",
+                 dict(strategy=strategy, local_matmul=route), {}, True)
+                for route, strategy in _ENGINE]
+    call = {"pull": dict(comm_mode="pull"),
+            "stationary_A": dict(stationarity="A"),
+            "stationary_B": dict(stationarity="B"),
+            "tuned": dict(tune=True)}[family]
+    runs = [(f"{route}-{family}-masked", dict(local_matmul=route), call, True)
+            for route in ("xla", "pallas")]
+    if family != "pull":  # pull needs block structure
+        runs += [(f"{route}-{family}-dense", dict(local_matmul=route), call,
+                  False) for route in ("xla", "pallas")]
+    return runs
+
+
+@pytest.mark.parametrize("family", ["dense", "banded", "pull", "stationary_A",
+                                    "stationary_B", "tuned"])
 def test_2x2_gloo_grid_matches_oracle(tmp_path, family):
     """Four gloo processes form the 2x2 grid: panel broadcasts along grid
     rows and columns, the all-gather strategy, and the per-rank BSMM maps
-    (banded masks give each rank its own CSR map)."""
-    case = oracle_case(family, seed=7)
+    (banded masks give each rank its own CSR map); the one-sided pull
+    route, the A-/B-stationary schedules (their re-layout and
+    reduce-scatter) and tuned plans, on banded masks and unmasked."""
+    case = oracle_case("dense" if family == "dense" else "banded", seed=7)
     data = tmp_path / "case.npz"
     masks = {} if case["a_mask"] is None else dict(
         a_mask=case["a_mask"], b_mask=case["b_mask"])
     np.savez(data, a=case["a"], b=case["b"], **masks)
+    runs = _runs(family)
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = [
         subprocess.Popen(
             [sys.executable, "-c", _RANK_PROGRAM, str(rank),
-             str(tmp_path / "rdv"), str(data)],
+             str(tmp_path / "rdv"), str(data), json.dumps(runs)],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True,
         )
@@ -269,9 +365,16 @@ def test_2x2_gloo_grid_matches_oracle(tmp_path, family):
             p.kill()
     assert all(p.returncode == 0 for p in procs), "\n".join(logs)[-4000:]
     out = np.load(tmp_path / "out.npz")
-    for key in ("xla-taskbased", "pallas-taskbased", "xla-procedural",
-                "xla-allgather"):
-        np.testing.assert_allclose(out[key], case["ref"], atol=ORACLE_ATOL,
-                                   rtol=ORACLE_RTOL, err_msg=key)
-    want_impl = "dense" if family == "dense" else "bsmm"
-    assert str(out["pallas-taskbased-impl"]) == want_impl
+    dense_ref = case["a"].astype(np.float64) @ case["b"].astype(np.float64)
+    for name, _, call_kw, masked in runs:
+        np.testing.assert_allclose(
+            out[name], case["ref"] if masked else dense_ref,
+            atol=ORACLE_ATOL, rtol=ORACLE_RTOL, err_msg=name)
+        strategy, comm_mode, stationarity, tuned = out[name + "-route"]
+        assert comm_mode == call_kw.get("comm_mode", "broadcast"), name
+        assert tuned == str(bool(call_kw.get("tune"))), name
+        if "stationarity" in call_kw:
+            assert stationarity == call_kw["stationarity"], name
+    if family in ("dense", "banded"):
+        want_impl = "dense" if family == "dense" else "bsmm"
+        assert str(out["pallas-taskbased-impl"]) == want_impl
