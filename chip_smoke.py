@@ -8,7 +8,9 @@ Run from the repository root on a machine with a CUDA card and ``nvcc``::
 It runs the paper's SUMMA engine at the commodity-cluster size of
 ``configs/paper_mm.py`` (N = 32768, block 256) on the 1x1 grid of one
 card, through the entry points a user calls (``DistributedMatmul``, with
-and without the schedule tuner, and ``NonuniformMatmul``), then the LM
+and without the schedule tuner, and ``NonuniformMatmul``), the
+block-sparse tensor front-end (``DistributedMatmul.contract`` and
+``contract_chain``) on a coupled-cluster contraction, then the LM
 forward of llama3.2-1b at its full width and depth through
 ``models.model.forward``, and checks every hand-written kernel against
 its plain PyTorch version.  Phases, in the order they run — any failure
@@ -69,6 +71,23 @@ raises, so the script exits non-zero:
    of the compact operands, its walls, peak memory, padding and the cost
    of its gathers; then ``tile="auto"`` on the autotune cache at
    ``nonuniform_medium`` (N = 4096);
+
+   [contract] the tensor front-end, fp32: the coupled-cluster
+   particle-particle ladder ``R[ijcd] = sum_ab T[ijab] V[abcd]`` at
+   o = 64, v = 192, every mode in blocks of 16 (matricized (4096 x 36864)
+   . (36864 x 36864) in merged blocks of 256; V is 5.44 GB), T's block
+   fill 0.5 and V's 0.3: one ``bsmm`` launch, R against ``torch.matmul``
+   of T and V masked here, the inferred mask against the boolean block
+   product, a second call hitting its step program, ``compiled=False``
+   equal bitwise, the kernel at the ladder's call against its plain
+   version and alone, and the warm call's parts alone; the reference's
+   seven contraction-oracle families at their shapes (plus the rank
+   family in blocks of 32, where its factors stay factored), each kernel
+   their plans launch held against its plain version at the plan's
+   shapes, C against a float64 einsum at the oracle's hold and against
+   the eager route bitwise; a tuned ``contract_chain`` of (A.B).C at
+   N = 8192, blocks 256, decay masks: its report, the windows that ran,
+   C against ``torch.matmul`` of operands masked here;
 8. LM forward: llama3.2-1b at full size (16 layers, d_model 2048, 32/8
    heads, d_ff 8192, vocab 128256, bf16, tied embeddings), weights from
    ``init_model`` with a seeded generator, 4 prompts x 4096 tokens.  An
@@ -101,6 +120,7 @@ the rest of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -128,10 +148,26 @@ from repro_torch.configs.paper_mm import (  # noqa: E402
     make_rank_factors,
 )
 from repro_torch.core import NonuniformMatmul, plan_matmul  # noqa: E402
-from repro_torch.core.blocking import bucketize, nonuniform_tiling  # noqa: E402
+from repro_torch.core import summa as core_summa  # noqa: E402
+from repro_torch.core.blocking import (  # noqa: E402
+    bucketize,
+    nonuniform_tiling,
+    uniform_tiling,
+)
+from repro_torch.core.contract import (  # noqa: E402
+    BlockSparseTensor,
+    _step_geometry,
+    _unmatricize_step,
+    parse_contraction,
+)
 from repro_torch.core.sparsity import (  # noqa: E402
+    banded_block_mask,
     block_csr_from_mask,
+    decay_block_mask,
+    decay_rank_map,
     random_block_mask,
+    rank_panel_factored_comm,
+    synthesize_rank_csr,
 )
 from repro_torch.core.summa import (  # noqa: E402
     RANK_CHUNK_BYTES,
@@ -180,6 +216,19 @@ AUTOTUNE_PANEL = (4096, BLOCK, 4096)
 AUTOTUNE_N = 4096  # the dense product that consults the tuned cache
 #: [nonuniform]: 256-wide K panels of the padded inner extent 47360
 NONUNIFORM_K_BLOCKS = 185
+#: [contract]: the coupled-cluster particle-particle ladder
+#: R[ijcd] = sum_ab T[ijab] V[abcd] over o occupied and v virtual orbitals,
+#: every mode blocked by LADDER_BLOCK; T's and V's block fills and seeds
+LADDER_SPEC = "ijab,abcd->ijcd"
+LADDER_O, LADDER_V, LADDER_BLOCK = 64, 192, 16
+LADDER_FILLS, LADDER_SEEDS = (0.5, 0.3), (0, 1)
+#: [contract]: the reference's contraction-oracle families
+#: (tests/conftest.py::contract_case), their hold, and a chain
+#: (A.B).C at CHAIN_N in blocks of CHAIN_BLOCK under decay masks
+CONTRACT_FAMILIES = ("matmul", "free2", "multi_contracted", "transpose",
+                     "batch", "rank_sparse", "rank_sparse_32", "nonuniform")
+ORACLE_ATOL, ORACLE_RTOL = 5e-4, 1e-4
+CHAIN_N, CHAIN_BLOCK, CHAIN_DECAY = 8192, 256, 0.5
 #: [auto forward]: llama3.2-1b at full width, depth cut to 2 layers
 AUTO_LAYERS, AUTO_SEQ = 2, 4096
 #: the LM forward: full llama3.2-1b, train_4k's length and prefill_32k's
@@ -930,6 +979,429 @@ def phase_nonuniform(tuner) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [contract] the block-sparse tensor front-end
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def executed_plans():
+    """Records every plan ``core.summa.execute_plan`` runs meanwhile."""
+    seen, real = [], core_summa.execute_plan
+
+    def spy(a, b, plan, **kw):
+        seen.append(plan)
+        return real(a, b, plan, **kw)
+
+    core_summa.execute_plan = spy
+    try:
+        yield seen
+    finally:
+        core_summa.execute_plan = real
+
+
+def run_counted(fn, kernel):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; raises unless ``kernel`` launched.  Returns (out, wall, counts)."""
+    for k in COUNTERS.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: k.launches for name, k in COUNTERS.items()}
+    log(f"    launches {counts}; wall {wall:.4f} s")
+    if counts[kernel] == 0:
+        raise AssertionError(f"the path never launched {kernel}")
+    return out, wall, counts
+
+
+def expand_here(mask: np.ndarray, tilings, device) -> torch.Tensor:
+    """A block mask repeated over each block's elements, on ``device``: a
+    mapping of blocks to elements that shares no code with the port's."""
+    keep = torch.as_tensor(np.asarray(mask, bool), device=device)
+    for axis, t in enumerate(tilings):
+        keep = keep.repeat_interleave(
+            torch.as_tensor(t.sizes, device=device), dim=axis)
+    return keep
+
+
+def dense_here(t: BlockSparseTensor) -> np.ndarray:
+    """float64 numpy of ``t`` with its dead blocks zeroed (a factor payload
+    densified block by block from U and V), built here."""
+    if t.rank_csr is not None:
+        r = t.rank_csr
+        out = np.zeros(t.shape)
+        rows = np.repeat(np.arange(r.csr.m_blocks), np.diff(r.csr.row_ptr))
+        for s, (i, j) in enumerate(zip(rows, r.csr.col_idx)):
+            out[i * r.bm:(i + 1) * r.bm, j * r.bk:(j + 1) * r.bk] = (
+                r.u[s].astype(np.float64) @ r.v[s])
+        return out
+    data = t.data.double().cpu().numpy()
+    if t.mask is None:
+        return data
+    return data * expand_here(t.mask, t.tilings, "cpu").numpy()
+
+
+def hold_oracle(got: torch.Tensor, want: np.ndarray, what: str) -> float:
+    """The contraction oracle's hold: |got - want| <= ORACLE_ATOL +
+    ORACLE_RTOL |want| everywhere, values finite."""
+    g = got.double().cpu().numpy()
+    if g.shape != want.shape or not np.isfinite(g).all():
+        raise AssertionError(f"{what}: shape {g.shape} (want {want.shape}) "
+                             "or non-finite values")
+    err = np.abs(g - want)
+    worst = float((err / (ORACLE_ATOL + ORACLE_RTOL * np.abs(want))).max())
+    log(f"    {what}: max_abs_err={err.max():.4g} (atol={ORACLE_ATOL}, "
+        f"rtol={ORACLE_RTOL}; worst element {worst:.4g} of the hold) -> "
+        f"{'ok' if worst <= 1 else 'OUT OF TOLERANCE'}")
+    if worst > 1:
+        raise AssertionError(f"{what}: out of tolerance")
+    return float(err.max())
+
+
+def plan_kernel(plan, r_pad=None) -> str:
+    """The kernel ``execute_plan``/``execute_rank_plan`` launches for a
+    plan with ``local_matmul="pallas"`` on one card."""
+    if plan.local_impl == "bsmm":
+        return "bsmm"
+    if plan.local_impl == "ranksparse" and r_pad is not None:
+        bm = plan.m_pad // plan.a_ranks.shape[0]
+        if rank_panel_factored_comm(r_pad, bm, plan.kb_width):
+            return "grouped_gemm"
+    return "tiled_matmul"  # dense panels: dense, masked DAG, densified rank
+
+
+def hold_plan_kernel(plan, r_pad, what: str, gen) -> str:
+    """The kernel a plan launches, at the plan's shapes on the card, held
+    against its plain version (fp32); returns its name."""
+    kernel = plan_kernel(plan, r_pad)
+    if kernel == "bsmm":
+        a, b, cols, (bm, bk, bn) = _bsmm_operands(plan, torch.float32, gen)
+        got = bsmm_cuda(a, b, cols, bm=bm, bk=bk, bn=bn)
+        torch.cuda.synchronize()
+        compare(got, bsmm_plain(a, b, cols, bm=bm, bk=bk, bn=bn), a.shape[1],
+                torch.float32, f"{what}: bsmm ({plan.m_pad},{a.shape[1]})x"
+                f"({a.shape[1]},{plan.n_pad}) blocks ({bm},{bk}) "
+                f"S={cols.shape[1]} vs plain")
+    elif kernel == "grouped_gemm":
+        x, w, te = _grouped_operands(plan, r_pad, torch.float32, gen)
+        got = grouped_gemm_cuda(x, w, te, bt=r_pad)
+        torch.cuda.synchronize()
+        compare(got, grouped_gemm_plain(x, w, te, bt=r_pad), x.shape[1],
+                torch.float32, f"{what}: grouped_gemm T={x.shape[0]} "
+                f"D={x.shape[1]} F={w.shape[2]} E={w.shape[0]} bt={r_pad} "
+                "vs plain")
+    else:  # one K panel of A (a column slice) times one of B
+        a_full = randn((plan.m_pad, plan.k_pad), torch.float32, gen)
+        a = a_full[:, :plan.kb_width]
+        b = randn((plan.kb_width, plan.n_pad), torch.float32, gen)
+        got = tiled_matmul_cuda(a, b)
+        torch.cuda.synchronize()
+        compare(got, tiled_matmul_plain(a, b), plan.kb_width, torch.float32,
+                f"{what}: tiled_matmul ({plan.m_pad},{plan.kb_width}; "
+                f"lda={a.stride(0)})x({plan.kb_width},{plan.n_pad}) vs plain")
+    return kernel
+
+
+def ladder_operands(gen):
+    """T (o, o, v, v) and V (v, v, v, v) on the card, every mode in blocks
+    of LADDER_BLOCK, with random 4-D block masks (numpy, seeded)."""
+    o, v, blk = LADDER_O, LADDER_V, LADDER_BLOCK
+    out = []
+    for shape, fill, seed in zip(((o, o, v, v), (v, v, v, v)), LADDER_FILLS,
+                                 LADDER_SEEDS):
+        mask = np.random.default_rng(seed).random(
+            tuple(d // blk for d in shape)) < fill
+        out.append(BlockSparseTensor(
+            data=torch.randn(shape, generator=gen, device=DEVICE),
+            tilings=tuple(uniform_tiling(d, blk) for d in shape), mask=mask))
+    return out
+
+
+def phase_contract_ladder() -> dict:
+    """[contract] The particle-particle ladder through
+    ``DistributedMatmul.contract``: one ``bsmm`` on the 1x1 grid."""
+    o, v, blk = LADDER_O, LADDER_V, LADDER_BLOCK
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    x, y = ladder_operands(gen)
+    spec = parse_contraction(LADDER_SPEC)
+    t0 = time.perf_counter()
+    geom = _step_geometry(spec, x, y, 64)
+    geom_s = time.perf_counter() - t0
+    m, k = geom.x_geom.row_tiling.extent, geom.x_geom.col_tiling.extent
+    n = geom.y_geom.col_tiling.extent
+    log(f"[contract] ladder {LADDER_SPEC}: o={o}, v={v}, blocks {blk}; T "
+        f"{tuple(x.shape)} block fill {x.block_mask.mean():.4f}, V "
+        f"{tuple(y.shape)} ({y.data.numel() * 4 / 1e9:.2f} GB fp32) block "
+        f"fill {y.block_mask.mean():.4f}; matricized ({m}x{k})x({k}x{n}) in "
+        f"merged blocks of {geom.x_geom.row_tiling.sizes[0]}, dense FLOP "
+        f"{2.0 * m * k * n:.4g}; geometry (uncached) on the host "
+        f"{geom_s:.4f} s")
+    mm = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                           local_matmul="pallas")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    log("  cold call:")
+    r, cold, counts = run_counted(lambda: mm.contract(LADDER_SPEC, x, y),
+                                  "bsmm")
+    peak = torch.cuda.max_memory_allocated()
+    (plan,) = mm._plan_cache.values()
+    log(f"    plan: local_impl {plan.local_impl}, local_block "
+        f"{plan.local_block}, live panels {len(plan.live_panels)}/"
+        f"{plan.k_steps}, fill_in {plan.cost.fill_in:.4f}, useful FLOP "
+        f"{plan.cost.flops_sparse:.4g}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB resident)")
+    if (plan.local_impl != "bsmm" or counts["bsmm"] != 1
+            or counts["tiled_matmul"] or counts["grouped_gemm"]):
+        raise AssertionError(f"expected one bsmm launch, got {counts}")
+    if tuple(r.data.shape) != (o, o, v, v) or r.data.dtype != torch.float32:
+        raise AssertionError(f"R is {tuple(r.data.shape)} {r.data.dtype}")
+    product = (x.mask.reshape(o * o // blk ** 2, -1).astype(np.int64)
+               @ y.mask.reshape(v * v // blk ** 2, -1).astype(np.int64)) > 0
+    if r.mask is None or not np.array_equal(r.mask,
+                                            product.reshape(r.mask.shape)):
+        raise AssertionError("the inferred mask of R is not the boolean "
+                             "block product of T's and V's masks")
+    log(f"    inferred mask of R = the boolean block product (fill "
+        f"{r.mask.mean():.4f}) -> ok")
+    log("  warm call:")
+    r2, warm, _ = run_counted(lambda: mm.contract(LADDER_SPEC, x, y), "bsmm")
+    stats = mm.cache_stats()
+    c = stats["contract"]
+    log(f"    cache_stats: {stats}")
+    if c["step_hits"] != 1 or c["step_retraces"] != c["step_misses"]:
+        raise AssertionError(f"a second call must hit its step program: {c}")
+    del r2
+    log("  compiled=False:")
+    eager = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                              local_matmul="pallas", compiled=False)
+    r_e, eager_wall, _ = run_counted(
+        lambda: eager.contract(LADDER_SPEC, x, y), "bsmm")
+    if not torch.equal(r_e.data, r.data):
+        raise AssertionError("compiled and eager ladders differ")
+    log("    eager R == compiled R bitwise -> ok")
+    del r_e
+    torch.cuda.empty_cache()
+
+    # the kernel at the ladder's call, against its plain version, and alone
+    hold_plan_kernel(plan, None, "ladder", gen)
+    a_g, b_g, cols, (bm, bk, bn) = _bsmm_operands(plan, torch.float32, gen)
+    live_blocks = int((plan.local_cols[0, 0] >= 0).sum())
+    flops = 2.0 * live_blocks * bm * bk * n
+    nbytes = 4.0 * (live_blocks * bm * bk + b_g.numel() + m * n)
+    bsmm_ms = cuda_ms(lambda: bsmm_cuda(a_g, b_g, cols, bm=bm, bk=bk, bn=bn),
+                      3)
+    bound_ms, by, bound_text = split_bound(flops, nbytes)
+    log(f"  bsmm at the ladder's call ({m},{a_g.shape[1]})x({a_g.shape[1]},"
+        f"{n}), {live_blocks} live blocks: {bsmm_ms:.3f} ms "
+        f"({flops / bsmm_ms / 1e9:.2f} TFLOP/s of fp32 work), {bound_text}")
+    del a_g, b_g
+
+    # where the warm wall goes: each data step of the call, alone
+    parts = {}
+    a2 = geom.x_geom.matricize(x.data)
+    b2 = geom.y_geom.matricize(y.data)
+    parts["matricize T and V"] = cuda_ms(
+        lambda: (geom.x_geom.matricize(x.data), geom.y_geom.matricize(y.data)),
+        1)
+    parts["mask A and B"] = cuda_ms(
+        lambda: (core_summa._apply_block_mask(a2, plan.a_mask),
+                 core_summa._apply_block_mask(b2, plan.b_mask)), 1)
+    w = plan.kb_width
+    idx = torch.cat([torch.arange(kk * w, (kk + 1) * w, device=DEVICE)
+                     for kk in plan.live_panels])
+    parts["gather live panels"] = cuda_ms(
+        lambda: (a2[:, idx].contiguous(), b2[idx].contiguous()), 1)
+    del a2, b2
+    torch.cuda.empty_cache()
+    parts["bsmm"] = bsmm_ms
+    c2 = r.data.reshape(m, n)
+    parts["un-matricize R"] = cuda_ms(
+        lambda: _unmatricize_step(c2, geom, (o, o), (v, v)).contiguous(), 1)
+    log(f"  the warm call's parts alone (CUDA events, ms): "
+        + ", ".join(f"{k} {t:.3f}" for k, t in parts.items())
+        + f"; geometry on the host {geom_s * 1e3:.3f} (cached in a warm "
+        f"call); warm wall {warm * 1e3:.3f}")
+
+    # R against a product of operands masked and laid out here
+    tm = x.data * expand_here(x.mask, x.tilings, DEVICE)
+    vm = y.data * expand_here(y.mask, y.tilings, DEVICE)
+    want = torch.matmul(tm.reshape(o * o, v * v), vm.reshape(v * v, v * v))
+    del tm, vm
+    err = compare(r.data.reshape(o * o, v * v), want, v * v, torch.float32,
+                  "ladder R vs torch.matmul of T and V masked here")
+    del want, r, x, y
+    torch.cuda.empty_cache()
+    return dict(cold=cold, warm=warm, eager=eager_wall, peak=peak,
+                resident=resident, geom_s=geom_s, parts=parts, err=err,
+                bsmm_ms=bsmm_ms, bound_ms=bound_ms, flops=flops,
+                live_panels=len(plan.live_panels), k_steps=plan.k_steps)
+
+
+def family_case(name: str, seed: int):
+    """One contraction family of the reference's oracle
+    (``tests/conftest.py::contract_case``) at its shapes, built here:
+    (spec, x, y, tile).  ``rank_sparse_32`` is ``rank_sparse`` in blocks of
+    32, where the factor width (r_pad 8) is below the crossover r* = 16,
+    so its panels stay factored."""
+    rng = np.random.default_rng(seed)
+
+    def dense(shape, block_shape, mask=None):
+        data = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return BlockSparseTensor.from_dense(
+            data.to(DEVICE), block_shape=block_shape, mask=mask)
+
+    tile = 64
+    if name == "matmul":
+        spec = "ab,bc->ac"
+        x = dense((64, 96), (16, 12), mask=banded_block_mask(4, 8, 2))
+        y = dense((96, 80), (12, 20), mask=rng.random((8, 4)) < 0.6)
+    elif name == "free2":
+        spec = "abc,cd->abd"
+        x = dense((8, 16, 96), (4, 8, 12), mask=rng.random((2, 2, 8)) < 0.6)
+        y = dense((96, 80), (12, 20), mask=rng.random((8, 4)) < 0.7)
+    elif name == "multi_contracted":
+        spec = "abc,bcd->ad"
+        x = dense((64, 8, 24), (16, 4, 6), mask=rng.random((4, 2, 4)) < 0.7)
+        y = dense((8, 24, 40), (4, 6, 20))
+    elif name == "transpose":
+        spec = "ab,ca->cb"
+        x = dense((64, 48), (16, 12), mask=rng.random((4, 4)) < 0.7)
+        y = dense((40, 64), (20, 16), mask=rng.random((2, 4)) < 0.7)
+    elif name == "batch":
+        spec = "sab,sbc->sac"
+        x = dense((4, 16, 24), (2, 8, 6), mask=rng.random((2, 2, 4)) < 0.6)
+        y = dense((4, 24, 32), (2, 6, 8))
+    elif name in ("rank_sparse", "rank_sparse_32"):
+        spec = "ab,bc->ac"
+        b = 16 if name == "rank_sparse" else 32
+        bk = 12 if name == "rank_sparse" else 32
+        rank_map = decay_rank_map(4, 8, b, bk, max_rank=4 * (b // 16),
+                                  decay=0.6)
+        x = BlockSparseTensor.from_rank_csr(
+            synthesize_rank_csr(rank_map, seed=seed + 3))
+        y = dense((8 * bk, 80), (bk, 20), mask=rng.random((8, 4)) < 0.7)
+    elif name == "nonuniform":
+        spec = "ab,bc->ac"
+        rt = nonuniform_tiling(70, 5, seed=seed + 1)
+        it = nonuniform_tiling(90, 6, seed=seed + 2)
+        ct = nonuniform_tiling(60, 4, seed=seed + 3)
+        x = BlockSparseTensor(
+            data=torch.from_numpy(
+                rng.normal(size=(70, 90)).astype(np.float32)).to(DEVICE),
+            tilings=(rt, it), mask=rng.random((5, 6)) < 0.7)
+        y = BlockSparseTensor(
+            data=torch.from_numpy(
+                rng.normal(size=(90, 60)).astype(np.float32)).to(DEVICE),
+            tilings=(it, ct))
+        tile = 16
+    else:
+        raise ValueError(f"unknown contraction family {name!r}")
+    return spec, x, y, tile
+
+
+def phase_contract_families() -> dict:
+    """[contract] The oracle's families at their shapes: each kernel a
+    family's plans launch held against its plain version at the plan's
+    shapes, then C against the float64 einsum and against the eager
+    route bitwise."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    out = {}
+    for name in CONTRACT_FAMILIES:
+        spec, x, y, tile = family_case(name, seed=SEED + 11)
+        r_pad = x.rank_csr.r_pad if x.rank_csr is not None else None
+        mm = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                               local_matmul="pallas")
+        log(f"[contract] family {name}: {spec}, x {tuple(x.shape)} blocks "
+            f"{[t.num_blocks for t in x.tilings]}, y {tuple(y.shape)} blocks "
+            f"{[t.num_blocks for t in y.tilings]}"
+            + (f", r_pad {r_pad}" if r_pad else ""))
+        with executed_plans() as seen:
+            res, wall, counts = run_counted(
+                lambda: mm.contract(spec, x, y, tile=tile),
+                "grouped_gemm" if name == "rank_sparse_32" else (
+                    "tiled_matmul" if name in ("rank_sparse", "nonuniform")
+                    else "bsmm"))
+        plans = list(mm._plan_cache.values())
+        kernels = {hold_plan_kernel(p, r_pad, f"{name} plan", gen)
+                   for p in plans}
+        want = {"bsmm": sum(p.local_impl == "bsmm" for p in seen)}
+        log(f"    plans {[(p.local_impl, p.local_block) for p in plans]}; "
+            f"kernels {sorted(kernels)}; products through execute_plan "
+            f"{len(seen)}")
+        if want["bsmm"] != counts["bsmm"]:
+            raise AssertionError(f"{want['bsmm']} bsmm plans ran, "
+                                 f"{counts['bsmm']} launches")
+        err = hold_oracle(res.data, np.einsum(spec, dense_here(x),
+                                              dense_here(y)),
+                          f"{name} C vs float64 einsum")
+        eager = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                                  local_matmul="pallas", compiled=False)
+        if not torch.equal(eager.contract(spec, x, y, tile=tile).data,
+                           res.data):
+            raise AssertionError(f"{name}: compiled and eager C differ")
+        log("    eager C == compiled C bitwise -> ok")
+        out[name] = dict(counts=counts, wall=wall, err=err)
+    return out
+
+
+def phase_contract_chain() -> dict:
+    """[contract] ``contract_chain`` of (A.B).C, tuned jointly: its report,
+    the windows that ran, C against ``torch.matmul`` of masked operands."""
+    nb = CHAIN_N // CHAIN_BLOCK
+    mask = decay_block_mask(nb, nb, CHAIN_DECAY, 5e-2)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 22)
+    ops = [BlockSparseTensor.from_dense(
+        randn((CHAIN_N, CHAIN_N), torch.float32, gen),
+        block_shape=(CHAIN_BLOCK, CHAIN_BLOCK), mask=mask) for _ in range(3)]
+    steps = [("ab,bc->ac", ops[0], ops[1]), ("ac,cd->ad", ops[2])]
+    log(f"[contract] chain (A.B).C at N={CHAIN_N}, blocks {CHAIN_BLOCK}, "
+        f"decay_block_mask({nb}, {nb}, {CHAIN_DECAY}, 5e-2) on each operand "
+        f"(block fill {mask.mean():.4f}), tune=True")
+    mm = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                           local_matmul="pallas")
+    with executed_plans() as seen:
+        (res, rep), wall, counts = run_counted(
+            lambda: mm.contract_chain(steps, tune=True), "bsmm")
+    ran = [p.lookahead for p in seen]
+    log(f"    report: joint {rep['joint_makespan_s']:.6g} s, joint default "
+        f"{rep['joint_default_makespan_s']:.6g} s, sequential "
+        f"{rep['sequential_makespan_s']:.6g} s (simulated), speedup "
+        f"{rep['speedup_vs_sequential']:.4f}; lookaheads "
+        f"{rep['lookaheads']}; windows that ran {ran}; plans "
+        f"{[(p['local_impl'], p['live_panels'], p['k_steps']) for p in rep['plans']]}")
+    if ran != rep["lookaheads"] or counts["bsmm"] != 2:
+        raise AssertionError(f"windows {ran} ran, the report names "
+                             f"{rep['lookaheads']}; launches {counts}")
+    for i, p in enumerate(seen):
+        hold_plan_kernel(p, None, f"chain step {i}", gen)
+    (_, warm, _) = run_counted(
+        lambda: mm.contract_chain(steps, tune=True), "bsmm")
+    eager = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                              local_matmul="pallas", compiled=False)
+    if not torch.equal(eager.contract_chain(steps, tune=True)[0].data,
+                       res.data):
+        raise AssertionError("compiled and eager chains differ")
+    log("    eager chain == compiled chain bitwise -> ok")
+    a, b, c = (kron_mask(t.data, mask) for t in ops)
+    ab = torch.matmul(a, b)
+    # compare's hold is made for operands of unit scale; the second
+    # product's left operand is A.B, of scale rms(A.B), so both sides are
+    # divided by it (the same as an atol scaled by it)
+    scale = ab.square().mean().sqrt()
+    want = torch.matmul(ab, c)
+    log(f"    the intermediate A.B has rms {scale.item():.4g}")
+    err = compare(res.data / scale, want / scale, CHAIN_N, torch.float32,
+                  "chain result vs torch.matmul of operands masked here, "
+                  "both over rms(A.B)") * scale.item()
+    del a, b, c, ab, want, res, ops, steps
+    torch.cuda.empty_cache()
+    return dict(wall=wall, warm=warm, report=rep, err=err)
+
+
 def densify_here(rcsr) -> torch.Tensor:
     """The dense A of a ``RankCSR``, built on the card from its factors:
     every stored block's ``u[s] @ v[s]`` written at (block row, column)
@@ -1560,6 +2032,15 @@ def main() -> None:
         f"(uniform: {dense_wall:.3f} s taskbased, "
         f"{tuned['dense']['wall']:.3f} s tuned); peak "
         f"{nonuniform['warm_peak'] / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    ladder = phase_contract_ladder()
+    families = phase_contract_families()
+    chain = phase_contract_chain()
+    log(f"  [contract] took {time.perf_counter() - t0:.1f} s: ladder cold "
+        f"{ladder['cold']:.3f} s, warm {ladder['warm']:.3f} s, eager "
+        f"{ladder['eager']:.3f} s, peak {ladder['peak'] / 2**30:.2f} GiB; "
+        f"families {sum(f['wall'] for f in families.values()):.3f} s; "
+        f"chain {chain['wall']:.3f} s (warm {chain['warm']:.3f} s)")
     lm = phase_lm(lm_cfg)
     times["flash_attention"] = lm["times"]
     log(f"  LM forward (host clock, ending in synchronize): B={LM_BATCH} "

@@ -17,28 +17,37 @@ for module (``repro_torch/core/plan.py`` is the port of
   tuner (``sched``), which ``tune=True`` and ``matmul_strategy="auto"``
   execute — with the kernel autotune cache (``kernels.autotune``),
   ``NonuniformMatmul`` over ``core.blocking``, and the pull and A-/B-
-  stationary routes of mask plans.
+  stationary routes of mask plans;
+* the block-sparse tensor front-end — ``contract``, ``contract_chain``
+  and ``BlockSparseTensor`` (``core.contract``) — over the digest-keyed
+  executable cache of ``core.summa`` (``compiled=True``).
 
 Each of the reference's four Pallas kernels is a hand-written CUDA kernel
 for Hopper (``csrc/``).  Entry points run on ``cuda`` unless the caller
 asks for the CPU.
 """
 from repro_torch.core import (
+    BlockSparseTensor,
     DistributedMatmul,
     Grid,
     MatmulPlan,
     NonuniformMatmul,
     SummaConfig,
+    contract,
+    contract_chain,
     execute_plan,
     plan_matmul,
 )
 
 __all__ = [
+    "BlockSparseTensor",
     "DistributedMatmul",
     "Grid",
     "MatmulPlan",
     "NonuniformMatmul",
     "SummaConfig",
+    "contract",
+    "contract_chain",
     "execute_plan",
     "plan_matmul",
 ]

@@ -15,9 +15,14 @@ execute_rank_plan``).
 the plan and executes its winner.  ``NonuniformMatmul`` multiplies
 nonuniformly blocked matrices by bucketing their logical blocks into
 uniform physical tiles (``core.blocking``) around a ``DistributedMatmul``.
+``contract``/``contract_chain`` are the block-sparse tensor front-end
+(``core.contract``) on this instance's plan and contraction caches.
 
-The port of ``repro.core.api``.  ``contract``/``contract_chain`` (ROADMAP
-A6) are not ported yet.
+``compiled=True`` (the default) dispatches the executable cache of
+``core.summa`` (one program per plan digest; equal to the eager route
+bitwise); ``compiled=False`` runs the eager interpreters everywhere.
+
+The port of ``repro.core.api``.
 """
 from __future__ import annotations
 
@@ -85,11 +90,23 @@ class DistributedMatmul:
     lookahead: int | None = None
     accum_dtype: torch.dtype = torch.float32
     local_matmul: str = "xla"
+    #: dispatch cached executables (core.summa, core.contract); False runs
+    #: the eager interpreters everywhere
+    compiled: bool = True
     _plan_cache: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False
     )
+    # spec/tiling-keyed matricization geometry and contraction step
+    # programs of core.contract
+    _contract_cache: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False
+    )
     _cache_stats: dict = dataclasses.field(
-        default_factory=lambda: {"plan_hits": 0, "plan_misses": 0},
+        default_factory=lambda: {
+            "plan_hits": 0, "plan_misses": 0,
+            "geom_hits": 0, "geom_misses": 0,
+            "step_hits": 0, "step_misses": 0, "step_retraces": 0,
+        },
         repr=False, compare=False,
     )
 
@@ -188,13 +205,28 @@ class DistributedMatmul:
     # -- observability -------------------------------------------------------
 
     def cache_stats(self) -> dict:
-        """Hit/miss counters of the ``MatmulPlan`` cache on this instance."""
+        """Hit/miss/build counters of every cache on the hot path.
+
+        ``plan``: the ``MatmulPlan`` cache of this instance.
+        ``contract``: the matricization-geometry cache (``geom_*``) and the
+        contraction step programs (``step_*``; ``step_retraces`` counts
+        program builds, equal to ``step_misses`` when keys are stable).
+        ``executable``: the process-wide executable cache of
+        ``core.summa``.
+        """
         s = self._cache_stats
         return {
             "plan": {
                 "size": len(self._plan_cache),
                 "hits": s["plan_hits"], "misses": s["plan_misses"],
             },
+            "contract": {
+                "size": len(self._contract_cache),
+                "geom_hits": s["geom_hits"], "geom_misses": s["geom_misses"],
+                "step_hits": s["step_hits"], "step_misses": s["step_misses"],
+                "step_retraces": s["step_retraces"],
+            },
+            "executable": sm.executable_cache_stats(),
         }
 
     def reset_cache_stats(self) -> None:
@@ -267,12 +299,19 @@ class DistributedMatmul:
             comm_mode=comm_mode, stationarity=stationarity,
             a_norms=a_norms, b_norms=b_norms, filter_eps=filter_eps,
         )
+        return self._run(a, b, plan, compiled=self.compiled)
+
+    def _run(self, a, b, plan: MatmulPlan, *, compiled: bool) -> torch.Tensor:
+        """C = A @ B under ``plan``, made for these operands' shapes: pad,
+        cut this rank's tiles, execute, gather and crop."""
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
         (mp, kp), (_, np_) = plan.padded_shapes
-        a_loc = self._tile(_pad_to_shape(a, (mp, kp)))
-        b_loc = self._tile(_pad_to_shape(b, (kp, np_)))
-        c_loc = sm.execute_plan(a_loc, b_loc, plan)
+        cfg = plan.cfg
+        a_loc = sm.local_tile(_pad_to_shape(a, (mp, kp)), cfg)
+        b_loc = sm.local_tile(_pad_to_shape(b, (kp, np_)), cfg)
+        c_loc = sm.execute_plan(a_loc, b_loc, plan, compiled=compiled)
         del a_loc, b_loc
-        return self._gather(c_loc)[:m, :n]
+        return sm.gather_tiles(c_loc, cfg)[:a.shape[0], :b.shape[1]]
 
     def _call_ranksparse(
         self,
@@ -308,52 +347,49 @@ class DistributedMatmul:
             comm_mode=comm_mode, stationarity=stationarity,
             a_norms=a_norms, b_norms=b_norms, filter_eps=filter_eps,
         )
+        return self._run_rank(a_ranks, b, plan, compiled=self.compiled)
+
+    def _run_rank(self, a_ranks: RankCSR, b, plan: MatmulPlan, *,
+                  compiled: bool) -> torch.Tensor:
+        """C = A @ B under a plan of the factor route, A the ``RankCSR``."""
+        b = torch.as_tensor(b)
+        cfg = plan.cfg
         (mp, kp), (_, np_) = plan.padded_shapes
-        b_loc = self._tile(_pad_to_shape(b, (kp, np_)))
+        b_loc = sm.local_tile(_pad_to_shape(b, (kp, np_)), cfg)
         if plan.local_impl != "ranksparse":
             # the factor layout does not fit this grid: densify and run the
             # planned masked DAG (mask-level pruning only); B is promoted
             # to the factors' type, as JAX promotes the mixed product
             a = torch.from_numpy(a_ranks.to_dense())
             b_loc = b_loc.to(torch.promote_types(a.dtype, b_loc.dtype))
-            a_loc = self._tile(_pad_to_shape(a, (mp, kp)))
-            c_loc = sm.execute_plan(a_loc, b_loc, plan)
+            a_loc = sm.local_tile(_pad_to_shape(a, (mp, kp)), cfg)
+            c_loc = sm.execute_plan(a_loc, b_loc, plan, compiled=compiled)
         else:
             u_all, v_all = sm.rank_operands(a_ranks, plan)
             c_loc = sm.execute_rank_plan(
-                self._tile(torch.from_numpy(u_all)),
-                self._tile(torch.from_numpy(v_all)), b_loc, plan,
+                sm.local_tile(torch.from_numpy(u_all), cfg),
+                sm.local_tile(torch.from_numpy(v_all), cfg), b_loc, plan,
+                compiled=compiled,
             )
         del b_loc
-        return self._gather(c_loc)[:m, :n]
+        return sm.gather_tiles(c_loc, cfg)[:a_ranks.shape[0], :b.shape[1]]
 
-    def _gather(self, c_loc: torch.Tensor) -> torch.Tensor:
-        """The whole C from every rank's tile, on every rank."""
-        return self.grid.all_gather(
-            self.grid.all_gather(c_loc, self.col_axis, dim=1),
-            self.row_axis, dim=0,
-        )
-
-    def _tile(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's (row, col) tile of a padded global operand, on the
-        grid's device."""
-        g = self.grid
-        p_row, p_col = g.shape[self.row_axis], g.shape[self.col_axis]
-        i, j = g.axis_index(self.row_axis), g.axis_index(self.col_axis)
-        r, c = x.shape[0] // p_row, x.shape[1] // p_col
-        return x[i * r:(i + 1) * r, j * c:(j + 1) * c].to(g.device).contiguous()
+    # -- tensor contractions -------------------------------------------------
 
     def contract(self, spec: str, x, y, **kwargs):
-        """Einsum-style block-sparse contraction (``repro.core.contract``)."""
-        raise NotImplementedError(
-            "contract is not ported yet (ROADMAP A6)"
-        )
+        """Einsum-style binary block-sparse tensor contraction: a delegate
+        to :func:`core.contract.contract` with this instance supplying the
+        grid, strategy, plan cache and the contraction caches."""
+        from repro_torch.core.contract import contract as _contract
+
+        return _contract(spec, x, y, mm=self, **kwargs)
 
     def contract_chain(self, steps, **kwargs):
-        """Jointly scheduled chain of contractions."""
-        raise NotImplementedError(
-            "contract_chain is not ported yet (ROADMAP A6)"
-        )
+        """Jointly scheduled chain of contractions
+        (:func:`core.contract.contract_chain`)."""
+        from repro_torch.core.contract import contract_chain as _chain
+
+        return _chain(steps, mm=self, **kwargs)
 
 
 @dataclasses.dataclass
@@ -494,17 +530,15 @@ class NonuniformMatmul:
             raise ValueError(f"A shape {tuple(a.shape)} mismatches tilings")
         if tuple(b.shape) != (self.inner_tiling.extent, self.col_tiling.extent):
             raise ValueError(f"B shape {tuple(b.shape)} mismatches tilings")
+        plan = self.plan(a_ranks=a_ranks, itemsize=a.element_size(),
+                         lookahead=lookahead, tune=tune)
+        return self._run(a, b, plan, compiled=self.mm.compiled)
+
+    def _run(self, a, b, plan: MatmulPlan, *, compiled: bool) -> torch.Tensor:
+        """C = A @ B under the physical plan ``plan``: expand, multiply,
+        compact."""
         a_p = self._expand(self._expand(a, self.row_b, 0), self.inner_b, 1)
         b_p = self._expand(self._expand(b, self.inner_b, 0), self.col_b, 1)
-        c_p = self.mm(
-            a_p,
-            b_p,
-            a_ranks=(
-                self.physical_rank_map(a_ranks)
-                if a_ranks is not None else None
-            ),
-            lookahead=lookahead,
-            tune=tune,
-        )
+        c_p = self.mm._run(a_p, b_p, plan, compiled=compiled)
         del a_p, b_p
         return self._compact(c_p)

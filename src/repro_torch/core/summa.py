@@ -67,22 +67,34 @@ Every local panel product goes through ``_local_dot``, which consults
 the kernel autotune cache (``kernels.autotune``) lookup-only: an empty or
 disabled cache changes nothing.
 
-Routes of the reference not ported yet raise ``NotImplementedError``
-naming their ROADMAP item: ``summa_25d_matmul`` and the digest-keyed
-executable cache (A3).
+``execute_plan`` and ``execute_rank_plan`` dispatch through a
+process-wide executable cache keyed, as in the reference, by the plan's
+digest, its local route, its window and the dtypes (and the kernel
+autotune cache's fingerprint when that cache is not empty).  There is no
+tracer here: an executable is a callable built once per key that holds
+what the eager route derives from the plan alone (the device copies of
+the block masks and of ``bsmm``'s column map) and runs the same kernels,
+in the same order, on the same operands, so it equals the eager route
+bitwise; ``retraces`` counts builds.  ``compiled=False`` runs eagerly.
+``summa_matmul`` and ``summa_blocksparse_matmul`` are the reference's
+thin plan-and-execute wrappers over global operands.
+
+``summa_25d_matmul`` raises ``NotImplementedError``: the 2.5D route needs
+the three-axis ``Grid`` and the executors' ``k_steps``/``k_start``
+(ROADMAP A3).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import math
-from typing import Literal
+from typing import Callable, Literal
 
 import numpy as np
 import torch
 
 from repro_torch.core.grid import Grid
-from repro_torch.kernels.autotune import autotune_cache
+from repro_torch.kernels.autotune import autotune_cache, cache_fingerprint
 
 __all__ = [
     "SummaConfig",
@@ -94,6 +106,12 @@ __all__ = [
     "execute_plan",
     "rank_operands",
     "execute_rank_plan",
+    "executable_cache_stats",
+    "clear_executable_cache",
+    "warm_plan_executable",
+    "summa_matmul",
+    "summa_blocksparse_matmul",
+    "summa_25d_matmul",
 ]
 
 Strategy = Literal["procedural", "taskbased", "allgather"]
@@ -431,14 +449,14 @@ def _exec_stationary(a_loc, b_loc, plan):
     return grid.reduce_scatter(part, cfg.row_axis, dim=0)
 
 
-def _exec_sparse_bsmm(a_loc, b_loc, cols_loc, plan):
+def _exec_sparse_bsmm(a_loc, b_loc, cols_loc, plan, *, cols_dev=None):
     """Per-device block-sparse rank-k update through the BSMM kernel.
 
     Gathers the globally-live panels (same broadcast traffic as the DAG
     executor), then runs ONE kernel over the gathered operands with this
     rank's CSR column map (the planner's numpy ``plan.local_cols`` entry,
-    checked on the host by ``bsmm_cols``): blocks dead for this grid
-    row/column are never
+    checked on the host by ``bsmm_cols``; ``cols_dev`` is its copy on the
+    operands' device): blocks dead for this grid row/column are never
     loaded nor multiplied, so local FLOPs follow the per-device fill-in
     the planner computed.
     """
@@ -451,7 +469,8 @@ def _exec_sparse_bsmm(a_loc, b_loc, cols_loc, plan):
     del a_parts, b_parts
     bm, bk, bn = plan.local_block
     return bsmm_cols(
-        a_g, b_g, cols_loc, bm=bm, bk=bk, bn=bn, out_dtype=cfg.accum_dtype
+        a_g, b_g, cols_loc, bm=bm, bk=bk, bn=bn, out_dtype=cfg.accum_dtype,
+        device_cols=cols_dev,
     )
 
 
@@ -750,6 +769,93 @@ _EXEC_IMPLS = {
 
 
 # ---------------------------------------------------------------------------
+# The executable cache: plan-digest-keyed programs
+# ---------------------------------------------------------------------------
+
+#: (kind, plan digest, local route, window, dtypes[, autotune fingerprint])
+#: -> program.  One entry per distinct static execution, process-wide.
+_EXEC_CACHE: dict = {}
+_EXEC_STATS = {"hits": 0, "misses": 0, "retraces": 0}
+
+
+def executable_cache_stats() -> dict:
+    """Hit/miss/retrace counters and the current size of the executable
+    cache.  ``retraces`` counts program builds: with stable keys it equals
+    ``misses``, and it can never exceed them."""
+    return {**_EXEC_STATS, "size": len(_EXEC_CACHE)}
+
+
+def clear_executable_cache() -> None:
+    """Drop every cached executable and zero the counters (tests)."""
+    _EXEC_CACHE.clear()
+    for k in _EXEC_STATS:
+        _EXEC_STATS[k] = 0
+
+
+def _autotune_key_suffix() -> tuple:
+    """A non-empty kernel autotune cache changes the route ``_local_dot``
+    takes, so its fingerprint joins every executable's key; an empty or
+    disabled cache adds nothing."""
+    fp = cache_fingerprint()
+    return (fp,) if fp else ()
+
+
+def _cached_executable(key: tuple, build: Callable) -> Callable:
+    key = key + _autotune_key_suffix()
+    fn = _EXEC_CACHE.get(key)
+    if fn is None:
+        _EXEC_STATS["misses"] += 1
+        fn = build()
+        _EXEC_CACHE[key] = fn
+    else:
+        _EXEC_STATS["hits"] += 1
+    return fn
+
+
+def _count_build(program):
+    _EXEC_STATS["retraces"] += 1
+    return program
+
+
+class _Program:
+    """An executable: one plan's interpreter (``_run_plan``, or
+    ``_run_rank_plan`` for factor operands) with its plan-derived device
+    constants (``_plan_constants``) built once per device.  It holds no
+    operand, so a cached program never pins a caller's tensors."""
+
+    def __init__(self, plan, out_dtype, *, factors: bool):
+        self.plan, self.out_dtype, self.factors = plan, out_dtype, factors
+        self.run = _run_rank_plan if factors else _run_plan
+        self.consts: dict = {}
+
+    def __call__(self, *operands):
+        a, b = operands[0], operands[-1]
+        consts = self.consts.get(b.device)
+        if consts is None:
+            consts = self.consts[b.device] = _plan_constants(
+                self.plan, a.shape, b.shape, b.device, factors=self.factors
+            )
+        return self.run(*operands, self.plan, self.out_dtype, consts)
+
+
+def warm_plan_executable(plan, dtype, *, out_dtype=None) -> bool:
+    """Build (and cache) the executable for ``plan`` ahead of use, by a
+    call on zero operands of this rank's tiles.  Rank-sparse plans need a
+    factor payload and are not warmed here (returns ``False``); everything
+    else returns ``True``."""
+    if plan.local_impl == "ranksparse":
+        return False
+    (mp, kp), (_, np_) = plan.padded_shapes
+    dev = plan.cfg.grid.device
+    a = torch.zeros((mp // plan.p_row, kp // plan.p_col), dtype=dtype,
+                    device=dev)
+    b = torch.zeros((kp // plan.p_row, np_ // plan.p_col), dtype=dtype,
+                    device=dev)
+    execute_plan(a, b, plan, out_dtype=out_dtype)
+    return True
+
+
+# ---------------------------------------------------------------------------
 # Plan execution
 # ---------------------------------------------------------------------------
 
@@ -760,6 +866,7 @@ def execute_plan(
     plan,
     *,
     out_dtype: torch.dtype | None = None,
+    compiled: bool = True,
 ) -> torch.Tensor:
     """This rank's tile of C = A @ B under a ``core.plan.MatmulPlan``.
 
@@ -767,33 +874,82 @@ def execute_plan(
     ``plan.padded_shapes`` (``core.api.DistributedMatmul`` cuts them); the
     result is this rank's ``(m_pad/p_row, n_pad/p_col)`` tile of C.  The
     plan's grid must be the world's (``Grid.check_world``): a plan over a
-    planning-only grid (``sched.abstract_summa_config``) is refused.  Runs
-    eagerly: the reference's digest-keyed executable cache is queued
-    (ROADMAP A3).
+    planning-only grid (``sched.abstract_summa_config``) is refused.
+    Dispatches the cached executable of ``(plan digest, dtypes)``;
+    ``compiled=False`` runs the same interpreter eagerly.
     """
-    cfg = plan.cfg
     _check_plan_operands(a_loc, b_loc, plan)
-    cfg.grid.check_world()
+    plan.cfg.grid.check_world()
     out_dtype = out_dtype or a_loc.dtype
-    row, col = cfg.grid.axis_index(cfg.row_axis), cfg.grid.axis_index(
-        cfg.col_axis
+    if not compiled:
+        return _run_plan(a_loc, b_loc, plan, out_dtype, _plan_constants(
+            plan, a_loc.shape, b_loc.shape, b_loc.device
+        ))
+    key = (
+        "plan", plan.digest(), plan.local_impl, plan.resolve_lookahead(),
+        str(a_loc.dtype), str(b_loc.dtype), str(out_dtype),
     )
-    m_loc, k_loc = a_loc.shape
-    n_loc = b_loc.shape[1]
-    if plan.a_mask is not None:
+    program = _cached_executable(
+        key, lambda: _count_build(_Program(plan, out_dtype, factors=False))
+    )
+    return program(a_loc, b_loc)
+
+
+def _plan_constants(plan, a_shape, b_shape, device, *,
+                    factors: bool = False) -> dict:
+    """What an execution of ``plan`` derives from the plan alone, on
+    ``device``: the block-mask selectors of this rank's operand tiles (A's,
+    or with ``factors`` U's, of ``a_shape``, and B's) and of C, and
+    ``bsmm``'s column map of this rank."""
+    cfg = plan.cfg
+    row = cfg.grid.axis_index(cfg.row_axis)
+    col = cfg.grid.axis_index(cfg.col_axis)
+    (m_loc, k_loc), (kb_loc, n_loc) = a_shape, b_shape
+    out = {}
+    if factors:  # factors are never masked; an all-live B is not either
+        b_masked = plan.b_mask is not None and not plan.b_mask.all()
+    else:
+        b_masked = plan.a_mask is not None
+    if plan.a_mask is not None and not factors:
+        out["a"] = _block_keep(
+            plan.a_mask, a_shape,
+            _block_of(plan.a_mask, plan.m_pad, plan.k_pad),
+            (row * m_loc, col * k_loc), device,
+        )
+    if b_masked:
+        out["b"] = _block_keep(
+            plan.b_mask, b_shape,
+            _block_of(plan.b_mask, plan.k_pad, plan.n_pad),
+            (row * kb_loc, col * n_loc), device,
+        )
+    if plan.c_mask is not None:
+        out["c"] = _block_keep(
+            plan.c_mask, (m_loc, n_loc),
+            _block_of(plan.c_mask, plan.m_pad, plan.n_pad),
+            (row * m_loc, col * n_loc), device,
+        )
+    if plan.local_impl == "bsmm" and not factors:
+        out["cols"] = torch.as_tensor(
+            np.asarray(plan.local_cols[row, col], np.int32), device=device
+        )
+    return out
+
+
+def _run_plan(a_loc, b_loc, plan, out_dtype, consts) -> torch.Tensor:
+    """The plan interpreter (``execute_plan``'s body)."""
+    cfg = plan.cfg
+    row = cfg.grid.axis_index(cfg.row_axis)
+    col = cfg.grid.axis_index(cfg.col_axis)
+    if "a" in consts:
         # Zero masked blocks so padded/garbage data cannot contribute.
-        a_loc = _apply_block_mask(
-            a_loc, plan.a_mask, _block_of(plan.a_mask, plan.m_pad, plan.k_pad),
-            origin=(row * m_loc, col * k_loc),
-        )
-        b_loc = _apply_block_mask(
-            b_loc, plan.b_mask, _block_of(plan.b_mask, plan.k_pad, plan.n_pad),
-            origin=(row * b_loc.shape[0], col * n_loc),
-        )
+        a_loc = _apply_block_mask(a_loc, plan.a_mask, keep=consts["a"])
+    if "b" in consts:
+        b_loc = _apply_block_mask(b_loc, plan.b_mask, keep=consts["b"])
     if plan.stationarity != "C":
         c = _exec_stationary(a_loc, b_loc, plan)
     elif plan.local_impl == "bsmm":
-        c = _exec_sparse_bsmm(a_loc, b_loc, plan.local_cols[row, col], plan)
+        c = _exec_sparse_bsmm(a_loc, b_loc, plan.local_cols[row, col], plan,
+                              cols_dev=consts["cols"])
     elif plan.local_impl in ("masked", "ranksparse"):
         # Rank plans given dense-stored operands run the masked DAG, as in
         # the reference: without factors there is nothing rank-sized to
@@ -801,7 +957,7 @@ def execute_plan(
         c = _exec_sparse_dag(a_loc, b_loc, plan)
     else:
         c = _EXEC_IMPLS[cfg.strategy](a_loc, b_loc, plan)
-    return _filter_c(c.to(out_dtype), plan, origin=(row * m_loc, col * n_loc))
+    return _filter_c(c.to(out_dtype), plan, consts)
 
 
 def _check_plan_operands(a_loc, b_loc, plan) -> None:
@@ -860,6 +1016,7 @@ def execute_rank_plan(
     plan,
     *,
     out_dtype: torch.dtype | None = None,
+    compiled: bool = True,
 ) -> torch.Tensor:
     """This rank's tile of C = A @ B with A given as factor operands.
 
@@ -872,22 +1029,37 @@ def execute_rank_plan(
     (``_exec_ranksparse_grouped``) and ``"xla"`` through torch products
     (``_exec_ranksparse``).  B is cast to the factors' type first, as
     JAX promotes fp32 factors times a bf16 B; the result has ``out_dtype``
-    (default B's dtype).  Runs eagerly (the executable cache is A3).
+    (default B's dtype).  Dispatches the cached executable of the plan's
+    digest and the factor tiles' shapes and dtypes; the factors are
+    operands, never part of the executable.  ``compiled=False`` runs
+    eagerly.
     """
-    cfg = plan.cfg
-    r_pad = _check_rank_operands(u_loc, v_loc, b_loc, plan)
-    cfg.grid.check_world()
+    _check_rank_operands(u_loc, v_loc, b_loc, plan)
+    plan.cfg.grid.check_world()
     out_dtype = out_dtype or b_loc.dtype
-    row = cfg.grid.axis_index(cfg.row_axis)
-    col = cfg.grid.axis_index(cfg.col_axis)
-    m_loc, n_loc = u_loc.shape[0], b_loc.shape[1]
+    if not compiled:
+        return _run_rank_plan(u_loc, v_loc, b_loc, plan, out_dtype,
+                              _plan_constants(plan, u_loc.shape, b_loc.shape,
+                                              b_loc.device, factors=True))
+    key = (
+        "rank", plan.digest(), plan.resolve_lookahead(),
+        tuple(u_loc.shape), tuple(v_loc.shape), str(u_loc.dtype),
+        str(v_loc.dtype), str(b_loc.dtype), str(out_dtype),
+    )
+    program = _cached_executable(
+        key, lambda: _count_build(_Program(plan, out_dtype, factors=True))
+    )
+    return program(u_loc, v_loc, b_loc)
+
+
+def _run_rank_plan(u_loc, v_loc, b_loc, plan, out_dtype, consts):
+    """The factorized interpreter (``execute_rank_plan``'s body)."""
+    cfg = plan.cfg
+    r_pad = u_loc.shape[1] * plan.p_col // plan.k_steps
     # a rank plan carries B's mask even when every block is live; masking
-    # then only copies B (4 GiB at N = 32768)
-    if plan.b_mask is not None and not plan.b_mask.all():
-        b_loc = _apply_block_mask(
-            b_loc, plan.b_mask, _block_of(plan.b_mask, plan.k_pad, plan.n_pad),
-            origin=(row * b_loc.shape[0], col * n_loc),
-        )
+    # then only copies B (4 GiB at N = 32768), so _plan_constants skips it
+    if "b" in consts:
+        b_loc = _apply_block_mask(b_loc, plan.b_mask, keep=consts["b"])
     dtype = torch.promote_types(u_loc.dtype, b_loc.dtype)
     u_loc, v_loc, b_loc = u_loc.to(dtype), v_loc.to(dtype), b_loc.to(dtype)
     if plan.comm_mode == "pull":
@@ -897,7 +1069,7 @@ def execute_rank_plan(
     else:
         local = _exec_ranksparse
     c = local(u_loc, v_loc, b_loc, plan, r_pad=r_pad)
-    return _filter_c(c.to(out_dtype), plan, origin=(row * m_loc, col * n_loc))
+    return _filter_c(c.to(out_dtype), plan, consts)
 
 
 def _check_rank_operands(u_loc, v_loc, b_loc, plan) -> int:
@@ -932,15 +1104,22 @@ def _block_of(mask: np.ndarray, rows: int, cols: int) -> tuple[int, int]:
     return rows // mask.shape[0], cols // mask.shape[1]
 
 
-def _filter_c(c_loc: torch.Tensor, plan, origin=(0, 0)) -> torch.Tensor:
+def _filter_c(c_loc: torch.Tensor, plan, consts: dict) -> torch.Tensor:
     """Apply the plan's output filter: dead C blocks are zeroed, so an
     execution can never populate blocks the output structure excludes."""
-    c_mask = plan.c_mask
-    if c_mask is None:
+    if "c" not in consts:
         return c_loc
-    return _apply_block_mask(
-        c_loc, c_mask, _block_of(c_mask, plan.m_pad, plan.n_pad), origin
-    )
+    return _apply_block_mask(c_loc, plan.c_mask, keep=consts["c"])
+
+
+def _block_keep(mask, shape, block, origin, device):
+    """The selector of a tile's live elements: the block mask on
+    ``device`` and each row's and column's block index, for a tile of
+    ``shape`` at ``origin`` of a matrix blocked ``block``."""
+    r, c = shape
+    rows = torch.arange(origin[0], origin[0] + r, device=device) // block[0]
+    cols = torch.arange(origin[1], origin[1] + c, device=device) // block[1]
+    return torch.as_tensor(np.asarray(mask, bool), device=device), rows, cols
 
 
 def _apply_block_mask(
@@ -948,20 +1127,139 @@ def _apply_block_mask(
     mask: np.ndarray,
     block: tuple[int, int] | None = None,
     origin: tuple[int, int] = (0, 0),
+    *,
+    keep=None,
 ) -> torch.Tensor:
     """Zero the masked blocks of ``x``, a tile at ``origin`` of a matrix
     blocked ``block`` (default: ``x`` is the whole matrix, cut evenly by
-    the ``(Rb, Cb)`` mask).  Returns a new tensor."""
-    r, c = x.shape
-    rb, cb = mask.shape
-    if block is None:
-        if r % rb or c % cb:
-            raise ValueError(
-                f"array {tuple(x.shape)} not divisible by mask {mask.shape}"
-            )
-        block = (r // rb, c // cb)
-    dev = x.device
-    rows = torch.arange(origin[0], origin[0] + r, device=dev) // block[0]
-    cols = torch.arange(origin[1], origin[1] + c, device=dev) // block[1]
-    keep = torch.as_tensor(np.asarray(mask, bool), device=dev)[rows][:, cols]
-    return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=dev))
+    the ``(Rb, Cb)`` mask); ``keep`` is a selector ``_block_keep`` made
+    earlier for this tile.  Returns a new tensor."""
+    if keep is None:
+        r, c = x.shape
+        rb, cb = mask.shape
+        if block is None:
+            if r % rb or c % cb:
+                raise ValueError(
+                    f"array {tuple(x.shape)} not divisible by mask "
+                    f"{mask.shape}"
+                )
+            block = (r // rb, c // cb)
+        keep = _block_keep(mask, x.shape, block, origin, x.device)
+    live, rows, cols = keep
+    return torch.where(live[rows][:, cols], x,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# Public entry points over global operands (thin plan-and-execute wrappers)
+# ---------------------------------------------------------------------------
+
+
+def local_tile(x: torch.Tensor, cfg: SummaConfig) -> torch.Tensor:
+    """This rank's (row, col) tile of a global operand, contiguous on the
+    grid's device."""
+    g = cfg.grid
+    i, j = g.axis_index(cfg.row_axis), g.axis_index(cfg.col_axis)
+    r, c = x.shape[0] // cfg.p_row, x.shape[1] // cfg.p_col
+    return x[i * r:(i + 1) * r, j * c:(j + 1) * c].to(g.device).contiguous()
+
+
+def gather_tiles(c_loc: torch.Tensor, cfg: SummaConfig) -> torch.Tensor:
+    """The whole matrix from every rank's tile, on every rank."""
+    g = cfg.grid
+    return g.all_gather(g.all_gather(c_loc, cfg.col_axis, dim=1),
+                        cfg.row_axis, dim=0)
+
+
+def summa_matmul(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    cfg: SummaConfig,
+    *,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Distributed C = A @ B with the configured SUMMA strategy.
+
+    ``a`` (M, K) and ``b`` (K, N) are the global operands on every rank;
+    each rank runs its tiles and every rank returns the whole C on the
+    grid's device.  Shapes must divide evenly by the grid (use
+    ``core.api.DistributedMatmul`` for auto-padding).
+    """
+    from repro_torch.core.plan import plan_matmul
+
+    (m, k), (k2, n) = a.shape, b.shape
+    if k != k2:
+        raise ValueError(
+            f"contraction mismatch {tuple(a.shape)} @ {tuple(b.shape)}"
+        )
+    p_row, p_col = cfg.p_row, cfg.p_col
+    if m % p_row or n % p_col or k % math.lcm(p_row, p_col):
+        raise ValueError(
+            f"shapes ({m},{k})x({k2},{n}) must divide grid ({p_row},{p_col})"
+        )
+    plan = plan_matmul(m, k, n, cfg, itemsize=a.element_size())
+    if plan.padded_shapes != ((m, k), (k2, n)):
+        raise ValueError(
+            f"shapes ({m},{k})x({k2},{n}) need padding for grid/k_blocks; "
+            "use core.api.DistributedMatmul for auto-padding"
+        )
+    return gather_tiles(execute_plan(
+        local_tile(a, cfg), local_tile(b, cfg), plan, out_dtype=out_dtype
+    ), cfg)
+
+
+def summa_25d_matmul(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    cfg: SummaConfig,
+    *,
+    rep_axis: str = "pod",
+    out_dtype: torch.dtype | None = None,
+    plan=None,
+) -> torch.Tensor:
+    """2.5D task-based SUMMA (operands replicated over ``rep_axis``, each
+    replica running a disjoint share of the K steps, partial C's summed
+    across replicas).  Not ported: it needs a three-axis ``Grid`` and the
+    executors' ``k_steps``/``k_start``."""
+    raise NotImplementedError(
+        "summa_25d_matmul is not ported yet: it needs the three-axis Grid "
+        "and the executors' k_steps/k_start (ROADMAP A3)"
+    )
+
+
+def summa_blocksparse_matmul(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    a_mask: np.ndarray,
+    b_mask: np.ndarray,
+    cfg: SummaConfig,
+    *,
+    out_dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Block-sparse distributed C = A @ B over global operands.
+
+    ``a_mask`` (M_blk, K_blk) and ``b_mask`` (K_blk, N_blk) are the static
+    block structure; one SUMMA panel per K block.  Globally dead panels
+    are skipped; with ``local_matmul="pallas"`` the live ones run through
+    the ``bsmm`` kernel on the plan's per-device CSR maps.
+    """
+    from repro_torch.core.plan import plan_matmul
+
+    (m, k), (k2, n) = a.shape, b.shape
+    if k != k2:
+        raise ValueError(
+            f"contraction mismatch {tuple(a.shape)} @ {tuple(b.shape)}"
+        )
+    plan = plan_matmul(
+        m, k, n, cfg, a_mask=a_mask, b_mask=b_mask,
+        itemsize=a.element_size(),
+    )
+    if plan.padded_shapes != ((m, k), (k2, n)):
+        raise ValueError(
+            f"shape/grid/blocking mismatch: ({m},{k})x({k2},{n}) on grid "
+            f"({cfg.p_row},{cfg.p_col}) with {plan.k_steps} K blocks needs "
+            f"padding to {plan.padded_shapes}; use core.api.DistributedMatmul"
+        )
+    return gather_tiles(execute_plan(
+        local_tile(a, cfg), local_tile(b, cfg), plan, out_dtype=out_dtype
+    ), cfg)

@@ -102,19 +102,22 @@ def bsmm_cols(
     bk: int,
     bn: int,
     out_dtype: torch.dtype | None = None,
+    device_cols: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Block-sparse C = A @ B over a padded CSR column map (the call
     ``core.summa._exec_sparse_bsmm`` makes with ``plan.local_cols``).
 
     ``cols`` is a host array (numpy or a CPU tensor); it is checked here,
-    on the host, and moved to ``a``'s device."""
+    on the host, and moved to ``a``'s device, unless the caller holds that
+    copy already (``device_cols``: int32, on ``a``'s device)."""
     run = _route(a, bsmm_cuda, bsmm_plain)
     cols = np.asarray(cols, dtype=np.int32)
     k_blocks = a.shape[1] // bk
     if cols.size and int(cols.max()) >= k_blocks:  # would read past A
         raise ValueError(f"col map names a block column >= K/bk={k_blocks}")
-    return run(a, b, torch.as_tensor(cols, device=a.device), bm=bm, bk=bk,
-               bn=bn, out_dtype=out_dtype)
+    if device_cols is None:
+        device_cols = torch.as_tensor(cols, device=a.device)
+    return run(a, b, device_cols, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
 
 
 def bsmm(

@@ -645,3 +645,48 @@ def test_autotuner_times_each_kernel_on_the_card(cuda):
     assert tuner.winner(100, 120, 128, device=cuda) == entry["winner"]
     with pytest.raises(ValueError, match="not on cpu"):
         tuner.lookup(100, 120, 128, device="cpu")
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("bm,bk,bn", [(16, 12, 80), (32, 12, 80),
+                                      (12, 16, 40), (8, 6, 32), (6, 20, 24)])
+def test_bsmm_split_kernel_small_blocks(cuda, bm, bk, bn, name):
+    """The contraction front-end's blocks (6 to 32 wide, the contraction
+    oracle's families): block rows shorter than a 64-row unit, k-slabs
+    past the block zero-filled, A rows of an odd stride."""
+    mb, kb = 5, 7
+    mask = random_block_mask(mb, kb, 0.5, seed=bm + bk)
+    a = _rand((mb * bm, kb * bk), name, 23, cuda)
+    b = _rand((kb * bk, bn), name, 24, cuda)
+    cols = _map(mask, cuda)
+    got = bsmm_cuda(a, b, cols, bm=bm, bk=bk, bn=bn)
+    _close(got, bsmm_plain(a, b, cols, bm=bm, bk=bk, bn=bn), name, kb * bk)
+
+
+def test_contract_on_the_card_equals_eager_and_the_cpu(cuda):
+    """A small particle-particle ladder through ``DistributedMatmul.
+    contract`` on the card: one ``bsmm`` launch, compiled equal to eager
+    bitwise, and both within the fp32 hold of the CPU route."""
+    from repro_torch.core import BlockSparseTensor, DistributedMatmul, Grid
+    from repro_torch.core.blocking import uniform_tiling
+
+    o, v, blk = 8, 24, 4
+    ts = []
+    for shape, fill, seed in (((o, o, v, v), 0.5, 0), ((v,) * 4, 0.3, 1)):
+        mask = np.random.default_rng(seed).random(
+            tuple(d // blk for d in shape)) < fill
+        ts.append(BlockSparseTensor(
+            _rand(shape, "float32", seed + 30, "cpu"),
+            tuple(uniform_tiling(d, blk) for d in shape), mask=mask))
+    spec = "ijab,abcd->ijcd"
+    outs = {}
+    for compiled in (True, False):
+        mm = DistributedMatmul(Grid.local(cuda), local_matmul="pallas",
+                               compiled=compiled)
+        before = bsmm_cuda.launches
+        outs[compiled] = mm.contract(spec, *ts).data
+        assert bsmm_cuda.launches == before + 1
+        assert outs[compiled].device.type == "cuda"
+    assert torch.equal(outs[True], outs[False])
+    cpu = DistributedMatmul(Grid.local("cpu"), local_matmul="pallas")
+    _close(outs[True], cpu.contract(spec, *ts).data, "float32", v * v)

@@ -26,6 +26,7 @@ from repro_torch.core.summa import (
     execute_plan,
     reference_blocksparse_matmul,
     reference_matmul,
+    summa_25d_matmul,
 )
 
 from test_torch_plan import assert_plans_equal  # noqa: E402
@@ -153,9 +154,9 @@ def test_reference_oracles_and_block_mask():
 
 
 def test_unported_routes_raise():
-    """``contract`` still raises A6.  The tuner (A1) and the pull and
-    stationary routes (A7), which raised here until they were ported, now
-    give the reference's products."""
+    """``contract`` (A6), the tuner (A1) and the pull and stationary routes
+    (A7), which raised here until they were ported, now give the
+    reference's products; ``summa_25d_matmul`` still raises A3."""
     mm = DistributedMatmul(Grid.local("cpu"))
     ref = RefDistributedMatmul(make_host_mesh(1, 1))
     a = np.random.default_rng(4).normal(size=(16, 16)).astype(np.float32)
@@ -168,8 +169,14 @@ def test_unported_routes_raise():
             mm(a, a, **kw).numpy(), np.asarray(ref(jnp.asarray(a),
                                                    jnp.asarray(a), **kw)),
             atol=ORACLE_ATOL, rtol=ORACLE_RTOL, err_msg=str(kw))
-    with pytest.raises(NotImplementedError, match="A6"):
-        mm.contract("ab,bc->ac", a, a)
+    np.testing.assert_allclose(
+        mm.contract("ab,bc->ac", a, a).data.numpy(),
+        np.asarray(ref.contract("ab,bc->ac", jnp.asarray(a),
+                                jnp.asarray(a)).data),
+        atol=ORACLE_ATOL, rtol=ORACLE_RTOL)
+    with pytest.raises(NotImplementedError, match="A3"):
+        summa_25d_matmul(torch.from_numpy(a), torch.from_numpy(a),
+                         SummaConfig(grid=Grid.local("cpu")))
     # a dense-stored rank map plans rank-aware and runs the masked DAG
     ones = np.ones((16, 16), np.float32)
     got = mm(ones, ones, a_ranks=BlockRankMap(
@@ -378,3 +385,198 @@ def test_2x2_gloo_grid_matches_oracle(tmp_path, family):
     if family in ("dense", "banded"):
         want_impl = "dense" if family == "dense" else "bsmm"
         assert str(out["pallas-taskbased-impl"]) == want_impl
+
+
+# ---------------------------------------------------------------------------
+# the executable cache and the plan-and-execute wrappers
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def clean_executables():
+    """Both packages' executable caches and autotune caches start and end
+    empty (they are process-wide)."""
+    from repro.core import summa as ref_summa
+    from repro_torch.core import summa as port_summa
+    from repro_torch.kernels import autotune as at
+
+    at.set_autotune_cache(None)
+    port_summa.clear_executable_cache()
+    ref_summa.clear_executable_cache()
+    yield port_summa, ref_summa
+    at.set_autotune_cache(None)
+    port_summa.clear_executable_cache()
+    ref_summa.clear_executable_cache()
+
+
+def _rank_pair(seed=5):
+    """The same factor payload in both packages, and a B."""
+    from repro.core import decay_rank_map as ref_rank_map
+    from repro.core import synthesize_rank_csr as ref_synth
+    from repro_torch.core.sparsity import decay_rank_map, synthesize_rank_csr
+
+    kw = dict(max_rank=8, decay=0.8)
+    port = synthesize_rank_csr(decay_rank_map(4, 4, 32, 32, **kw), seed=seed)
+    ref = ref_synth(ref_rank_map(4, 4, 32, 32, **kw), seed=seed)
+    np.testing.assert_array_equal(port.u, ref.u)
+    b = np.random.default_rng(seed).normal(size=(128, 96)).astype(np.float32)
+    return port, ref, b
+
+
+@pytest.mark.parametrize("local_matmul", ["xla", "pallas"])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_compiled_equals_eager_bitwise(clean_executables, family,
+                                       local_matmul):
+    """Dense, masked and ``bsmm`` plans: the cached executable equals the
+    eager interpreter bitwise, on a first call and a cached one."""
+    port_summa, _ = clean_executables
+    case = oracle_case(family, seed=9)
+    masks = dict(a_mask=case["a_mask"], b_mask=case["b_mask"])
+    got = [DistributedMatmul(Grid.local("cpu"), local_matmul=local_matmul)(
+        case["a"], case["b"], **masks) for _ in range(2)]
+    eager = DistributedMatmul(Grid.local("cpu"), local_matmul=local_matmul,
+                              compiled=False)(case["a"], case["b"], **masks)
+    assert torch.equal(got[0], eager) and torch.equal(got[1], eager)
+    stats = port_summa.executable_cache_stats()
+    assert stats == {"hits": 1, "misses": 1, "retraces": 1, "size": 1}
+    np.testing.assert_allclose(eager.numpy(), case["ref"], atol=ORACLE_ATOL,
+                               rtol=ORACLE_RTOL)
+
+
+@pytest.mark.parametrize("local_matmul", ["xla", "pallas"])
+def test_rank_and_nonuniform_compiled_equal_eager(clean_executables,
+                                                  local_matmul):
+    """The factor route's executable (``execute_rank_plan``) and a
+    nonuniform product's equal their eager routes bitwise."""
+    from repro_torch.core import NonuniformMatmul
+    from repro_torch.core.blocking import nonuniform_tiling
+
+    rank, _, b = _rank_pair()
+    outs = {}
+    for compiled in (True, False):
+        mm = DistributedMatmul(Grid.local("cpu"), local_matmul=local_matmul,
+                               compiled=compiled)
+        assert mm.plan(128, 128, 96, a_ranks=rank).local_impl == "ranksparse"
+        outs[compiled] = mm(None, b, a_ranks=rank)
+        tilings = [nonuniform_tiling(70 + 10 * i, 5, seed=i) for i in range(3)]
+        nm = NonuniformMatmul(mm, *tilings, tile=16)
+        rng = np.random.default_rng(2)
+        a2 = rng.normal(size=(70, 80)).astype(np.float32)
+        b2 = rng.normal(size=(80, 90)).astype(np.float32)
+        outs[compiled, "nu"] = nm(a2, b2)
+    assert torch.equal(outs[True], outs[False])
+    assert torch.equal(outs[True, "nu"], outs[False, "nu"])
+    np.testing.assert_allclose(outs[True, "nu"].numpy(), a2.astype(
+        np.float64) @ b2, atol=ORACLE_ATOL, rtol=ORACLE_RTOL)
+    stats = clean_executables[0].executable_cache_stats()
+    assert stats["misses"] == stats["retraces"] == stats["size"] == 2
+
+
+def test_executable_cache_follows_the_reference(clean_executables):
+    """The same products through both packages leave equal counters (the
+    plan and executable sections), and builds never exceed misses; a warm
+    plan matches the reference's answer and makes the next call a hit."""
+    port_summa, ref_summa = clean_executables
+    case = oracle_case("random", seed=4)
+    rank, ref_rank, b = _rank_pair()
+    masks = dict(a_mask=case["a_mask"], b_mask=case["b_mask"])
+    mm = DistributedMatmul(Grid.local("cpu"), local_matmul="pallas")
+    ref = RefDistributedMatmul(make_host_mesh(1, 1), local_matmul="pallas")
+    a_j, b_j = jnp.asarray(case["a"]), jnp.asarray(case["b"])
+    calls = [
+        (lambda: mm(case["a"], case["b"]), lambda: ref(a_j, b_j)),
+        (lambda: mm(case["a"], case["b"], **masks),
+         lambda: ref(a_j, b_j, **masks)),
+        (lambda: mm(None, b, a_ranks=rank),
+         lambda: ref(None, jnp.asarray(b), a_ranks=ref_rank)),
+        (lambda: mm(case["a"].astype(np.float32), case["b"], tune=True),
+         lambda: ref(a_j, b_j, tune=True)),
+    ]
+    for _ in range(2):
+        for port_call, ref_call in calls:
+            port_call()
+            ref_call()
+            got = mm.cache_stats()
+            assert {k: got[k] for k in ("plan", "executable")} == {
+                k: ref.cache_stats()[k] for k in ("plan", "executable")}
+            assert got["executable"]["retraces"] <= got["executable"][
+                "misses"]
+    assert got["executable"]["hits"] == got["executable"]["misses"] == 4
+    for shape, kw in (((64, 128, 96), {}), ((48, 64, 32), masks),
+                      ((128, 128, 96), dict(a_ranks=rank))):
+        ref_kw = dict(kw, a_ranks=ref_rank) if "a_ranks" in kw else kw
+        plan, ref_plan = mm.plan(*shape, **kw), ref.plan(*shape, **ref_kw)
+        assert port_summa.warm_plan_executable(plan, torch.float32) == (
+            ref_summa.warm_plan_executable(ref_plan, jnp.float32))
+        assert port_summa.executable_cache_stats() == (
+            ref_summa.executable_cache_stats())
+
+
+def test_autotune_fingerprint_joins_the_plan_key(clean_executables):
+    """A non-empty autotune cache adds its fingerprint to every key (a
+    new executable); an empty one adds nothing (the old one is found)."""
+    port_summa, _ = clean_executables
+    from repro_torch.kernels import autotune as at
+
+    a = np.ones((32, 32), np.float32)
+    mm = DistributedMatmul(Grid.local("cpu"))
+    mm(a, a)
+    table = at.KernelAutotuner(device_kind="cpu")
+    table.table[at.bucket_key(256, 256, 256)] = {
+        "winner": "xla", "times_s": {"xla": 1e-5, "pallas": 2e-5},
+        "tiles": None}
+    at.set_autotune_cache(table)
+    assert port_summa._autotune_key_suffix() == (table.fingerprint(),)
+    mm(a, a)
+    assert port_summa.executable_cache_stats()["misses"] == 2
+    at.set_autotune_cache(None)
+    assert port_summa._autotune_key_suffix() == ()
+    mm(a, a)
+    assert port_summa.executable_cache_stats() == {
+        "hits": 1, "misses": 2, "retraces": 2, "size": 2}
+
+
+@pytest.mark.parametrize("local_matmul", ["xla", "pallas"])
+def test_summa_wrappers_match_reference(clean_executables, local_matmul):
+    """``summa_matmul`` and ``summa_blocksparse_matmul`` over global
+    operands give the reference's products and refuse what it refuses,
+    with its messages."""
+    from repro.core.summa import SummaConfig as RefSummaConfig
+    from repro.core.summa import summa_blocksparse_matmul as ref_bs
+    from repro.core.summa import summa_matmul as ref_sm
+    from repro_torch.core.summa import summa_blocksparse_matmul, summa_matmul
+
+    cfg = SummaConfig(grid=Grid.local("cpu"), k_blocks=8,
+                      local_matmul=local_matmul)
+    ref_cfg = RefSummaConfig(mesh=make_host_mesh(1, 1), k_blocks=8,
+                             local_matmul=local_matmul)
+    case = oracle_case("banded", seed=3)
+    a, b = torch.from_numpy(case["a"]), torch.from_numpy(case["b"])
+    a_j, b_j = jnp.asarray(case["a"]), jnp.asarray(case["b"])
+    np.testing.assert_allclose(
+        summa_matmul(a, b, cfg).numpy(), np.asarray(ref_sm(a_j, b_j, ref_cfg)),
+        atol=ORACLE_ATOL, rtol=ORACLE_RTOL)
+    got = summa_blocksparse_matmul(a, b, case["a_mask"], case["b_mask"], cfg)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(ref_bs(a_j, b_j, case["a_mask"],
+                                       case["b_mask"], ref_cfg)),
+        atol=ORACLE_ATOL, rtol=ORACLE_RTOL)
+    np.testing.assert_allclose(got.numpy(), case["ref"], atol=ORACLE_ATOL,
+                               rtol=ORACLE_RTOL)
+    ragged = (torch.ones(60, 100), torch.ones(100, 44))
+    for port_call, ref_call in (
+            (lambda: summa_matmul(*ragged, cfg),
+             lambda: ref_sm(jnp.ones((60, 100)), jnp.ones((100, 44)),
+                            ref_cfg)),
+            (lambda: summa_matmul(a, a, cfg),
+             lambda: ref_sm(a_j, a_j, ref_cfg)),
+            (lambda: summa_blocksparse_matmul(
+                *ragged, np.ones((8, 8), bool), np.ones((8, 4), bool), cfg),
+             lambda: ref_bs(jnp.ones((60, 100)), jnp.ones((100, 44)),
+                            np.ones((8, 8), bool), np.ones((8, 4), bool),
+                            ref_cfg))):
+        with pytest.raises(ValueError) as want:
+            ref_call()
+        with pytest.raises(ValueError) as got:
+            port_call()
+        assert str(got.value).split(";")[0] == str(want.value).split(";")[0]
