@@ -39,6 +39,13 @@ raises, so the script exits non-zero:
    record, ``tiled_matmul`` launched as the tuned executor issues it (one
    per K panel, or once for the all-gather schedule) and ``bsmm`` once, C
    against ``torch.matmul``;
+
+   [25d] ``summa_25d_matmul`` on the 1x1x1 grid ``("pod", "data",
+   "model")``, replicas over ``pod``, at the same size and ``k_blocks``:
+   128 ``tiled_matmul`` launches, C bitwise equal to ``summa_matmul``'s
+   on the 2-axis grid and within the fp32 hold of ``torch.matmul``; then
+   ``summa_matmul`` with the tuple row axis ``("pod", "data")``, bitwise
+   equal too;
 6. main path, rank-sparse: A as low-rank block factors
    (``make_rank_factors``: 2342 of 16384 blocks, ranks up to 64, r_pad
    64), ``DistributedMatmul(None, b, a_ranks=rcsr)`` with stage 1 through
@@ -107,7 +114,34 @@ raises, so the script exits non-zero:
    [auto forward] llama3.2-1b at full width cut to 2 layers, 1 × 4096
    tokens, under ``matmul_strategy="auto"`` (the FFN projections on the
    tuner's schedule): 2 ``flash_attention`` launches, logits against the
-   ``"summa"`` forward of the same weights within the bf16 pair hold.
+   ``"summa"`` forward of the same weights within the bf16 pair hold;
+
+   [moe] the mixture-of-experts family through ``models.model.forward
+   (use_kernel=True)``, weights from ``init_model`` (seed 0), bf16:
+   mixtral-8x7b at full width (d_model 4096, 8 experts of d_ff 14336,
+   top-2, window 4096) on 4 prompts x 4096 tokens — first cut to 2
+   layers and held against the fp32 forward of the same weights as
+   phase 8 holds llama (the bf16 kernel forward no further from it than
+   1.5x the bf16 einsum forward), then cut to 8 layers (its experts are
+   22.5 GB; all 32 would be 90 GB, more than the card holds): warm wall,
+   peak memory, greedy next tokens, 3 ``grouped_gemm`` launches a layer
+   (gate, up, down) and one ``flash_attention``; then kimi-k2 at full
+   width cut to 1 layer (384 experts of d_ff 2048, top-8, a shared
+   expert, heads of 112; 39 GB in bf16) on 1 x 4096 tokens, its argmax
+   held against its einsum forward's.  For each model: ``flash_attention``
+   at its own attention call (mixtral B=4, 32/8 heads of 128, window
+   4096; kimi-k2 B=1, 64/8 heads of 112) against its plain version; two
+   witness forwards that split the kernel forward's distance from the
+   einsum one between the kernels (plain attention with the kernel's
+   experts, held to the einsum forward, and flash attention with einsum
+   experts, held to the kernel forward, each within one bf16 rounding of
+   a logit and 2e-2 of their rms); the first MoE layer through the kernel
+   against the einsum route on the same input at the output's scale; and
+   each ``grouped_gemm`` launch shape (the capacity buffer's C-row tiles:
+   C = 1280 and 112) on the layer's own weights against
+   ``grouped_gemm_plain`` at the output's scale, timed beside the plain
+   version, one ``torch.bmm`` over the buffer grouped by expert and the
+   card's bound.
 
 Every product runs on an empty autotune cache, so its launch counts do
 not depend on the cache, except the two that check the cache: the end of
@@ -171,8 +205,11 @@ from repro_torch.core.sparsity import (  # noqa: E402
 )
 from repro_torch.core.summa import (  # noqa: E402
     RANK_CHUNK_BYTES,
+    SummaConfig,
     rank_operands,
     reference_blocksparse_matmul,
+    summa_25d_matmul,
+    summa_matmul,
 )
 from repro_torch.dist.context import ParallelCtx  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -196,6 +233,10 @@ from repro_torch.kernels.tiled_matmul import (  # noqa: E402
     tiled_matmul_cuda,
     tiled_matmul_plain,
 )
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
+from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models.model import LM, forward, init_model  # noqa: E402
 from repro_torch.sched import abstract_summa_config, tune_plan  # noqa: E402
 
@@ -231,6 +272,18 @@ ORACLE_ATOL, ORACLE_RTOL = 5e-4, 1e-4
 CHAIN_N, CHAIN_BLOCK, CHAIN_DECAY = 8192, 256, 0.5
 #: [auto forward]: llama3.2-1b at full width, depth cut to 2 layers
 AUTO_LAYERS, AUTO_SEQ = 2, 4096
+#: [25d]: the three axes of the multi-pod grid (replicas over the first)
+AXES3 = ("pod", "data", "model")
+#: [moe]: mixtral-8x7b at full width, 4 prompts of 4096 tokens, its depth
+#: cut to MOE_LAYERS (32 layers of experts are 90 GB in bf16, more than
+#: the card's 80 GB) and to MOE_HOLD_LAYERS for the hold against its fp32
+#: twin (whose weights take twice the bf16 ones'); kimi-k2 at full width,
+#: one layer (39 GB in bf16), one prompt of 4096 tokens
+MOE_ARCH, MOE_LAYERS, MOE_HOLD_LAYERS = "mixtral-8x7b", 8, 2
+MOE_BATCH, MOE_SEQ = 4, 4096
+KIMI_ARCH, KIMI_LAYERS, KIMI_BATCH = "kimi-k2-1t-a32b", 1, 1
+#: grouped_gemm launches of one MoE layer's expert GEMMs: gate, up, down
+MOE_LAUNCHES_PER_LAYER = 3
 #: the LM forward: full llama3.2-1b, train_4k's length and prefill_32k's
 LM_ARCH = "llama3.2-1b"
 LM_BATCH, LM_SEQ, LM_LONG_SEQ = 4, 4096, 32768
@@ -251,11 +304,18 @@ LM_BF16_REL_RATIO, LM_BF16_AGREE_DROP = 1.5, 0.03
 #: 80GB HBM3 at 700 W: 4.85 % of max |logit| and 0.901 of argmaxes, and
 #: 5.28 % and 0.889.
 LM_BF16_PAIR_REL, LM_BF16_PAIR_AGREE = 0.08, 0.85
-#: bf16 attention held to the output's scale: the kernel and its plain
-#: version both compute in fp32 and round once to bf16, so they may
-#: differ by one bf16 ulp (at most 2**-7 of |want|) and by fp32 noise,
-#: which the absolute term (a share of rms(want)) covers.
-FA_BF16_ULP_RTOL, FA_BF16_RMS_ATOL = 2.0 ** -7, 2e-2
+#: bf16 outputs held to their own scale (``hold_at_scale``): a kernel and
+#: its plain version (flash_attention, grouped_gemm), or two routes of a
+#: MoE layer or forward, both sum in fp32 and round once to bf16, so they
+#: may differ by one bf16 ulp (at most 2**-7 of |want|) and by fp32 noise,
+#: which the absolute term (a share of rms(want)) covers.  Two MoE
+#: forwards whose *attention* differs in rounding also differ in routing:
+#: a token whose k-th and (k+1)-th router logits lie within that rounding
+#: goes to another expert (top-8 of 384 in kimi-k2), which moves its
+#: output by a share of the whole layer; such a pair is held by its argmax
+#: agreement (LM_BF16_PAIR_AGREE), and witness forwards with one kernel
+#: each show which kernel the distance comes from.
+BF16_ULP_RTOL, BF16_RMS_ATOL = 2.0 ** -7, 2e-2
 #: published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12  # dense tensor cores
@@ -546,7 +606,7 @@ def phase_kernels(sparse_plan, rank_plan, r_pad) -> dict:
                                (960, 256, 300, 3, 64)):
             x, w = randn((t, d), dtype, gen), randn((e, d, f), dtype, gen)
             te = torch.randint(0, e, (t // bt,), generator=gen,
-                               device=DEVICE, dtype=torch.int32)
+                               device=DEVICE, dtype=torch.int32).cpu()
             got = grouped_gemm_cuda(x, w, te, bt=bt)
             torch.cuda.synchronize()
             compare(got, grouped_gemm_plain(x, w, te, bt=bt), d, dtype,
@@ -581,7 +641,8 @@ def _rank_chunks(plan, r_pad) -> tuple[int, int]:
 def _grouped_operands(plan, r_pad, dtype, gen, b=None):
     """Operands of one main-path ``grouped_gemm`` launch: V tokens of one
     chunk of block rows ordered (block row, panel, rank), the experts
-    B (k_pad, n_pad) viewed (K panels, bk, n) and their tile map."""
+    B (k_pad, n_pad) viewed (K panels, bk, n) and their tile map, on the
+    host as the route gives it."""
     rows, _ = _rank_chunks(plan, r_pad)
     live = len(plan.live_panels)
     bk = plan.kb_width
@@ -589,8 +650,7 @@ def _grouped_operands(plan, r_pad, dtype, gen, b=None):
     if b is None:
         b = randn((plan.k_pad, plan.n_pad), dtype, gen)
     w = b.view(plan.k_steps, bk, plan.n_pad)
-    te = torch.as_tensor(np.tile(np.asarray(plan.live_panels, np.int32), rows),
-                         device=DEVICE)
+    te = np.tile(np.asarray(plan.live_panels, np.int32), rows)
     return x, w, te
 
 
@@ -728,6 +788,46 @@ def phase_tuned(mm, a, b, a_mask, b_mask) -> dict:
         log(f"  the tuned dense product's one tiled_matmul ({N}x{N})x({N}x"
             f"{N}) alone: {ms:.3f} ms (CUDA events, one launch after a "
             f"warm-up)")
+    return out
+
+
+def phase_25d(a, b) -> dict:
+    """[25d] 2.5D SUMMA on the 1x1x1 grid at the commodity size: one
+    replica runs every K panel, so it launches what the 2-D route does
+    and must equal its C bitwise; then tuple-axis SUMMA on the same
+    grid."""
+    kw = dict(strategy="taskbased", k_blocks=K_PANELS, local_matmul="pallas")
+    grid3 = Grid.local(DEVICE, axis_names=AXES3)
+    cfg2 = SummaConfig(grid=Grid.local(DEVICE), **kw)
+    cfg25 = SummaConfig(grid=grid3, row_axis="data", col_axis="model", **kw)
+    cfg_t = SummaConfig(grid=grid3, row_axis=("pod", "data"),
+                        col_axis="model", **kw)
+    log(f"[25d] summa_25d_matmul on the 1x1x1 grid {AXES3} (rep_axis "
+        f"'pod'), N={N}, k_blocks={K_PANELS}, local_matmul=pallas, against "
+        f"summa_matmul on the 1x1 grid")
+    out = {}
+    c2d, out["wall_2d"], _ = run_path(
+        lambda a, b: summa_matmul(a, b, cfg2), a, b, "tiled_matmul")
+    for key, call, what in (
+            ("25d", lambda a, b: summa_25d_matmul(a, b, cfg25),
+             "summa_25d_matmul"),
+            ("tuple", lambda a, b: summa_matmul(a, b, cfg_t),
+             "summa_matmul(row_axis=('pod', 'data'))")):
+        c, out[f"wall_{key}"], counts = run_path(call, a, b, "tiled_matmul")
+        if counts["tiled_matmul"] != K_PANELS:
+            raise AssertionError(f"{what}: expected {K_PANELS} tiled_matmul "
+                                 f"launches, got {counts}")
+        out[f"launches_{key}"] = counts["tiled_matmul"]
+        if not torch.equal(c, c2d):
+            raise AssertionError(f"{what}: C differs from the 2-D route's")
+        log(f"  {what}: C equals summa_matmul's on the 1x1 grid bitwise")
+        if key == "25d":
+            compare(c, torch.matmul(a, b), N, torch.float32,
+                    f"{what} C vs torch.matmul")
+        del c
+        torch.cuda.empty_cache()
+    log(f"  walls (host clock): 2-D {out['wall_2d']:.3f} s, 2.5D "
+        f"{out['wall_25d']:.3f} s, tuple-axis {out['wall_tuple']:.3f} s")
     return out
 
 
@@ -1545,14 +1645,15 @@ def _time_grouped(plan, r_pad, b) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     x, w, te = _grouped_operands(plan, r_pad, torch.float32, gen, b=b)
     bt = r_pad
-    n_pairs = tile_pairs(te.cpu(), bt).shape[0]
+    n_pairs = tile_pairs(te, bt).shape[0]
     t, d = x.shape
     e, _, f = w.shape
     live = len(plan.live_panels)
     flops = 2.0 * t * d * f
-    nbytes = 4.0 * (t * d + live * d * f + t * f) + te.numel() * 4
+    nbytes = 4.0 * (t * d + live * d * f + t * f) + te.size * 4
     ms = cuda_ms(lambda: grouped_gemm_cuda(x, w, te, bt=bt), 5)
-    plain_ms = cuda_ms(lambda: grouped_gemm_plain(x, w, te, bt=bt), 3)
+    te_dev = torch.as_tensor(te, device=DEVICE)
+    plain_ms = cuda_ms(lambda: grouped_gemm_plain(x, w, te_dev, bt=bt), 3)
     rows = t // (live * bt)
     x_by_expert = (x.view(rows, live, bt, d).transpose(0, 1)
                    .reshape(live, rows * bt, d))
@@ -1602,8 +1703,8 @@ def heads_view(b, s, h, dh, dtype, gen):
 
 def compare_attention(got, want, dtype, what: str) -> float:
     """Largest |got - want|; raises unless every element is finite and
-    within ``atol = rtol = attention_tol(dtype)`` and, in bf16, also
-    within ``FA_BF16_ULP_RTOL * |want| + FA_BF16_RMS_ATOL * rms(want)``."""
+    within ``atol = rtol = attention_tol(dtype)`` and, in bf16, also at
+    the output's scale (``hold_at_scale``)."""
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
     t = attention_tol(dtype)
@@ -1618,15 +1719,34 @@ def compare_attention(got, want, dtype, what: str) -> float:
     if bad:
         raise AssertionError(f"{what}: {bad} elements out of tolerance")
     if dtype == torch.bfloat16:
-        atol = FA_BF16_RMS_ATOL * w.square().mean().sqrt().item()
-        worst = (diff / (atol + FA_BF16_ULP_RTOL * w.abs())).max().item()
-        log(f"    at the output's scale (atol {FA_BF16_RMS_ATOL} x rms = "
-            f"{atol:.4g}, rtol 2**-7): worst element at {worst:.4g} of its "
-            f"limit -> {'ok' if worst <= 1 else 'OUT OF TOLERANCE'}")
-        if worst > 1:
-            raise AssertionError(f"{what}: out of tolerance at the output's "
-                                 f"scale")
+        hold_at_scale(got, want, what)
     return err
+
+
+def hold_at_scale(got, want, what: str) -> float:
+    """Raises unless every element of ``got`` is finite and within
+    ``BF16_ULP_RTOL * |want| + BF16_RMS_ATOL * rms(want)`` of ``want``:
+    one bf16 rounding of each value and fp32 noise at a share of the
+    values' scale.  Returns the worst element's share of its limit."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
+    rows = max(1, 2**26 // max(1, want[0].numel()))  # bounds temporaries
+    sq = sum(w.float().square().sum().item() for w in want.split(rows))
+    atol = BF16_RMS_ATOL * math.sqrt(sq / max(1, want.numel()))
+    worst = 0.0
+    for g, w in zip(got.split(rows), want.split(rows)):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{what}: non-finite values")
+        limit = atol + BF16_ULP_RTOL * w.abs()
+        worst = max(worst, ((g - w).abs() / limit).max().item())
+    log(f"    at the output's scale (atol {BF16_RMS_ATOL} x rms = "
+        f"{atol:.4g}, rtol 2**-7): worst element at {worst:.4g} of its "
+        f"limit -> {'ok' if worst <= 1 else 'OUT OF TOLERANCE'}")
+    if worst > 1:
+        raise AssertionError(f"{what}: out of tolerance at the output's "
+                             f"scale")
+    return worst
 
 
 def attention_operands(cfg, b, s, gen):
@@ -1730,16 +1850,37 @@ def time_attention(cfg, b, s, iters, plain=True) -> dict:
     return out
 
 
-def run_forward(model, tokens, cfg, ctx, *, use_kernel, what):
+@contextlib.contextmanager
+def expert_route(kernel: bool):
+    """``forward``'s MoE blocks with their expert GEMMs on the kernel
+    (``kernel`` true) or the einsum route, whatever its ``use_kernel``
+    says of attention: a witness forward with one kernel of the two."""
+    moe_ffn = lm_model.moe_ffn
+
+    def routed(*args, use_kernel=False):
+        del use_kernel  # the witness's choice stands
+        return moe_ffn(*args, use_kernel=kernel)
+
+    lm_model.moe_ffn = routed
+    try:
+        yield
+    finally:
+        lm_model.moe_ffn = moe_ffn
+
+
+def run_forward(model, tokens, cfg, ctx, *, use_kernel, what, experts=None):
     """One forward with every launch count set to 0 just before and read
-    just after; returns (logits, wall seconds, counts, peak bytes)."""
+    just after; returns (logits, wall seconds, counts, peak bytes).
+    ``experts`` (default ``use_kernel``) sets the MoE blocks' expert GEMMs
+    apart from attention (``expert_route``)."""
+    experts = use_kernel if experts is None else experts
     for fn in COUNTERS.values():
         fn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    with torch.inference_mode():
+    with torch.inference_mode(), expert_route(experts):
         logits, _ = forward(model, {"tokens": tokens}, cfg, ctx,
                             use_kernel=use_kernel)
     torch.cuda.synchronize()
@@ -1749,12 +1890,13 @@ def run_forward(model, tokens, cfg, ctx, *, use_kernel, what):
     log(f"  {what}: launches {counts}; wall {wall:.3f} s; peak device "
         f"memory {peak / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB resident "
         f"before the call)")
-    want = cfg.num_layers if use_kernel else 0
-    if counts["flash_attention"] != want or any(
-            n for name, n in counts.items() if name != "flash_attention"):
+    want = {"flash_attention": cfg.num_layers if use_kernel else 0,
+            "grouped_gemm": (MOE_LAUNCHES_PER_LAYER * cfg.num_layers
+                             if experts and cfg.moe is not None else 0)}
+    if any(n != want.get(name, 0) for name, n in counts.items()):
         raise AssertionError(
-            f"{what}: expected {want} flash_attention launches and no "
-            f"other kernel, got {counts}")
+            f"{what}: expected launches {want} and no other kernel, got "
+            f"{counts}")
     b, s = tokens.shape
     if logits.shape != (b, s, cfg.vocab_size) or logits.dtype != torch.float32:
         raise AssertionError(f"{what}: logits {tuple(logits.shape)} "
@@ -1968,6 +2110,270 @@ def phase_auto_forward() -> dict:
                 peak=peak)
 
 
+def moe_launches(layer, cfg, b: int, s: int, gen, iters: int) -> dict:
+    """The ``grouped_gemm`` launches of one MoE layer of ``cfg`` on ``b``
+    prompts of ``s`` tokens, on the layer's own weights and random bf16
+    tokens filling its capacity buffer ``(b, E, C, D)``: gate (up has its
+    shape) and down, each held against ``grouped_gemm_plain`` (the
+    reference's tolerance and ``hold_at_scale``) and timed
+    through ``ops.grouped_gemm`` as the layer calls it (host tile map),
+    beside the plain version, one ``torch.bmm`` over the buffer grouped
+    by expert and the card's bound (one bf16 product: its FLOP at the
+    bf16 peak against its bytes)."""
+    e = layer.w_gate.shape[0]
+    cap = moe_layer.capacity(cfg.moe, s, e)
+    te = np.tile(np.arange(e, dtype=np.int32), b)
+    te_dev = torch.as_tensor(te, device=DEVICE)
+    t = b * e * cap
+    out = {}
+    for name, w in (("gate", layer.w_gate), ("down", layer.w_down)):
+        d, f = w.shape[1], w.shape[2]
+        x = randn((t, d), torch.bfloat16, gen)
+        what = (f"grouped_gemm bf16 {cfg.name} {name} T={t} D={d} F={f} "
+                f"E={e} bt={cap}")
+        got = kops.grouped_gemm(x, w, te, bt=cap)
+        torch.cuda.synchronize()
+        want = grouped_gemm_plain(x, w, te_dev, bt=cap)
+        err = compare(got, want, d, torch.bfloat16, what)
+        hold_at_scale(got, want, what)
+        del got, want
+        flops = 2.0 * t * d * f
+        nbytes = 2.0 * (t * d + e * d * f + t * f)
+        ms = cuda_ms(lambda: kops.grouped_gemm(x, w, te, bt=cap), iters)
+        plain_ms = cuda_ms(lambda: grouped_gemm_plain(x, w, te_dev, bt=cap),
+                           2)
+        x_by_expert = (x.view(b, e, cap, d).transpose(0, 1)
+                       .reshape(e, b * cap, d))
+        lib_ms = cuda_ms(lambda: torch.bmm(x_by_expert, w), iters)
+        bound_ms, by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        log(f"  {what}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s), "
+            f"plain {plain_ms:.3f} ms, torch.bmm (grouped by expert) "
+            f"{lib_ms:.3f} ms, bound {bound_ms:.3f} ms ({by}: {flops:.4g} "
+            f"FLOP at {PEAK_BF16_FLOPS:.3g} FLOP/s = "
+            f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms; {nbytes:.4g} bytes at "
+            f"{PEAK_HBM_BYTES_PER_S:.3g} B/s = "
+            f"{nbytes / PEAK_HBM_BYTES_PER_S * 1e3:.4f} ms)")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=by, max_abs_err=err,
+                         flops=flops, nbytes=nbytes)
+        del x, x_by_expert
+        torch.cuda.empty_cache()
+    layer_ms = 2 * out["gate"]["ms"] + out["down"]["ms"]
+    layer_bound = 2 * out["gate"]["bound_ms"] + out["down"]["bound_ms"]
+    log(f"  {cfg.name}: one layer's {MOE_LAUNCHES_PER_LAYER} launches "
+        f"{layer_ms:.3f} ms against a bound of {layer_bound:.3f} ms")
+    return out
+
+
+def hold_moe_layer(model, cfg, tokens) -> float:
+    """The first MoE layer of ``model`` on the embedded ``tokens``: the
+    kernel route (``MOE_LAUNCHES_PER_LAYER`` ``grouped_gemm`` launches)
+    against the einsum route on the same input, held at the output's
+    scale (``hold_at_scale``: both route alike and round their GEMMs
+    once), and their aux losses equal; returns the distance over max
+    |output|."""
+    layer = model.units[0]["b0"].moe
+    with torch.inference_mode():
+        x = model_layers.embed(model.embed, tokens)
+        grouped_gemm_cuda.launches = 0
+        got, aux = moe_layer.moe_ffn(layer, x, cfg, ParallelCtx(None),
+                                     use_kernel=True)
+        torch.cuda.synchronize()
+        launches = grouped_gemm_cuda.launches
+        want, want_aux = moe_layer.moe_ffn(layer, x, cfg, ParallelCtx(None))
+    if launches != MOE_LAUNCHES_PER_LAYER:
+        raise AssertionError(f"{cfg.name} MoE layer: {launches} grouped_gemm "
+                             f"launches, not {MOE_LAUNCHES_PER_LAYER}")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{cfg.name} MoE layer: non-finite output")
+    diff = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    what = f"{cfg.name} MoE layer 0 on the embedded prompts, kernel vs einsum"
+    log(f"  {what}: max |difference| {diff:.6g} = {diff / scale:.6g} of "
+        f"max |output| {scale:.6g} (bitwise equal: {torch.equal(got, want)});"
+        f" aux {float(aux):.6g} vs {float(want_aux):.6g}")
+    hold_at_scale(got, want, what)
+    hold(float(aux) == float(want_aux), f"{what}: aux losses equal")
+    return diff / scale
+
+
+def hold_moe_attention(cfg, b: int, gen) -> float:
+    """``flash_attention`` at ``cfg``'s own attention call on ``b`` prompts
+    of ``MOE_SEQ`` tokens (causal, the config's window) against its plain
+    version; returns the error."""
+    q, k, v = attention_operands(cfg, b, MOE_SEQ, gen)
+    got = flash_attention_cuda(q, k, v, causal=True, window=cfg.window)
+    torch.cuda.synchronize()
+    err = compare_attention(
+        got, flash_attention_plain(q, k, v, causal=True, window=cfg.window),
+        torch.bfloat16,
+        f"flash_attention bf16 {cfg.name} (B={b}, H={cfg.num_heads}, "
+        f"Hkv={cfg.num_kv_heads}, S={MOE_SEQ}, Dh={cfg.resolved_head_dim}, "
+        f"causal, window {cfg.window})")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return err
+
+
+def hold_witnesses(model, tokens, cfg, plain, kernel) -> dict:
+    """Where the bf16 kernel forward's distance from the einsum forward
+    (``kernel``, ``plain``: their logits) comes from, by two witness
+    forwards with one kernel each.  Plain attention with the kernel's
+    experts routes as the einsum forward does (its routers see the same
+    inputs up to the experts' own rounding, none at all in one layer), so
+    it must equal the einsum forward at the logits' scale
+    (``hold_at_scale``); flash attention with einsum experts routes as
+    the kernel forward does and must equal it likewise.  What is left,
+    the flash-attention witness's distance from the einsum forward, is
+    attention's rounding moving routers; returns the distances."""
+    xla = ParallelCtx(None)
+    experts, _, _, _ = run_forward(
+        model, tokens, cfg, xla, use_kernel=False, experts=True,
+        what="witness: plain attention, kernel experts")
+    hold_at_scale(experts, plain, "plain attention with kernel experts vs "
+                  "the einsum forward")
+    e_rel, _ = logit_distance(experts, plain, "plain attention with kernel "
+                              "experts vs the einsum forward")
+    del experts
+    attn, _, _, _ = run_forward(
+        model, tokens, cfg, xla, use_kernel=True, experts=False,
+        what="witness: flash attention, einsum experts")
+    hold_at_scale(kernel, attn, "the kernel forward vs flash attention with "
+                  "einsum experts")
+    a_rel, a_share = logit_distance(attn, plain, "flash attention with "
+                                    "einsum experts vs the einsum forward")
+    del attn
+    torch.cuda.empty_cache()
+    return dict(experts_rel=e_rel, attention_rel=a_rel,
+                attention_share=a_share)
+
+
+def moe_model(cfg):
+    """``cfg``'s model on the card, from ``init_model`` (seed 0)."""
+    t0 = time.perf_counter()
+    model = init_model(cfg, generator=torch.Generator(
+        device=DEVICE).manual_seed(SEED), device=DEVICE)
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  init_model({cfg.name}, {cfg.num_layers} layers) on the card: "
+        f"{time.perf_counter() - t0:.2f} s, {weights / 2**30:.2f} GiB of "
+        f"weights")
+    return model
+
+
+def moe_tokens(cfg, b: int, seed: int) -> torch.Tensor:
+    return torch.randint(0, cfg.vocab_size, (b, MOE_SEQ),
+                         generator=torch.Generator(
+                             device=DEVICE).manual_seed(seed),
+                         device=DEVICE)
+
+
+def phase_moe() -> dict:
+    """[moe] mixtral-8x7b and kimi-k2 at full width through
+    ``forward(use_kernel=True)``; returns their numbers."""
+    xla = ParallelCtx(None)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    out = {}
+    base = get_config(MOE_ARCH)
+    log(f"[moe] {base.name} at full width: d_model {base.d_model}, "
+        f"{base.moe.num_experts} experts of d_ff {base.moe.d_ff}, top-"
+        f"{base.moe.top_k}, heads {base.num_heads}/{base.num_kv_heads} (Dh "
+        f"{base.resolved_head_dim}), window {base.window}, vocab "
+        f"{base.vocab_size}, {base.dtype}; B={MOE_BATCH} S={MOE_SEQ}")
+    # the hold: MOE_HOLD_LAYERS layers against their fp32 twin
+    cfg = dataclasses.replace(base, num_layers=MOE_HOLD_LAYERS)
+    out["mixtral_attention"] = hold_moe_attention(cfg, MOE_BATCH, gen)
+    model = moe_model(cfg)
+    tokens = moe_tokens(cfg, MOE_BATCH, SEED + 10)
+    model32, cfg32 = fp32_twin(model, cfg)
+    ref32, _, _, _ = run_forward(
+        model32, tokens, cfg32, xla, use_kernel=False,
+        what=f"fp32 forward(use_kernel=False), {MOE_HOLD_LAYERS} layers")
+    del model32
+    torch.cuda.empty_cache()
+    plain, _, _, _ = run_forward(
+        model, tokens, cfg, xla, use_kernel=False,
+        what=f"bf16 forward(use_kernel=False), {MOE_HOLD_LAYERS} layers")
+    rel_p, share_p = logit_distance(plain, ref32,
+                                    "bf16 einsum forward vs fp32 forward")
+    got, _, _, _ = run_forward(
+        model, tokens, cfg, xla, use_kernel=True,
+        what=f"bf16 forward(use_kernel=True), {MOE_HOLD_LAYERS} layers")
+    rel, share = logit_distance(got, ref32,
+                                "bf16 kernel forward vs fp32 forward")
+    hold(rel <= LM_BF16_REL_RATIO * rel_p
+         and share >= share_p - LM_BF16_AGREE_DROP,
+         f"bf16 kernel forward vs fp32 forward: no further than "
+         f"{LM_BF16_REL_RATIO} x the einsum forward's {rel_p:.6g}, argmax "
+         f"within {LM_BF16_AGREE_DROP} of its {share_p:.6f}")
+    del ref32
+    out["hold"] = dict(rel=rel, share=share, rel_plain=rel_p,
+                       share_plain=share_p,
+                       **hold_witnesses(model, tokens, cfg, plain, got))
+    del got, plain, model
+    torch.cuda.empty_cache()
+    # the depth-cut model: walls, memory, greedy tokens, the kernels
+    cfg = dataclasses.replace(base, num_layers=MOE_LAYERS)
+    model = moe_model(cfg)
+    logits, cold, _, _ = run_forward(
+        model, tokens, cfg, xla, use_kernel=True,
+        what=f"forward(use_kernel=True), {MOE_LAYERS} layers, first call")
+    for i in range(MOE_BATCH):
+        if not torch.isfinite(logits[i]).all():
+            raise AssertionError(f"{cfg.name}: non-finite logits")
+    greedy = logits[:, -1].argmax(-1).tolist()
+    log(f"  all logits finite; greedy next token of each prompt: {greedy}")
+    del logits
+    _, wall, counts, peak = run_forward(
+        model, tokens, cfg, xla, use_kernel=True,
+        what=f"warm forward(use_kernel=True), {MOE_LAYERS} layers")
+    out["mixtral"] = dict(cold=cold, wall=wall, peak=peak, launches=counts,
+                          greedy=greedy,
+                          layer_rel=hold_moe_layer(model, cfg, tokens))
+    out["mixtral_times"] = moe_launches(model.units[0]["b0"].moe, cfg,
+                                        MOE_BATCH, MOE_SEQ, gen, 10)
+    del model
+    torch.cuda.empty_cache()
+    # kimi-k2: top-8 of 384 experts, a shared expert, heads of 112
+    cfg = dataclasses.replace(get_config(KIMI_ARCH), num_layers=KIMI_LAYERS)
+    log(f"[moe] {cfg.name} at full width, {KIMI_LAYERS} layer: d_model "
+        f"{cfg.d_model}, {cfg.moe.num_experts} experts of d_ff "
+        f"{cfg.moe.d_ff} + {cfg.moe.num_shared_experts} shared, top-"
+        f"{cfg.moe.top_k}, heads {cfg.num_heads}/{cfg.num_kv_heads} (Dh "
+        f"{cfg.resolved_head_dim}), vocab {cfg.vocab_size}; B={KIMI_BATCH} "
+        f"S={MOE_SEQ}")
+    out["kimi_attention"] = hold_moe_attention(cfg, KIMI_BATCH, gen)
+    model = moe_model(cfg)
+    tokens = moe_tokens(cfg, KIMI_BATCH, SEED + 11)
+    plain, _, _, _ = run_forward(model, tokens, cfg, xla, use_kernel=False,
+                                 what="bf16 forward(use_kernel=False)")
+    logits, cold, _, _ = run_forward(
+        model, tokens, cfg, xla, use_kernel=True,
+        what="bf16 forward(use_kernel=True), first call")
+    k_rel, k_share = logit_distance(
+        logits, plain, "bf16 kernel forward vs bf16 einsum forward")
+    hold(k_share >= LM_BF16_PAIR_AGREE,
+         f"bf16 kernel forward vs bf16 einsum forward: argmax agrees at "
+         f"least at {LM_BF16_PAIR_AGREE} of positions (its distance is "
+         f"held through the witnesses below)")
+    greedy = logits[:, -1].argmax(-1).tolist()
+    log(f"  greedy next token: {greedy}")
+    witnesses = hold_witnesses(model, tokens, cfg, plain, logits)
+    del plain, logits
+    _, wall, counts, peak = run_forward(
+        model, tokens, cfg, xla, use_kernel=True,
+        what="warm forward(use_kernel=True)")
+    out["kimi"] = dict(cold=cold, wall=wall, peak=peak, launches=counts,
+                       greedy=greedy, rel=k_rel, share=k_share,
+                       layer_rel=hold_moe_layer(model, cfg, tokens),
+                       **witnesses)
+    out["kimi_times"] = moe_launches(model.units[0]["b0"].moe, cfg,
+                                     KIMI_BATCH, MOE_SEQ, gen, 5)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     kind, count = phase_device()
     phase_build()
@@ -2004,6 +2410,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated()
     tuned = phase_tuned(mm, a, b, a_mask, b_mask)
+    summa_25d = phase_25d(a, b)
     rank = phase_rank(rcsr, a)
     phase_rank_fallback()
     torch.cuda.empty_cache()
@@ -2054,6 +2461,17 @@ def main() -> None:
     log(f"  auto forward ({AUTO_LAYERS} layers, B=1 S={AUTO_SEQ}): warm "
         f"{auto['wall']:.3f} s (summa {auto['summa_wall']:.3f} s), "
         f"{auto['launches']} flash_attention launches")
+    moe = phase_moe()
+    for arch, key in ((MOE_ARCH, "mixtral"), (KIMI_ARCH, "kimi")):
+        r = moe[key]
+        log(f"  {arch} forward (host clock, ending in synchronize; "
+            f"{MOE_LAYERS if key == 'mixtral' else KIMI_LAYERS} layers): "
+            f"warm {r['wall']:.3f} s, first {r['cold']:.3f} s, peak "
+            f"{r['peak'] / 2**30:.2f} GiB, launches {r['launches']}")
+    log(f"  [25d] 2.5D {summa_25d['wall_25d']:.3f} s and tuple-axis "
+        f"{summa_25d['wall_tuple']:.3f} s against the 2-D route's "
+        f"{summa_25d['wall_2d']:.3f} s, {summa_25d['launches_25d']} "
+        f"tiled_matmul launches each")
     launches = {"tiled_matmul": dense_launches, "bsmm": sparse_launches,
                 "grouped_gemm": rank["pallas"]["launches"],
                 "flash_attention": lm["launches"]}

@@ -197,7 +197,7 @@ def main() -> None:
                   run(lib, x, w, te, lists[which], bt))
            for name, (lib, which) in runs.items()}
     if "source" in runs:
-        fns["wrapper"] = lambda: grouped_gemm_cuda(x, w, te, bt=bt)
+        fns["wrapper"] = lambda: grouped_gemm_cuda(x, w, te_np, bt=bt)
     times = in_turns(fns, 5)
     rows = t // bt // e
     x_by_expert = x.view(rows, e, bt, d).transpose(0, 1).reshape(e, -1, d)

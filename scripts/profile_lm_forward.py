@@ -1,22 +1,28 @@
 #!/usr/bin/env python3
-"""Where the time of one llama3.2-1b forward goes, on one CUDA card.
+"""Where the time of one LM forward goes, on one CUDA card.
 
 Run from the repository root on a machine with a CUDA card and ``nvcc``::
 
-    python3 scripts/profile_lm_forward.py
+    python3 scripts/profile_lm_forward.py            # llama3.2-1b
+    python3 scripts/profile_lm_forward.py --arch mixtral-8x7b --layers 8
 
-It builds llama3.2-1b at full width and depth (``init_model``, seed 0,
-bf16; the model of ``chip_smoke.py`` phase 8) and 4 prompts of 4096
-tokens, runs ``models.model.forward(..., use_kernel=True)`` twice to warm
-up, then traces one more forward with ``torch.profiler`` and prints the
-wall time (host clock ending in ``synchronize``), the device time summed
-by kernel name (largest first), the device's busy share of the wall, and
-the device time grouped into attention (the ``flash_attention`` kernel),
-matrix products (cuBLAS GEMM kernels) and the rest.  It exits non-zero
-if the profiler records no device time on the card.
+It builds the architecture (default llama3.2-1b) at full width
+(``init_model``, seed 0, bf16; the models of ``chip_smoke.py`` phase 8
+and [moe]), its depth cut to ``--layers`` when given, and ``--batch``
+prompts of ``--seq`` tokens (default 4 x 4096), runs
+``models.model.forward(..., use_kernel=True)`` twice to warm up, then
+traces one more forward with ``torch.profiler`` and prints the wall time
+(host clock ending in ``synchronize``), the device time summed by kernel
+name (largest first), the device's busy share of the wall, and the
+device time grouped into attention (the ``flash_attention`` kernel), the
+expert GEMMs of a MoE model (the ``grouped_gemm`` kernel), matrix
+products (cuBLAS GEMM kernels) and the rest.  It exits non-zero if the
+profiler records no device time on the card.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -32,16 +38,16 @@ from repro_torch.dist.context import ParallelCtx  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_cuda,
 )
+from repro_torch.kernels.grouped_gemm import grouped_gemm_cuda  # noqa: E402
 from repro_torch.models.model import forward, init_model  # noqa: E402
-
-ARCH, BATCH, SEQ = "llama3.2-1b", 4, 4096
-
 
 def group(name: str) -> str:
     """The part of the forward a device kernel belongs to."""
     low = name.lower()
     if "fa_wgmma_kernel" in low or "fa_fma_kernel" in low:
         return "attention (flash_attention)"
+    if "grouped_gemm_kernel" in low:
+        return "expert GEMMs (grouped_gemm)"
     if any(k in low for k in ("nvjet", "gemm", "sm90_xmma", "cutlass",
                               "cublas")):
         return "matrix products (cuBLAS)"
@@ -49,6 +55,13 @@ def group(name: str) -> str:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--arch", default="llama3.2-1b")
+    parser.add_argument("--layers", type=int, default=None,
+                        help="cut the depth to this many layers")
+    parser.add_argument("--batch", type=int, default=4)
+    parser.add_argument("--seq", type=int, default=4096)
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_lm_forward: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -57,10 +70,13 @@ def main() -> None:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip(), flush=True)
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = init_model(cfg, generator=torch.Generator(
         device="cuda").manual_seed(0), device="cuda")
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device="cuda",
+    tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
+                           device="cuda",
                            generator=torch.Generator(
                                device="cuda").manual_seed(6))
     ctx = ParallelCtx(None)
@@ -68,7 +84,7 @@ def main() -> None:
         for _ in range(2):  # warm-up: build, cuBLAS heuristics, allocator
             forward(model, {"tokens": tokens}, cfg, ctx, use_kernel=True)
     torch.cuda.synchronize()
-    flash_attention_cuda.launches = 0
+    flash_attention_cuda.launches = grouped_gemm_cuda.launches = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -76,9 +92,11 @@ def main() -> None:
             forward(model, {"tokens": tokens}, cfg, ctx, use_kernel=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print(f"{ARCH} forward B={BATCH} S={SEQ} bf16 through the kernel: wall "
-          f"{wall * 1e3:.3f} ms (traced), flash_attention launches "
-          f"{flash_attention_cuda.launches}")
+    print(f"{cfg.name} ({cfg.num_layers} layers) forward B={args.batch} "
+          f"S={args.seq} bf16 through the kernels: wall {wall * 1e3:.3f} ms "
+          f"(traced), flash_attention launches "
+          f"{flash_attention_cuda.launches}, grouped_gemm launches "
+          f"{grouped_gemm_cuda.launches}")
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]

@@ -3,9 +3,10 @@
 The port of ``repro.configs.registry``, with the reference's ten ids.
 Each ported id maps to a module exporting ``CONFIG`` (the full,
 paper-faithful configuration) and ``SMOKE`` (a reduced variant for CPU
-tests); ``get_config(arch, smoke=...)`` picks one.  The port runs only
-the dense-attention family so far: any other known id raises
-``NotImplementedError`` naming the ROADMAP item its blocks wait for.
+tests); ``get_config(arch, smoke=...)`` picks one.  The port runs the
+dense-attention and mixture-of-experts families so far: any other known
+id raises ``NotImplementedError`` naming the ROADMAP item its blocks
+wait for.
 """
 from __future__ import annotations
 
@@ -33,8 +34,6 @@ _UNPORTED = {
     "recurrentgemma-9b": "models/recurrent.py (RG-LRU blocks), ROADMAP A9b",
     "xlstm-1.3b": "models/recurrent.py (mLSTM/sLSTM blocks), ROADMAP A9b",
     "hubert-xlarge": "the audio frontend, ROADMAP A9d",
-    "mixtral-8x7b": "models/moe.py, ROADMAP A9a",
-    "kimi-k2-1t-a32b": "models/moe.py, ROADMAP A9a",
     "qwen2-vl-72b": "M-RoPE and the VLM frontend, ROADMAP A9d",
 }
 

@@ -1,25 +1,35 @@
-"""The 2-D device grid SUMMA runs on: the port's counterpart of
+"""The device grid SUMMA runs on: the port's counterpart of
 ``jax.sharding.Mesh`` and of ``repro.launch.mesh.make_mesh`` /
 ``make_host_mesh``.
 
 The reference expresses every executor as one ``shard_map`` program over
 a mesh.  Here each rank runs its own program on its own shards, and a
-``Grid`` tells it where it sits: the two axis names (row axis first) and
-their sizes, this rank's (row, col) coordinates, its device, and one
-``torch.distributed`` process group per axis — the ranks that differ from
-this one only along that axis.  Ranks are laid out row-major, rank
-``r`` at ``divmod(r, p_col)``, like a mesh's device array.
+``Grid`` tells it where it sits: the axis names and their sizes, this
+rank's coordinates, its device, and one ``torch.distributed`` process
+group per set of axes — the ranks that differ from this one only along
+those axes.  A grid has any number of axes (two, ``("data", "model")``,
+unless its caller names others) laid out row-major like a mesh's device
+array: the last axis varies fastest, so on a 2-axis grid rank ``r`` sits
+at ``divmod(r, p_col)``.
+
+An axis argument is one name or a tuple of names.  A tuple axis is the
+product of its axes, ordered as a mesh orders one in a ``PartitionSpec``:
+the first name is the most significant, so on ``("pod", "data",
+"model")`` the index along ``("pod", "data")`` is ``pod * |data| +
+data``.  ``axis_index``, the owner ranks of ``broadcast`` and the chunk
+order of ``all_gather`` and ``reduce_scatter`` all follow that order.
 
 Three ways to build one:
 
-* ``Grid.local(device)`` — the 1x1 grid on one device.  It has no process
-  group and its collectives are the identity.
-* ``Grid.from_process_group(p_row, p_col, device=...)`` — a p_row x p_col
-  grid over an initialised ``torch.distributed`` world (gloo in the tests,
-  NCCL on a multi-card host).
-* ``Grid(sizes=(p_row, p_col))`` — a planning-only grid: the planner reads
-  only ``shape``, so plans for any grid can be built (and compared with
-  the reference's) without processes; ``check_world`` refuses it at
+* ``Grid.local(device)`` — the 1x1 grid on one device (1x1x1 with three
+  axis names).  It has no process group and its collectives are the
+  identity.
+* ``Grid.from_process_group(*sizes, device=..., axis_names=...)`` — a
+  grid over an initialised ``torch.distributed`` world (gloo in the
+  tests, NCCL on a multi-card host).
+* ``Grid(sizes=...)`` — a planning-only grid: the planner reads only
+  ``shape``, so plans for any grid can be built (and compared with the
+  reference's) without processes; ``check_world`` refuses it at
   execution, and a collective over an axis with peers raises.
 
 Every grid is on ``cuda`` unless its caller names another device: a grid
@@ -28,6 +38,8 @@ built without one never runs on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 
 import torch
 import torch.distributed as dist
@@ -37,57 +49,89 @@ __all__ = ["Grid"]
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Grid:
-    sizes: tuple[int, int] = (1, 1)
-    axis_names: tuple[str, str] = ("data", "model")
-    coords: tuple[int, int] = (0, 0)
+    sizes: tuple[int, ...] = (1, 1)
+    axis_names: tuple[str, ...] = ("data", "model")
+    #: this rank's coordinate along each axis (None: the origin)
+    coords: tuple[int, ...] | None = None
     device: torch.device = torch.device("cuda")
-    #: axis name -> process group of the ranks along that axis (None: none)
+    #: frozenset of axis names -> process group of the ranks along those
+    #: axes (absent: none)
     groups: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def __post_init__(self):
+        sizes = tuple(int(s) for s in self.sizes)
+        names = tuple(self.axis_names)
+        coords = (0,) * len(sizes) if self.coords is None else tuple(
+            int(c) for c in self.coords)
+        if len(names) != len(sizes) or len(set(names)) != len(names):
+            raise ValueError(
+                f"axis names {names} must be distinct, one per size {sizes}"
+            )
+        if len(coords) != len(sizes) or not all(
+                0 <= c < s for c, s in zip(coords, sizes)):
+            raise ValueError(f"coordinates {coords} outside grid {sizes}")
+        object.__setattr__(self, "sizes", sizes)
+        object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "coords", coords)
 
     @classmethod
     def local(cls, device="cuda", axis_names=("data", "model")) -> Grid:
-        """The 1x1 grid on one device (``"cuda"`` unless told otherwise)."""
-        return cls(axis_names=tuple(axis_names), device=torch.device(device))
+        """The grid of one rank on one device (``"cuda"`` unless told
+        otherwise), with one axis of size 1 per name."""
+        names = tuple(axis_names)
+        return cls(sizes=(1,) * len(names), axis_names=names,
+                   device=torch.device(device))
 
     @classmethod
-    def from_process_group(
-        cls, p_row: int, p_col: int, *, device="cuda",
-        axis_names=("data", "model"),
-    ) -> Grid:
-        """A ``p_row x p_col`` grid over the initialised default world.
+    def from_process_group(cls, *sizes: int, device="cuda",
+                           axis_names=("data", "model")) -> Grid:
+        """A grid of ``sizes`` (one per axis name) over the initialised
+        default world, e.g. ``from_process_group(2, 4)`` or
+        ``from_process_group(2, 2, 2, axis_names=("pod", "data",
+        "model"))``.
 
         Every rank must call this, in the same order as its other
-        ``new_group`` calls: each row group and each column group is
-        created on all ranks.
+        ``new_group`` calls: the group of every set of axes is created on
+        all ranks (a group of its own for the set of all axes too: the
+        grid never holds the default group, whose object must not outlive
+        ``destroy_process_group``).
         """
         if not dist.is_initialized():
             raise RuntimeError(
                 "torch.distributed is not initialised: call "
                 "init_process_group(...) before Grid.from_process_group"
             )
+        sizes = tuple(int(s) for s in sizes)
+        names = tuple(axis_names)
+        if len(names) != len(sizes):
+            raise ValueError(f"grid {sizes} needs one axis name per size, "
+                             f"got {names}")
         world = dist.get_world_size()
-        if world != p_row * p_col:
+        if world != math.prod(sizes):
             raise ValueError(
-                f"world size {world} != grid {p_row}x{p_col}"
+                f"world size {world} != grid {'x'.join(map(str, sizes))}"
             )
-        row, col = divmod(dist.get_rank(), p_col)
-        along_col = along_row = None
-        for i in range(p_row):  # ranks of grid row i vary along the col axis
-            g = dist.new_group([i * p_col + j for j in range(p_col)])
-            if i == row:
-                along_col = g
-        for j in range(p_col):  # ranks of grid column j vary along the row axis
-            g = dist.new_group([i * p_col + j for i in range(p_row)])
-            if j == col:
-                along_row = g
-        row_axis, col_axis = axis_names
-        return cls(
-            sizes=(p_row, p_col),
-            axis_names=tuple(axis_names),
-            coords=(row, col),
-            device=torch.device(device),
-            groups={row_axis: along_row, col_axis: along_col},
-        )
+        coords = _unravel(dist.get_rank(), sizes)
+        groups = {}
+        dims = range(len(sizes))
+        for n in range(1, len(sizes) + 1):
+            for subset in itertools.combinations(dims, n):
+                if math.prod(sizes[d] for d in subset) == 1:
+                    continue
+                key = frozenset(names[d] for d in subset)
+                rest = [d for d in dims if d not in subset]
+                for fixed in itertools.product(*(range(sizes[d])
+                                                 for d in rest)):
+                    ranks = []
+                    for moving in itertools.product(*(range(sizes[d])
+                                                      for d in subset)):
+                        at = dict(zip(rest, fixed)) | dict(zip(subset, moving))
+                        ranks.append(_ravel([at[d] for d in dims], sizes))
+                    group = dist.new_group(ranks)
+                    if all(coords[d] == f for d, f in zip(rest, fixed)):
+                        groups[key] = group
+        return cls(sizes=sizes, axis_names=names, coords=coords,
+                   device=torch.device(device), groups=groups)
 
     # -- geometry -------------------------------------------------------------
 
@@ -96,22 +140,46 @@ class Grid:
         """Axis name -> size, as ``Mesh.shape`` (what the planner reads)."""
         return dict(zip(self.axis_names, self.sizes))
 
-    def axis_index(self, axis: str) -> int:
-        """This rank's coordinate along ``axis``."""
-        return self.coords[self._dim(axis)]
+    @property
+    def rank(self) -> int:
+        """This rank's place in the world (row-major over the axes)."""
+        return _ravel(self.coords, self.sizes)
+
+    def axis_size(self, axis) -> int:
+        """The number of ranks along ``axis`` (a name or a tuple of names)."""
+        return math.prod(self.sizes[d] for d in self._dims(axis))
+
+    def axis_index(self, axis) -> int:
+        """This rank's coordinate along ``axis``; along a tuple axis the
+        first name is the most significant digit."""
+        dims = self._dims(axis)
+        return _ravel([self.coords[d] for d in dims],
+                      [self.sizes[d] for d in dims])
+
+    def rank_at(self, at: dict) -> int:
+        """The world rank at this rank's coordinates with those along each
+        axis of ``at`` (axis -> index along it) replaced."""
+        coords = list(self.coords)
+        for axis, index in at.items():
+            dims = self._dims(axis)
+            for d, c in zip(dims, _unravel(index, [self.sizes[d]
+                                                   for d in dims])):
+                coords[d] = c
+        return _ravel(coords, self.sizes)
 
     def check_world(self) -> None:
         """Raise unless this grid can execute: a grid of more than one rank
         must span the initialised ``torch.distributed`` world exactly.  A
         planning-only grid (``Grid(sizes=...)`` with no world behind it)
-        plans any grid but never runs a plan; the 1x1 grid always runs."""
-        size = self.sizes[0] * self.sizes[1]
+        plans any grid but never runs a plan; a grid of one rank always
+        runs."""
+        size = math.prod(self.sizes)
         if size == 1:
             return
         world = dist.get_world_size() if dist.is_initialized() else 1
         if world != size:
             raise ValueError(
-                f"grid {self.sizes[0]}x{self.sizes[1]} has {size} ranks but "
+                f"grid {'x'.join(map(str, self.sizes))} has {size} ranks but "
                 f"the torch.distributed world has {world}: a planning-only "
                 "grid cannot execute a plan"
             )
@@ -120,41 +188,46 @@ class Grid:
         """What ``MatmulPlan.digest`` hashes in place of mesh devices."""
         return (self.axis_names, self.sizes, self.device.type)
 
-    def _dim(self, axis) -> int:
-        if axis not in self.axis_names:
-            raise ValueError(
-                f"axis {axis!r} is not a grid axis {self.axis_names}"
-            )
-        return self.axis_names.index(axis)
+    def _dims(self, axis) -> tuple[int, ...]:
+        names = axis if isinstance(axis, tuple) else (axis,)
+        for name in names:
+            if name not in self.axis_names:
+                raise ValueError(
+                    f"axis {name!r} is not a grid axis {self.axis_names}"
+                )
+        return tuple(self.axis_names.index(name) for name in names)
 
-    def _group(self, axis: str):
-        group = self.groups.get(axis)
+    def _group(self, axis):
+        group = self.groups.get(frozenset(self.axis_names[d]
+                                          for d in self._dims(axis)))
         if group is None:
             raise RuntimeError(
-                f"grid axis {axis!r} has {self.shape[axis]} ranks but no "
+                f"grid axis {axis!r} has {self.axis_size(axis)} ranks but no "
                 "process group (planning-only grid): build the grid with "
                 "Grid.from_process_group"
             )
         return group
 
-    def _global_rank(self, axis: str, index: int) -> int:
-        row, col = self.coords
-        if self._dim(axis) == 0:
-            row = index
-        else:
-            col = index
-        return row * self.sizes[1] + col
+    def _group_order(self, axis) -> list[int] | None:
+        """The axis index of each member of ``axis``'s group in group-rank
+        order (ascending world rank), or None where the two orders agree:
+        a tuple axis whose names are not in the grid's order."""
+        dims = self._dims(axis)
+        if list(dims) == sorted(dims):
+            return None
+        return sorted(range(self.axis_size(axis)),
+                      key=lambda i: self.rank_at({axis: i}))
 
     # -- collectives ----------------------------------------------------------
 
-    def broadcast(self, x: torch.Tensor, owner: int, axis: str, *,
+    def broadcast(self, x: torch.Tensor, owner: int, axis, *,
                   async_op: bool = False):
         """``x`` as held by rank ``owner`` along ``axis``, on every rank of
         that axis.  Returns ``(tensor, work)``; with ``async_op`` the
         tensor is valid once ``work.wait()`` returned (``work`` is None
         when nothing was sent).  The owner's tensor is sent in place when
         it is contiguous."""
-        if self.shape[axis] == 1:
+        if self.axis_size(axis) == 1:
             return x, None
         group = self._group(axis)
         if self.axis_index(axis) == owner:
@@ -162,15 +235,15 @@ class Grid:
         else:
             buf = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         work = dist.broadcast(
-            buf, src=self._global_rank(axis, owner), group=group,
+            buf, src=self.rank_at({axis: owner}), group=group,
             async_op=async_op,
         )
         return buf, work
 
-    def all_gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
         """Concatenate every rank's ``x`` along ``dim``, in axis order (the
         reference's ``all_gather(..., tiled=True)``)."""
-        size = self.shape[axis]
+        size = self.axis_size(axis)
         if size == 1:
             return x
         group = self._group(axis)
@@ -179,14 +252,20 @@ class Grid:
             (size * x0.shape[0], *x0.shape[1:]), dtype=x.dtype, device=x.device
         )
         dist.all_gather_into_tensor(out, x0, group=group)
+        order = self._group_order(axis)
+        if order is not None:  # chunk g holds axis index order[g]
+            chunks = out.view(size, *x0.shape)
+            out = torch.empty_like(chunks)
+            out[order] = chunks
+            out = out.view(size * x0.shape[0], *x0.shape[1:])
         return out.movedim(0, dim).contiguous()
 
-    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    def reduce_scatter(self, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
         """Sum every rank's ``x`` and keep this rank's slice of ``dim``, in
         axis order (the reference's ``psum_scatter(..., tiled=True)``);
         ``x.shape[dim]`` must divide by the axis size.  The identity on an
         axis of one rank."""
-        size = self.shape[axis]
+        size = self.axis_size(axis)
         if size == 1:
             return x
         group = self._group(axis)
@@ -196,9 +275,52 @@ class Grid:
                 f"dim {dim} of {tuple(x.shape)} does not divide by the "
                 f"{size} ranks of axis {axis!r}"
             )
+        order = self._group_order(axis)
+        if order is not None:  # group rank g receives axis index order[g]
+            x0 = x0.view(size, -1, *x0.shape[1:])[order].flatten(0, 1)
         out = torch.empty(
             (x0.shape[0] // size, *x0.shape[1:]), dtype=x.dtype,
             device=x.device,
         )
         dist.reduce_scatter_tensor(out, x0, group=group)
         return out.movedim(0, dim).contiguous()
+
+    def all_reduce(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """The sum of every rank's ``x`` along ``axis``, as a new tensor
+        (the reference's ``psum``); the identity on an axis of one rank."""
+        if self.axis_size(axis) == 1:
+            return x
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=self._group(axis))
+        return out
+
+    def exchange(self, sends, recvs) -> int:
+        """Point-to-point transfers between world ranks: every ``(rank,
+        tensor)`` of ``sends`` goes to that rank, and every ``(rank,
+        buffer)`` of ``recvs`` (contiguous) is filled from that rank; each
+        pair of ranks exchanges at most one tensor each way.  All are
+        posted before any is waited on.  Returns the bytes received."""
+        self.check_world()
+        sends = [(peer, t.contiguous()) for peer, t in sends]  # kept alive
+        works = [dist.irecv(buf, src=peer) for peer, buf in recvs]
+        works += [dist.isend(t, dst=peer) for peer, t in sends]
+        for work in works:
+            work.wait()
+        return sum(buf.numel() * buf.element_size() for _, buf in recvs)
+
+
+def _ravel(coords, sizes) -> int:
+    """Row-major index of ``coords`` in a box of ``sizes``."""
+    out = 0
+    for c, s in zip(coords, sizes):
+        out = out * s + c
+    return out
+
+
+def _unravel(index: int, sizes) -> tuple[int, ...]:
+    """The inverse of ``_ravel``."""
+    out = []
+    for s in reversed(list(sizes)):
+        index, c = divmod(index, s)
+        out.append(c)
+    return tuple(reversed(out))

@@ -79,9 +79,14 @@ bitwise; ``retraces`` counts builds.  ``compiled=False`` runs eagerly.
 ``summa_matmul`` and ``summa_blocksparse_matmul`` are the reference's
 thin plan-and-execute wrappers over global operands.
 
-``summa_25d_matmul`` raises ``NotImplementedError``: the 2.5D route needs
-the three-axis ``Grid`` and the executors' ``k_steps``/``k_start``
-(ROADMAP A3).
+``summa_25d_matmul`` is the paper's 2.5D remark: the operands are
+replicated over a third grid axis, each replica runs a disjoint share of
+the K panels through ``_exec_taskbased(k_steps=..., k_start=...)``, and
+``Grid.all_reduce`` sums the partial C's over the replicas.
+
+Row and column axes may be tuples of grid axes (``("pod", "data")``):
+every collective and ``local_tile``/``gather_tiles`` take them, ordered
+as a mesh orders a tuple axis (``core.grid``).
 """
 from __future__ import annotations
 
@@ -143,8 +148,8 @@ def resolve_multi_issue(
 class SummaConfig:
     """Configuration for a distributed SUMMA matmul on a ``Grid``.
 
-    ``row_axis``/``col_axis`` name grid axes; a tuple of names plans over
-    their product, as in the reference (execution needs single names).
+    ``row_axis``/``col_axis`` name grid axes; a tuple of names is their
+    product, as in the reference, for planning and execution alike.
 
     ``local_matmul`` keeps the reference's values so plans compare field
     by field: ``"xla"`` means ``torch.matmul`` here, and ``"pallas"``
@@ -161,21 +166,13 @@ class SummaConfig:
     accum_dtype: torch.dtype = torch.float32
     local_matmul: Literal["xla", "pallas"] = "xla"
 
-    def _axis_size(self, axis) -> int:
-        if isinstance(axis, tuple):
-            out = 1
-            for a in axis:
-                out *= self.grid.shape[a]
-            return out
-        return self.grid.shape[axis]
-
     @property
     def p_row(self) -> int:
-        return self._axis_size(self.row_axis)
+        return self.grid.axis_size(self.row_axis)
 
     @property
     def p_col(self) -> int:
-        return self._axis_size(self.col_axis)
+        return self.grid.axis_size(self.col_axis)
 
     def resolve_k_blocks(self, k: int) -> int:
         kb = self.k_blocks
@@ -316,16 +313,20 @@ def _zeros_c(a_loc, b_loc, cfg) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _exec_procedural(a_loc, b_loc, plan):
-    """Paper baseline: each step's broadcasts complete before its update."""
+def _exec_procedural(a_loc, b_loc, plan, *, k_steps=None, k_start=0):
+    """Paper baseline: each step's broadcasts complete before its update.
+
+    ``k_steps`` panels from panel ``k_start`` on (default: all of them);
+    the 2.5D route gives each replica its own range."""
     cfg = plan.cfg
     grid = cfg.grid
     w = plan.kb_width
+    k_steps = plan.k_steps if k_steps is None else k_steps
     t_a, t_b = a_loc.shape[1] // w, b_loc.shape[0] // w
     c = _zeros_c(a_loc, b_loc, cfg)
-    for k in range(plan.k_steps):
+    for k in range(k_steps):
         a_panel, b_panel, owner_col, owner_row = _panel_slices(
-            a_loc, b_loc, k, w, t_a, t_b
+            a_loc, b_loc, k + k_start, w, t_a, t_b
         )
         a_bc, _ = _bcast_panel(a_panel, owner_col, cfg.col_axis, grid)
         b_bc, _ = _bcast_panel(b_panel, owner_row, cfg.row_axis, grid)
@@ -333,23 +334,25 @@ def _exec_procedural(a_loc, b_loc, plan):
     return c
 
 
-def _exec_taskbased(a_loc, b_loc, plan):
+def _exec_taskbased(a_loc, b_loc, plan, *, k_steps=None, k_start=0):
     """Multiple-issue SUMMA: I-deep panel prefetch pipeline (paper §3.2).
 
     Up to ``I`` steps' broadcasts are in flight.  Step ``k`` issues the
     broadcasts of step ``k+I`` before it multiplies panel ``k``, and waits
-    on panel ``k``'s own broadcasts only then.
+    on panel ``k``'s own broadcasts only then.  ``k_steps`` panels from
+    panel ``k_start`` on (default: all of them), the window resolved over
+    that range: the 2.5D variant gives each replica its own K sub-range.
     """
     cfg = plan.cfg
     grid = cfg.grid
     w = plan.kb_width
-    k_steps = plan.k_steps
+    k_steps = plan.k_steps if k_steps is None else k_steps
     t_a, t_b = a_loc.shape[1] // w, b_loc.shape[0] // w
     lookahead = plan.resolve_lookahead(k_steps)
 
     def issue(k):
         a_panel, b_panel, owner_col, owner_row = _panel_slices(
-            a_loc, b_loc, k, w, t_a, t_b
+            a_loc, b_loc, k + k_start, w, t_a, t_b
         )
         return (
             _bcast_panel(a_panel, owner_col, cfg.col_axis, grid, async_op=True),
@@ -367,8 +370,11 @@ def _exec_taskbased(a_loc, b_loc, plan):
     return c
 
 
-def _exec_allgather(a_loc, b_loc, plan):
-    """I = K extreme of Eq. (1): gather every panel up-front."""
+def _exec_allgather(a_loc, b_loc, plan, *, k_steps=None, k_start=0):
+    """I = K extreme of Eq. (1): gather every panel up-front.  It takes
+    ``k_steps``/``k_start`` and ignores them, as the reference's does (no
+    caller passes them: the 2.5D route runs the task-based executor)."""
+    del k_steps, k_start
     cfg = plan.cfg
     a_full = cfg.grid.all_gather(a_loc, cfg.col_axis, dim=1)
     b_full = cfg.grid.all_gather(b_loc, cfg.row_axis, dim=0)
@@ -412,41 +418,92 @@ def _exec_stationary(a_loc, b_loc, plan):
     The stationary operand keeps its (row, col) tile; the other is re-laid
     out with K over the opposite grid axis — the reference's in_specs
     ``P(col_axis, None)`` for B under "A", ``P(None, row_axis)`` for A
-    under "B" — and one local product of the two gives this rank's partial
-    C, which a reduce-scatter along that axis sums into C's tile.  No K
-    pipeline: masked blocks were zeroed by the caller, so structure
-    prunes only at the value level, as in the reference.
+    under "B" (``_k_shard``) — and one local product of the two gives this
+    rank's partial C, which a reduce-scatter along that axis sums into
+    C's tile.  No K pipeline: masked blocks were zeroed by the caller, so
+    structure prunes only at the value level, as in the reference.
 
-    The re-layout is an all-gather of the moving operand along both grid
-    axes and a slice of this rank's K shard: every rank receives the whole
-    moving operand (``(p_row·p_col − 1)`` tiles of it), where the
-    reference's re-layout delivers only its K shard.  The task graph
-    (``sched.taskgraph._emit_stationary``) prices the reference's
-    re-layout.  On the 1x1 grid both collectives are the identity.
+    The re-layout delivers only this rank's K shard, point to point, as
+    ``sched.taskgraph._emit_stationary`` prices it: each rank receives its
+    shard less what its own tile already holds of it (the task graph's
+    relay carries ``BCAST_FACTOR`` times the shard, the reference's
+    broadcast-as-allreduce); ``_exec_stationary.recv_bytes`` counts what
+    this rank received.  On the 1x1 grid nothing moves.
     """
     cfg = plan.cfg
     grid = cfg.grid
     if plan.stationarity == "A":
-        b_all = grid.all_gather(
-            grid.all_gather(b_loc, cfg.row_axis, dim=0), cfg.col_axis, dim=1
-        )
-        w = plan.k_pad // cfg.p_col
-        j = grid.axis_index(cfg.col_axis)
-        b_rel = b_all[j * w:(j + 1) * w]
+        b_rel = _k_shard(b_loc, cfg, k_dim=0)
         part = torch.zeros((a_loc.shape[0], b_rel.shape[1]),
                            dtype=cfg.accum_dtype, device=a_loc.device)
         _local_dot(a_loc, b_rel, part, cfg)
         return grid.reduce_scatter(part, cfg.col_axis, dim=1)
-    a_all = grid.all_gather(
-        grid.all_gather(a_loc, cfg.col_axis, dim=1), cfg.row_axis, dim=0
-    )
-    w = plan.k_pad // cfg.p_row
-    i = grid.axis_index(cfg.row_axis)
-    a_rel = a_all[:, i * w:(i + 1) * w]
+    a_rel = _k_shard(a_loc, cfg, k_dim=1)
     part = torch.zeros((a_rel.shape[0], b_loc.shape[1]),
                        dtype=cfg.accum_dtype, device=b_loc.device)
     _local_dot(a_rel, b_loc, part, cfg)
     return grid.reduce_scatter(part, cfg.row_axis, dim=0)
+
+
+#: bytes this rank received in stationary re-layouts (a plain integer; set
+#: it to 0 to start a count)
+_exec_stationary.recv_bytes = 0
+
+
+def _k_shard(x_loc, cfg, *, k_dim: int) -> torch.Tensor:
+    """This rank's K shard of a moving operand, whole along its other
+    dimension: B's rows ``[j·w, (j+1)·w)`` (``k_dim=0``, ``j`` this rank's
+    column, ``w = K/p_col``) or A's columns ``[i·w, (i+1)·w)``
+    (``k_dim=1``, ``i`` its row, ``w = K/p_row``).
+
+    ``x_loc`` is this rank's tile; K is tiled over one grid axis (B's
+    rows over the row axis, A's columns over the column axis) and the
+    other dimension over the other axis, which also numbers the shards.
+    Every rank sends each peer the part of its tile that lies in the
+    peer's shard and receives the same from each peer whose tile meets
+    its own shard; the parts it holds itself are copied.
+    """
+    grid = cfg.grid
+    tile_axis, shard_axis = ((cfg.row_axis, cfg.col_axis) if k_dim == 0
+                             else (cfg.col_axis, cfg.row_axis))
+    k_tile, other = x_loc.shape[k_dim], x_loc.shape[1 - k_dim]
+    p_k, p_s = grid.axis_size(tile_axis), grid.axis_size(shard_axis)
+    if p_k == p_s == 1:  # the tile is the shard
+        return x_loc
+    w = k_tile * p_k // p_s
+    me_k, me_s = grid.axis_index(tile_axis), grid.axis_index(shard_axis)
+    shape = [w, w]
+    shape[1 - k_dim] = other * p_s
+    out = torch.empty(shape, dtype=x_loc.dtype, device=x_loc.device)
+
+    def meet(shard: int, tile: int) -> tuple[int, int]:
+        """K range of ``shard`` inside the tile ``tile``, in global K."""
+        return max(shard * w, tile * k_tile), min((shard + 1) * w,
+                                                  (tile + 1) * k_tile)
+
+    sends, recvs, places = [], [], []
+    for t in range(p_k):
+        for s in range(p_s):
+            peer = grid.rank_at({tile_axis: t, shard_axis: s})
+            lo, hi = meet(me_s, t)  # what (t, s) holds of my shard
+            if lo < hi:
+                dest = out.narrow(k_dim, lo - me_s * w, hi - lo).narrow(
+                    1 - k_dim, s * other, other)
+                if peer == grid.rank:
+                    dest.copy_(x_loc.narrow(k_dim, lo - t * k_tile, hi - lo))
+                else:
+                    buf = torch.empty(dest.shape, dtype=x_loc.dtype,
+                                      device=x_loc.device)
+                    recvs.append((peer, buf))
+                    places.append(dest)
+            lo, hi = meet(s, me_k)  # what my tile holds of (t, s)'s shard
+            if lo < hi and peer != grid.rank:
+                sends.append((peer, x_loc.narrow(k_dim, lo - me_k * k_tile,
+                                                 hi - lo)))
+    _exec_stationary.recv_bytes += grid.exchange(sends, recvs)
+    for dest, (_, buf) in zip(places, recvs):
+        dest.copy_(buf)
+    return out
 
 
 def _exec_sparse_bsmm(a_loc, b_loc, cols_loc, plan, *, cols_dev=None):
@@ -1217,14 +1274,64 @@ def summa_25d_matmul(
     out_dtype: torch.dtype | None = None,
     plan=None,
 ) -> torch.Tensor:
-    """2.5D task-based SUMMA (operands replicated over ``rep_axis``, each
-    replica running a disjoint share of the K steps, partial C's summed
-    across replicas).  Not ported: it needs a three-axis ``Grid`` and the
-    executors' ``k_steps``/``k_start``."""
-    raise NotImplementedError(
-        "summa_25d_matmul is not ported yet: it needs the three-axis Grid "
-        "and the executors' k_steps/k_start (ROADMAP A3)"
-    )
+    """2.5D task-based SUMMA: operands replicated over ``rep_axis`` (c
+    copies), each replica executes a disjoint 1/c of the SUMMA iterations
+    (multiple-issue within its range), and the partial C's are summed
+    across replicas — Solomonik-Demmel's memory-for-communication trade
+    with the paper's task pipeline inside each replica.
+
+    ``a`` and ``b`` are the global operands on every rank; each rank runs
+    its (row, col) tiles, the same on every replica, and every rank
+    returns the whole C.  Per-replica broadcast traffic drops by c at the
+    cost of c× operand memory and one all-reduce of C over ``rep_axis``.
+    ``plan`` takes a precomputed (possibly tuned) ``MatmulPlan`` for these
+    shapes; by default one is derived here.  The program is cached under
+    ``("25d", plan digest, rep_axis, per-replica steps, dtypes)``.
+    """
+    from repro_torch.core.plan import plan_matmul
+
+    (m, k), (k2, n) = a.shape, b.shape
+    if k != k2:
+        raise ValueError(
+            f"contraction mismatch {tuple(a.shape)} @ {tuple(b.shape)}"
+        )
+    grid = cfg.grid
+    if rep_axis not in grid.shape:
+        raise ValueError(
+            f"rep_axis {rep_axis!r} is not a mesh axis; "
+            f"available: {tuple(grid.shape)}"
+        )
+    c_rep = grid.shape[rep_axis]
+    if plan is None:
+        plan = plan_matmul(m, k, n, cfg, itemsize=a.element_size())
+    if plan.padded_shapes != ((m, k), (k2, n)):
+        raise ValueError(
+            f"shapes ({m},{k})x({k2},{n}) need padding for grid/k_blocks"
+        )
+    k_steps = plan.k_steps
+    if k_steps % c_rep:
+        raise ValueError(
+            f"replica count {c_rep} (mesh axis {rep_axis!r}) must divide "
+            f"k_blocks={k_steps} so each replica owns an equal K sub-range"
+        )
+    per_rep = k_steps // c_rep
+    out_dtype = out_dtype or a.dtype
+    grid.check_world()
+
+    def build():
+        def program(a_loc, b_loc):
+            c = _exec_taskbased(
+                a_loc, b_loc, plan, k_steps=per_rep,
+                k_start=grid.axis_index(rep_axis) * per_rep,
+            )
+            return grid.all_reduce(c, rep_axis).to(out_dtype)
+
+        return _count_build(program)
+
+    key = ("25d", plan.digest(), rep_axis, per_rep,
+           str(a.dtype), str(b.dtype), str(out_dtype))
+    program = _cached_executable(key, build)
+    return gather_tiles(program(local_tile(a, cfg), local_tile(b, cfg)), cfg)
 
 
 def summa_blocksparse_matmul(

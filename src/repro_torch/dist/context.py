@@ -44,9 +44,9 @@ _MATMUL_STRATEGIES = {
 class ParallelCtx:
     """Grid + axis roles + parallelism feature switches.
 
-    ``dp_axes`` may name several axes in the reference (a two-pod mesh);
-    a ``Grid`` has two, so the engine takes one data-parallel axis.
-    ``pure_dp=True`` folds the tensor-parallel axis into data
+    ``dp_axes`` may name several axes (a two-pod grid ``("pod", "data",
+    "model")``); the engine then runs SUMMA with their tuple as its row
+    axis.  ``pure_dp=True`` folds the tensor-parallel axis into data
     parallelism: ``tp_axis`` becomes ``None``.
     """
 
@@ -136,10 +136,6 @@ class ParallelCtx:
             raise ValueError("matmul() is not used for the 'xla' strategy")
         if self._tp_axis_raw is None:
             raise ValueError("SUMMA needs a tensor-parallel grid axis")
-        if len(self.dp_axes) > 1:
-            raise ValueError(
-                f"a Grid has one data-parallel axis, got {self.dp_axes}"
-            )
         from repro_torch.core.api import DistributedMatmul  # no cycle
 
         self._mm_cache = DistributedMatmul(

@@ -20,8 +20,9 @@ tile; a tile shorter than 64 rows, ``bt`` = 8, 16, 24, is one unit), one
 per consumer warpgroup, while a producer warpgroup streams the expert's
 W slice, split, into shared memory; so no block mixes experts and each
 slice of W read feeds 128 token rows.  The wrapper builds the pairs on
-the host from a copy of the tile map (``tile_pairs``) and hands them to
-the kernel as an int32 list.  ``w`` is read through its expert and row
+the host from the tile map, which the caller gives on the host
+(``tile_pairs``), and copies both to the card as int32 lists without
+waiting for it.  ``w`` is read through its expert and row
 strides, so the K-panels of one row-major B serve as experts without a
 copy.  On the main path (``bt`` = 64, D = 256, F = 32768, 128 experts,
 fp32) the work is 4 (T D + E D F + T F) = 12.9 GB against three bf16
@@ -35,7 +36,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["grouped_gemm_cuda", "grouped_gemm_plain", "tile_pairs"]
+__all__ = ["grouped_gemm_cuda", "grouped_gemm_plain", "host_to_device",
+           "tile_pairs"]
 
 #: rows of a unit: one consumer warpgroup's wgmma rows (csrc/split_gemm.cuh)
 UNIT_ROWS = 64
@@ -59,7 +61,8 @@ def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
                        tile_expert: torch.Tensor, *, bt: int,
                        out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``y[tile] = x[tile] @ w[tile_expert[tile]]`` in fp32, cast to
-    ``out_dtype`` (default ``x.dtype``).
+    ``out_dtype`` (default ``x.dtype``); the map on any device or the
+    host.
 
     The tiles of one expert are multiplied together, one ``torch.matmul``
     per expert present, which is ``einsum("tbd,tdf->tbf", x_tiles,
@@ -68,7 +71,7 @@ def grouped_gemm_plain(x: torch.Tensor, w: torch.Tensor,
     _check_shapes(x, w, tile_expert, bt)
     t, d = x.shape
     xt = x.reshape(t // bt, bt, d).float()
-    te = tile_expert.to(x.device, torch.int64)
+    te = torch.as_tensor(tile_expert).to(x.device, torch.int64)
     y = torch.empty((t // bt, bt, w.shape[2]), dtype=torch.float32,
                     device=x.device)
     for e in torch.unique(te).tolist():
@@ -107,49 +110,63 @@ def tile_pairs(tile_expert, bt: int) -> np.ndarray:
     return np.stack([starts[head], second[head]], axis=1).astype(np.int32)
 
 
-def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor,
-                      tile_expert: torch.Tensor, *, bt: int,
+def host_to_device(array: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``; to a card through pinned memory and
+    without waiting for it (the copy is ordered on the current stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor, tile_expert, *,
+                      bt: int,
                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """The grouped product through the CUDA kernel; counts its launches.
 
     ``x`` (T, D) and ``w`` (E, D, F) are float32 or bfloat16 CUDA tensors
     of one dtype with unit last stride (any row and expert strides);
-    ``tile_expert`` is a contiguous int32 (T/bt,) tensor on the same
-    device whose entries lie in [0, E) — the caller checks that where it
-    builds the map (``kernels.ops.grouped_gemm`` checks it on the host);
-    a tile naming no expert is never read and gives zeros.  The kernel's
-    work list (``tile_pairs``) is built here from a host copy of the map,
-    which waits for the card.  The result is a new contiguous (T, F)
-    tensor of ``out_dtype`` (default ``x.dtype``).
+    ``tile_expert`` is the int32 (T/bt,) tile map on the host (a numpy
+    array or a CPU tensor, as ``kernels.ops.grouped_gemm`` gives it),
+    whose entries lie in [0, E) — the caller checks that where it builds
+    the map (``ops.grouped_gemm`` does); a tile naming no expert is never
+    read and gives zeros.  The kernel's work list (``tile_pairs``) is
+    built from the map there, and both are copied to the card without
+    waiting for it.  The result is a new contiguous (T, F) tensor of
+    ``out_dtype`` (default ``x.dtype``).
     """
     out_dtype = out_dtype or x.dtype
-    _check_shapes(x, w, tile_expert, bt)
+    if isinstance(tile_expert, torch.Tensor) and tile_expert.device.type != "cpu":
+        raise ValueError(
+            "grouped_gemm_cuda takes the tile map on the host, got one on "
+            f"{tile_expert.device}"
+        )
+    host = torch.as_tensor(tile_expert)
+    _check_shapes(x, w, host, bt)
     if x.dtype != w.dtype:
         raise TypeError(f"operand dtypes differ: {x.dtype} vs {w.dtype}")
-    if tile_expert.dtype != torch.int32:
-        raise TypeError(f"tile_expert must be int32, got {tile_expert.dtype}")
-    if not (x.is_cuda and w.device == x.device
-            and tile_expert.device == x.device):
+    if host.dtype != torch.int32:
+        raise TypeError(f"tile_expert must be int32, got {host.dtype}")
+    if not (x.is_cuda and w.device == x.device):
         raise ValueError(
-            "grouped_gemm_cuda needs x, w and tile_expert on one CUDA device, "
-            f"got {x.device}, {w.device} and {tile_expert.device}"
+            "grouped_gemm_cuda needs x and w on one CUDA device, got "
+            f"{x.device} and {w.device}"
         )
     if (x.stride(1) != 1 and x.shape[1] > 1) or (
-            w.stride(2) != 1 and w.shape[2] > 1) or (
-            not tile_expert.is_contiguous()):
+            w.stride(2) != 1 and w.shape[2] > 1):
         raise ValueError(
-            "grouped_gemm_cuda needs unit last strides of x and w and a "
-            f"contiguous tile_expert (got strides {x.stride()}, {w.stride()})"
+            "grouped_gemm_cuda needs unit last strides of x and w (got "
+            f"strides {x.stride()}, {w.stride()})"
         )
     t, d = x.shape
     e, _, f = w.shape
     if t >= 2**31:
         raise ValueError(f"the kernel indexes tokens in 32 bits, got T={t}")
-    pairs = torch.as_tensor(tile_pairs(tile_expert.cpu(), bt),
-                            device=x.device)
+    te = host_to_device(host.numpy(), x.device)
+    pairs = host_to_device(tile_pairs(host, bt), x.device)
     y = torch.empty((t, f), dtype=out_dtype, device=x.device)
     err = _build.load().grouped_gemm_launch(
-        x.data_ptr(), w.data_ptr(), tile_expert.data_ptr(),
+        x.data_ptr(), w.data_ptr(), te.data_ptr(),
         pairs.data_ptr(), y.data_ptr(), t, f, d, x.stride(0), w.stride(0),
         w.stride(1), bt, e, pairs.shape[0], _build.dtype_code(x.dtype),
         _build.dtype_code(out_dtype), _build.stream_handle(x.device),

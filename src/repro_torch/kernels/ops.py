@@ -164,7 +164,9 @@ def grouped_gemm(
     over ``bt``-row tiles of ``x`` (T, D), experts ``w`` (E, D, F).
 
     ``tile_expert`` is a host array (numpy or a CPU tensor) of T/bt expert
-    indices; it is checked here and moved to ``x``'s device.  The
+    indices; it is checked here and handed on on the host, where the
+    kernel's wrapper builds its work list and from where it copies the map
+    to the card, so the launch never waits for the card.  The
     reference's ``bk``/``bn`` tile choices have no counterpart: the kernel
     tiles D and F itself and masks their edges, so nothing is padded.
     """
@@ -177,8 +179,7 @@ def grouped_gemm(
         raise ValueError(
             f"tile_expert names an expert outside [0, {w.shape[0]})"
         )
-    return run(x, w, torch.as_tensor(te, device=x.device), bt=bt,
-               out_dtype=out_dtype)
+    return run(x, w, te, bt=bt, out_dtype=out_dtype)
 
 
 def ranksparse_matmul(

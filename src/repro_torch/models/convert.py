@@ -16,7 +16,7 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LM
 
-__all__ = ["params_from_reference", "reference_leaves"]
+__all__ = ["load_leaves", "params_from_reference", "reference_leaves"]
 
 
 def reference_leaves(np_params: dict, cfg: ModelConfig) -> dict:
@@ -50,14 +50,23 @@ def _index(node, i: int):
 
 
 def params_from_reference(np_params: dict, cfg: ModelConfig,
-                          device="cuda") -> LM:
-    """The port's ``LM`` holding the reference's parameters.
+                          device="cuda", *, ep: int = 1) -> LM:
+    """The port's ``LM`` holding the reference's parameters; a MoE
+    block's ``norm``, ``router.w``, ``w_gate``, ``w_up``, ``w_down`` and
+    ``shared`` keep their paths.  ``ep`` is the expert-parallel degree the
+    reference padded the experts for (its context's tp size).
 
     Raises ``ValueError`` if the two trees name different parameters or
     disagree on a shape."""
-    model = LM(cfg, device=device)
-    leaves = reference_leaves(np_params, cfg)
-    params = dict(model.named_parameters())
+    return load_leaves(LM(cfg, device=device, ep=ep),
+                       reference_leaves(np_params, cfg))
+
+
+def load_leaves(module, leaves: dict):
+    """Copy ``leaves`` (parameter name -> numpy array) into ``module``'s
+    parameters; returns ``module``.  Raises ``ValueError`` if the names or
+    a shape differ."""
+    params = dict(module.named_parameters())
     if set(leaves) != set(params):
         raise ValueError(
             f"parameter trees differ: only in the reference "
@@ -73,4 +82,4 @@ def params_from_reference(np_params: dict, cfg: ModelConfig,
             )
         src = torch.from_numpy(np.array(leaf, dtype=np.float32))
         param.data.copy_(src)  # exact: every leaf is fp32 or bf16
-    return model
+    return module

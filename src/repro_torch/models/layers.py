@@ -37,10 +37,13 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every parameter of ``module``'s layers from ``generator``, in
-    module order; returns ``module``."""
+    module order: each submodule with a ``reset_parameters(generator)``
+    (the layers here, ``models.moe.MoE``) draws its own; returns
+    ``module``."""
     for m in module.modules():
-        if isinstance(m, (RMSNorm, LayerNorm, Dense, Embedding)):
-            m.reset_parameters(generator)
+        reset = getattr(m, "reset_parameters", None)
+        if reset is not None:
+            reset(generator)
     return module
 
 

@@ -9,9 +9,11 @@ is the reference's with the scan axis unstacked) and ``forward`` loops
 over them in Python.  Remat has no meaning in an inference forward and
 stays with training (ROADMAP A10).
 
-Blocks with a mixture of experts (``cfg.moe``, ROADMAP A9a) and the
-recurrent kinds ``rglru``, ``mlstm``, ``slstm`` (A9b) are not ported:
-building such a model raises ``NotImplementedError``.
+An attention block holds a mixture of experts (``models.moe``) in place
+of its FFN when the config has one (``cfg.moe``: mixtral-8x7b,
+kimi-k2); its load-balance loss is the forward's aux loss.  The
+recurrent kinds ``rglru``, ``mlstm``, ``slstm`` (ROADMAP A9b) are not
+ported: building such a model raises ``NotImplementedError``.
 
 Inputs are a dict: ``tokens`` (B, S) int64 and/or ``embeds`` (B, S, D),
 and optionally ``positions`` (B, S).
@@ -26,6 +28,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.attention import Attention, attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import FFN, ffn
+from repro_torch.models.moe import MoE, moe_ffn
 
 __all__ = [
     "AUX_LOSS_COEF", "Block", "LM", "Z_LOSS_COEF", "apply_block",
@@ -47,11 +50,6 @@ def _check_kind(kind: str, cfg: ModelConfig) -> None:
         )
     if kind != "attn":
         raise ValueError(kind)
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts blocks need models/moe.py, "
-            "which is not ported yet (ROADMAP A9a)"
-        )
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -61,30 +59,38 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """An attention block: ``attn`` and, when the config has one, ``ffn``."""
+    """An attention block: ``attn`` and, as the reference's block, either
+    ``moe`` (a config with experts, padded for ``ep``) or, when the config
+    has a width for one, ``ffn``."""
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device):
+    def __init__(self, cfg: ModelConfig, *, dtype, device, ep: int = 1):
         super().__init__()
         self.attn = Attention(cfg, dtype=dtype, device=device)
-        self.ffn = FFN(cfg, dtype=dtype, device=device) if cfg.d_ff else None
+        self.moe = (MoE(cfg, ep=ep, dtype=dtype, device=device)
+                    if cfg.moe is not None else None)
+        self.ffn = (FFN(cfg, dtype=dtype, device=device)
+                    if cfg.moe is None and cfg.d_ff else None)
 
 
 class LM(nn.Module):
     """Parameters of a model of attention blocks, laid out as the
     reference's pytree: ``units.<i>.b<j>``, ``tail.<j>``, ``final_norm``,
-    ``embed`` (when tokens are embedded) and ``head`` (untied)."""
+    ``embed`` (when tokens are embedded) and ``head`` (untied).  ``ep`` is
+    the expert-parallel degree (``ctx.tp_size``) the experts of a MoE
+    config are padded for, as the reference's ``init_model`` pads them
+    for its context."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, device="cuda", ep: int = 1):
         super().__init__()
         check_supported(cfg)
         dtype = L.torch_dtype(cfg.dtype)
         kw = dict(dtype=dtype, device=device)
         self.units = nn.ModuleList(
-            nn.ModuleDict({f"b{j}": Block(cfg, **kw)
+            nn.ModuleDict({f"b{j}": Block(cfg, **kw, ep=ep)
                            for j in range(len(cfg.block_pattern))})
             for _ in range(cfg.units)
         )
-        self.tail = nn.ModuleList(Block(cfg, **kw) for _ in cfg.tail)
+        self.tail = nn.ModuleList(Block(cfg, **kw, ep=ep) for _ in cfg.tail)
         self.final_norm = L.RMSNorm(cfg.d_model, device=device)
         self.embed = (L.Embedding(cfg.vocab_size, cfg.d_model, **kw)
                       if cfg.embed_inputs else None)
@@ -94,12 +100,13 @@ class LM(nn.Module):
 
 
 def init_model(cfg: ModelConfig, *, generator: torch.Generator,
-               device="cuda") -> LM:
+               device="cuda", ep: int = 1) -> LM:
     """A model of ``cfg`` with parameters drawn from ``generator`` (on
     ``device``) with the reference's shapes, dtypes and distributions:
-    dense kernels N(0, 1/d_in) drawn in fp32 and cast to ``cfg.dtype``,
-    embeddings N(0, 1), biases zero and norm scales one (fp32)."""
-    return L.init_params(LM(cfg, device=device), generator)
+    dense kernels N(0, 1/d_in) drawn in fp32 and cast to ``cfg.dtype``
+    (expert weights likewise, the router in fp32), embeddings N(0, 1),
+    biases zero and norm scales one (fp32)."""
+    return L.init_params(LM(cfg, device=device, ep=ep), generator)
 
 
 # --------------------------------------------------------------------------
@@ -124,7 +131,10 @@ def apply_block(
         p.attn, x, positions, cfg, ctx, window=cfg.window,
         use_kernel=use_kernel,
     )
-    if p.ffn is not None:
+    if p.moe is not None:
+        y, aux = moe_ffn(p.moe, x, cfg, ctx, use_kernel=use_kernel)
+        x = x + y
+    elif p.ffn is not None:
         x = x + ffn(p.ffn, x, cfg, ctx)
     return x, aux
 
@@ -151,7 +161,9 @@ def forward(
     """Returns (logits (B, S, V) fp32, aux_loss scalar).
 
     ``use_kernel=True`` runs every attention block through the
-    flash-attention kernel (one launch per layer on a CUDA model)."""
+    flash-attention kernel (one launch per layer on a CUDA model) and
+    every MoE block's expert GEMMs through the grouped-GEMM kernel (three
+    launches per layer)."""
     x = embed_inputs(model, inputs, cfg)
     positions = inputs.get("positions")
     if positions is None:

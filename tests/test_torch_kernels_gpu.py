@@ -252,20 +252,22 @@ def test_grouped_gemm_kernel_matches_plain(cuda, t, d, f, e, bt, name):
     """The reference's shapes, tiles of 8 and 24 rows (shorter than the
     kernel's 64-row tile) and a ragged F."""
     x, w = _rand((t, d), name, t, cuda), _rand((e, d, f), name, e, cuda)
-    te = np.random.default_rng(bt).integers(0, e, size=t // bt)
-    te_dev = torch.as_tensor(te, dtype=torch.int32, device=cuda)
+    te = np.random.default_rng(bt).integers(0, e, size=t // bt).astype(
+        np.int32)
     before = grouped_gemm_cuda.launches
-    got = grouped_gemm_cuda(x, w, te_dev, bt=bt)
+    got = grouped_gemm_cuda(x, w, te, bt=bt)
     assert grouped_gemm_cuda.launches == before + 1
     assert got.shape == (t, f) and got.dtype == x.dtype
-    want = grouped_gemm_plain(x, w, te_dev, bt=bt)
+    want = grouped_gemm_plain(x, w, te, bt=bt)
     _close(got, want, name, d)
     _close(ops.grouped_gemm(x, w, te, bt=bt), want, name, d)
 
 
 def test_grouped_gemm_kernel_strided_experts_and_bad_maps(cuda):
     """Experts read in place as the K-panels of one row-major B, tokens as
-    a column slice; an out-of-range expert map is refused on the host."""
+    a column slice; an out-of-range expert map is refused on the host, and
+    the wrapper refuses a map on the card (it builds its work list from
+    the host's)."""
     b = _rand((4 * 32, 200), "float32", 3, cuda)
     w = b.view(4, 32, 200)
     x = _rand((64, 96), "float32", 4, cuda)[:, 40:72]
@@ -276,8 +278,9 @@ def test_grouped_gemm_kernel_strided_experts_and_bad_maps(cuda):
     with pytest.raises(ValueError, match="expert"):
         ops.grouped_gemm(x, w, np.full(8, 4, np.int32), bt=8)
     with pytest.raises(TypeError, match="dtypes differ"):
-        grouped_gemm_cuda(x, w.bfloat16(), torch.as_tensor(te, device=cuda),
-                          bt=8)
+        grouped_gemm_cuda(x, w.bfloat16(), te, bt=8)
+    with pytest.raises(ValueError, match="on the host"):
+        grouped_gemm_cuda(x, w, torch.as_tensor(te, device=cuda), bt=8)
 
 
 @pytest.mark.parametrize("name", list(DTYPES))
@@ -293,7 +296,7 @@ def test_grouped_gemm_split_kernel(cuda, bt, counts, f, name):
     the experts read in place as the K-panels of one row-major B, tokens
     as a column slice, and a ragged F (not a multiple of the 256-column
     tile; F = 300 and 260 also leave bf16 rows off 16 bytes).  Through
-    ``ops`` (a host map) and through the wrapper directly (a device map)."""
+    ``ops`` and through the wrapper directly (the map on the host)."""
     d = 256
     rng = np.random.default_rng(bt + f)
     te = np.repeat(np.arange(len(counts), dtype=np.int32), counts)
@@ -307,8 +310,7 @@ def test_grouped_gemm_split_kernel(cuda, bt, counts, f, name):
     assert grouped_gemm_cuda.launches == before + 1
     assert got.shape == (t, f) and got.dtype == x.dtype
     _close(got, want, name, d)
-    got = grouped_gemm_cuda(x, w, torch.as_tensor(te, device=cuda), bt=bt,
-                            out_dtype=torch.float32)
+    got = grouped_gemm_cuda(x, w, te, bt=bt, out_dtype=torch.float32)
     _close(got, want.float() if name == "float32" else
            grouped_gemm_plain(x, w, torch.as_tensor(te, device=cuda), bt=bt,
                               out_dtype=torch.float32), name, d)
@@ -690,3 +692,51 @@ def test_contract_on_the_card_equals_eager_and_the_cpu(cuda):
     assert torch.equal(outs[True], outs[False])
     cpu = DistributedMatmul(Grid.local("cpu"), local_matmul="pallas")
     _close(outs[True], cpu.contract(spec, *ts).data, "float32", v * v)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("bt,d,f", [(112, 256, 300), (64, 256, 512),
+                                    (1280, 128, 256)])
+def test_grouped_gemm_host_map_launch(cuda, bt, d, f, name):
+    """The map on the host, as the MoE layer gives it, at tiles of 112
+    rows (kimi-k2's capacity at 4096 tokens: a 64-row unit and a 48-row
+    one) and of 1280 (mixtral's): through ``ops.grouped_gemm`` and the
+    wrapper directly, one launch each, equal bitwise, and held against
+    the plain version."""
+    e = 3
+    te = np.tile(np.arange(e, dtype=np.int32), 2)
+    x = _rand((te.size * bt, d), name, bt, cuda)
+    w = _rand((e, d, f), name, f, cuda)
+    before = grouped_gemm_cuda.launches
+    got = ops.grouped_gemm(x, w, te, bt=bt)
+    assert grouped_gemm_cuda.launches == before + 1
+    direct = grouped_gemm_cuda(x, w, te, bt=bt)
+    assert grouped_gemm_cuda.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, direct)
+    _close(got, grouped_gemm_plain(x, w, te, bt=bt), name, d)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "kimi-k2-1t-a32b"])
+def test_moe_layer_on_the_card(cuda, arch):
+    """A SMOKE MoE layer on the card: ``use_kernel=True`` launches the
+    grouped GEMM three times (gate, up, down) and agrees with the einsum
+    route within one bf16 rounding of each value (2**-7 of |want|) and
+    2e-2 of the output's rms."""
+    from repro_torch.models import moe
+
+    cfg = get_config(arch, smoke=True)
+    layer = moe.init_moe(cfg, generator=torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    x = _rand((2, 64, cfg.d_model), "bfloat16", 3, cuda)
+    before = grouped_gemm_cuda.launches
+    got, aux = moe.moe_ffn(layer, x, cfg, ParallelCtx(None), use_kernel=True)
+    assert grouped_gemm_cuda.launches == before + 3
+    want, want_aux = moe.moe_ffn(layer, x, cfg, ParallelCtx(None))
+    torch.cuda.synchronize()
+    want = want.float()
+    rms = want.square().mean().sqrt().item()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.cpu().numpy(), rtol=2.0 ** -7,
+                               atol=2e-2 * rms)
+    assert float(aux) == float(want_aux)

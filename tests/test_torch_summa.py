@@ -156,7 +156,9 @@ def test_reference_oracles_and_block_mask():
 def test_unported_routes_raise():
     """``contract`` (A6), the tuner (A1) and the pull and stationary routes
     (A7), which raised here until they were ported, now give the
-    reference's products; ``summa_25d_matmul`` still raises A3."""
+    reference's products; ``summa_25d_matmul`` (A3), which raised too,
+    now refuses a grid without its replica axis with the reference's
+    message."""
     mm = DistributedMatmul(Grid.local("cpu"))
     ref = RefDistributedMatmul(make_host_mesh(1, 1))
     a = np.random.default_rng(4).normal(size=(16, 16)).astype(np.float32)
@@ -174,7 +176,8 @@ def test_unported_routes_raise():
         np.asarray(ref.contract("ab,bc->ac", jnp.asarray(a),
                                 jnp.asarray(a)).data),
         atol=ORACLE_ATOL, rtol=ORACLE_RTOL)
-    with pytest.raises(NotImplementedError, match="A3"):
+    with pytest.raises(ValueError,
+                       match="rep_axis 'pod' is not a mesh axis"):
         summa_25d_matmul(torch.from_numpy(a), torch.from_numpy(a),
                          SummaConfig(grid=Grid.local("cpu")))
     # a dense-stored rank map plans rank-aware and runs the masked DAG
@@ -291,6 +294,25 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from repro_torch.core import DistributedMatmul, Grid
+from repro_torch.core import summa
+
+
+def parent_k_shard(x_loc, cfg, *, k_dim):
+    # the stationary re-layout as it was before it moved only the K
+    # shard: the whole operand all-gathered along both axes, then sliced
+    g = cfg.grid
+    if k_dim == 0:
+        full = g.all_gather(g.all_gather(x_loc, cfg.row_axis, dim=0),
+                            cfg.col_axis, dim=1)
+        w = full.shape[0] // cfg.p_col
+        j = g.axis_index(cfg.col_axis)
+        return full[j * w:(j + 1) * w]
+    full = g.all_gather(g.all_gather(x_loc, cfg.col_axis, dim=1),
+                        cfg.row_axis, dim=0)
+    w = full.shape[1] // cfg.p_row
+    i = g.axis_index(cfg.row_axis)
+    return full[:, i * w:(i + 1) * w]
+
 
 rank, rdv, data, spec = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
                          sys.argv[4])
@@ -305,7 +327,15 @@ for name, mm_kw, call_kw, masked in json.loads(spec):
     mm = DistributedMatmul(grid, k_blocks=8, **mm_kw)
     kw = dict(call_kw, **(masks if masked else {}))
     plan = mm.plan(64, 128, 96, **kw)
+    summa._exec_stationary.recv_bytes = 0
     c = mm(case["a"], case["b"], **kw)
+    recv = [None] * 4
+    dist.all_gather_object(recv, summa._exec_stationary.recv_bytes)
+    out[name + "-recv"] = np.array(recv)
+    if plan.stationarity != "C":
+        new_k_shard, summa._k_shard = summa._k_shard, parent_k_shard
+        out[name + "-parent"] = mm(case["a"], case["b"], **kw).numpy()
+        summa._k_shard = new_k_shard
     out[name] = c.numpy()
     out[name + "-impl"] = np.array(plan.local_impl)
     out[name + "-route"] = np.array(
@@ -338,6 +368,28 @@ def _runs(family):
     return runs
 
 
+def _stationary_traffic(stationarity):
+    """Per rank of the 2x2 grid, row-major: the bytes a stationary
+    re-layout of the 64x128 @ 128x96 fp32 product must deliver to it
+    (its K shard, less what its own tile holds), and what
+    ``sched.taskgraph._emit_stationary`` prices its group's relay."""
+    from repro_torch.sched.taskgraph import BCAST_FACTOR, from_plan
+
+    plan = DistributedMatmul(Grid(sizes=(2, 2)), k_blocks=8).plan(
+        64, 128, 96, stationarity=stationarity)
+    relay = "bcast_b" if stationarity == "A" else "bcast_a"
+    price = np.zeros(4)
+    for task in from_plan(plan).tasks:
+        if task.kind == relay:
+            price[list(task.devices)] = task.bytes
+    # the moving tile: B's (64 x 48) under "A" (its K over the grid rows,
+    # shards over the columns), A's (32 x 64) under "B"; a rank holds a
+    # part of its own shard when its two coordinates agree
+    tile = 64 * 48 * 4 if stationarity == "A" else 32 * 64 * 4
+    held = np.array([tile if i == j else 0 for i in (0, 1) for j in (0, 1)])
+    return price / BCAST_FACTOR - held, price
+
+
 @pytest.mark.parametrize("family", ["dense", "banded", "pull", "stationary_A",
                                     "stationary_B", "tuned"])
 def test_2x2_gloo_grid_matches_oracle(tmp_path, family):
@@ -345,7 +397,14 @@ def test_2x2_gloo_grid_matches_oracle(tmp_path, family):
     rows and columns, the all-gather strategy, and the per-rank BSMM maps
     (banded masks give each rank its own CSR map); the one-sided pull
     route, the A-/B-stationary schedules (their re-layout and
-    reduce-scatter) and tuned plans, on banded masks and unmasked."""
+    reduce-scatter) and tuned plans, on banded masks and unmasked.
+
+    The stationary re-layout delivers each rank only its K shard: the
+    bytes it receives are the shard the task graph prices for its group
+    (less the factor of the reference's broadcast-as-allreduce) less the
+    part its own tile holds, masked or not (zero blocks travel, as in the
+    reference's re-layout); C equals bitwise the C of the earlier
+    re-layout, which all-gathered the whole operand."""
     case = oracle_case("dense" if family == "dense" else "banded", seed=7)
     data = tmp_path / "case.npz"
     masks = {} if case["a_mask"] is None else dict(
@@ -382,6 +441,14 @@ def test_2x2_gloo_grid_matches_oracle(tmp_path, family):
         assert tuned == str(bool(call_kw.get("tune"))), name
         if "stationarity" in call_kw:
             assert stationarity == call_kw["stationarity"], name
+            np.testing.assert_array_equal(out[name], out[name + "-parent"],
+                                          err_msg=name)
+            want, price = _stationary_traffic(stationarity)
+            np.testing.assert_array_equal(out[name + "-recv"], want,
+                                          err_msg=name)
+            assert (out[name + "-recv"] < price).all(), name
+        elif stationarity == "C":
+            assert not out[name + "-recv"].any(), name
     if family in ("dense", "banded"):
         want_impl = "dense" if family == "dense" else "bsmm"
         assert str(out["pallas-taskbased-impl"]) == want_impl
