@@ -11,9 +11,9 @@ card, through the entry points a user calls (``DistributedMatmul``, with
 and without the schedule tuner, and ``NonuniformMatmul``), the
 block-sparse tensor front-end (``DistributedMatmul.contract`` and
 ``contract_chain``) on a coupled-cluster contraction, then the LM
-forward of llama3.2-1b at its full width and depth through
-``models.model.forward``, and checks every hand-written kernel against
-its plain PyTorch version.  Phases, in the order they run — any failure
+forwards of llama3.2-1b, the MoE, recurrent and frontend families
+through ``models.model.forward``, and checks every hand-written kernel
+against its plain PyTorch version.  Phases, in the order they run — any failure
 raises, so the script exits non-zero:
 
 1. device: the card's name and power limit; TF32 off;
@@ -141,7 +141,34 @@ raises, so the script exits non-zero:
    C = 1280 and 112) on the layer's own weights against
    ``grouped_gemm_plain`` at the output's scale, timed beside the plain
    version, one ``torch.bmm`` over the buffer grouped by expert and the
-   card's bound.
+   card's bound;
+
+   [recurrent] the recurrent families, bf16, weights from ``init_model``
+   (seed 0): recurrentgemma-9b at full width and depth (38 layers, 17.5
+   GiB) on 2 prompts x 4096 tokens — ``flash_attention`` at its own call
+   (16/1 heads of 256, window 2048) against its plain version and timed
+   beside SDPA with the window as a boolean mask; one unit (rglru, rglru,
+   attn) held against its fp32 twin (``hold_against_twin``: plain,
+   kernel and summa forms); the whole model's walls, peak, 12
+   ``flash_attention`` launches and greedy tokens; one RG-LRU sublayer,
+   its associative scan and the forward timed with CUDA events — then
+   xlstm-1.3b at full width and depth (48 layers) on 4 x 4096 tokens,
+   parallel and chunkwise (``mlstm_chunk=256``) mLSTM: one unit of 8
+   blocks against its fp32 twin, the chunkwise core against a float64
+   parallel core at the model's call, every mLSTM block of the whole
+   model chunkwise against parallel on one input, walls and peak of both
+   forms, and the sLSTM loop's share of device time; and each block
+   kind's ``return_state`` over 256 tokens then 4 ``*_step`` against its
+   sequence form (fp32 twin and bf16);
+
+   [frontends] hubert-xlarge at full width and depth on 4 x 4096 stub
+   frame embeddings (48 non-causal launches at Dh 80; its attention call
+   held against plain and timed beside SDPA; the whole model against its
+   fp32 twin), and qwen2-vl-72b at full width cut to 16 layers (80 are
+   135 GiB) on 1024 stub patch embeddings and 3072 tokens with M-RoPE
+   (t, h, w) streams built by the reference's rule: its attention call,
+   the hold at 2 layers against the fp32 twin, text-only M-RoPE with
+   equal streams against RoPE (bitwise), walls, peak, 16 launches.
 
 Every product runs on an empty autotune cache, so its launch counts do
 not depend on the cache, except the two that check the cache: the end of
@@ -237,6 +264,7 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import moe as moe_layer  # noqa: E402
+from repro_torch.models import recurrent as rec  # noqa: E402
 from repro_torch.models.model import LM, forward, init_model  # noqa: E402
 from repro_torch.sched import abstract_summa_config, tune_plan  # noqa: E402
 
@@ -284,6 +312,30 @@ MOE_BATCH, MOE_SEQ = 4, 4096
 KIMI_ARCH, KIMI_LAYERS, KIMI_BATCH = "kimi-k2-1t-a32b", 1, 1
 #: grouped_gemm launches of one MoE layer's expert GEMMs: gate, up, down
 MOE_LAUNCHES_PER_LAYER = 3
+#: [recurrent]: recurrentgemma-9b at full width and depth (38 layers,
+#: 17.5 GiB in bf16) on 2 prompts of 4096 tokens (its tied 256000-wide
+#: logits are 7.8 GiB in fp32); xlstm-1.3b at full width and depth (48
+#: layers) on 4 x 4096, with the parallel and the chunkwise mLSTM
+#: (chunk MLSTM_CHUNK); each held against an fp32 twin cut to one unit
+#: of its block pattern; state continuation of each block kind over
+#: REC_STATE_SEQ tokens, then REC_STEPS steps
+RG_ARCH, RG_BATCH = "recurrentgemma-9b", 2
+XL_ARCH, XL_BATCH, MLSTM_CHUNK = "xlstm-1.3b", 4, 256
+REC_SEQ = 4096
+REC_STATE_BATCH, REC_STATE_SEQ, REC_STEPS = 2, 256, 4
+#: [frontends]: hubert-xlarge at full width and depth on 4 x 4096 frame
+#: embeddings; qwen2-vl-72b at full width on 1 x 4096 positions (1024
+#: patch embeddings, then 3072 tokens), its depth cut to VLM_LAYERS (80
+#: layers are 135 GiB in bf16, more than the card holds) and to
+#: VLM_HOLD_LAYERS for the hold against its fp32 twin
+HUBERT_ARCH, HUBERT_BATCH = "hubert-xlarge", 4
+VLM_ARCH, VLM_LAYERS, VLM_HOLD_LAYERS, VLM_BATCH = "qwen2-vl-72b", 16, 2, 1
+FRONT_SEQ, VLM_PATCHES = 4096, 1024
+#: one block in bf16 held at the reference's tolerance, 2e-2 x max|want|,
+#: as the CPU tests hold the port's blocks (tests/test_torch_recurrent.py):
+#: two routes of one block on one input, or a block's steps against its
+#: fp32 sequence form
+BF16_MAX_RTOL = 2e-2
 #: the LM forward: full llama3.2-1b, train_4k's length and prefill_32k's
 LM_ARCH = "llama3.2-1b"
 LM_BATCH, LM_SEQ, LM_LONG_SEQ = 4, 4096, 32768
@@ -1811,41 +1863,63 @@ def live_pairs(s: int, causal: bool, window: int | None) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
+def sdpa_mask(s: int, causal: bool, window: int | None):
+    """The boolean mask (True: attend) of ``causal`` attention with
+    ``window`` for ``scaled_dot_product_attention``, or None where
+    ``is_causal`` says it."""
+    if window is None:
+        return None
+    q = torch.arange(s, device=DEVICE)[:, None]
+    k = torch.arange(s, device=DEVICE)[None, :]
+    keep = k > q - window
+    return keep & (k <= q) if causal else keep
+
+
 def time_attention(cfg, b, s, iters, plain=True) -> dict:
-    """The kernel at the LM's attention call beside its plain version
-    (at S <= 4096, unless ``plain`` is false),
-    ``scaled_dot_product_attention`` and its bound: 4·B·H·Dh FLOP per
-    live (query, key) pair at the bf16 tensor-core peak, against Q, K, V
-    read once and O written once at the card's memory rate."""
+    """The kernel at the LM's attention call (``cfg``'s causality and
+    window) beside its plain version (at S <= 4096, unless ``plain`` is
+    false), ``scaled_dot_product_attention`` (with the window as a
+    boolean mask) and its bound: 4·B·H·Dh FLOP per live (query, key) pair
+    at the bf16 tensor-core peak, against Q, K, V read once and O written
+    once at the card's memory rate."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     q, k, v = attention_operands(cfg, b, s, gen)
-    pairs = live_pairs(s, True, cfg.window)
+    causal, window = cfg.causal, cfg.window
+    pairs = live_pairs(s, causal, window)
     flops = 4.0 * b * cfg.num_heads * cfg.resolved_head_dim * pairs
     nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
-    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True), iters)
+    ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal,
+                                              window=window), iters)
     out = dict(ms=ms, flops=flops, nbytes=nbytes, pairs=pairs)
     if plain and s <= LM_SEQ:  # its scores: 8.6 GB at B=4, S=4096
         out["plain_ms"] = cuda_ms(
-            lambda: flash_attention_plain(q, k, v, causal=True), iters)
+            lambda: flash_attention_plain(q, k, v, causal=causal,
+                                          window=window), iters)
+    mask = sdpa_mask(s, causal, window)
     out["library_ms"] = cuda_ms(
         lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), iters)
+            q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True), iters)
     out["bound_ms"], out["bound_by"] = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    mode = ("causal" if causal else "non-causal") + (
+        f", window {window}" if window is not None else "")
     log(f"  flash_attention B={b} H={cfg.num_heads} Hkv={cfg.num_kv_heads} "
-        f"S={s} Dh={cfg.resolved_head_dim} bf16 causal: kernel {ms:.3f} ms "
+        f"S={s} Dh={cfg.resolved_head_dim} bf16 {mode}: kernel {ms:.3f} ms "
         f"({flops / ms / 1e9:.2f} TFLOP/s), "
         + (f"plain {out['plain_ms']:.3f} ms, " if "plain_ms" in out else
            "plain not run, " if not plain else
            "plain not run (its scores would take "
            f"{4.0 * b * cfg.num_heads * s * s / 1e9:.0f} GB), ")
-        + f"scaled_dot_product_attention {out['library_ms']:.3f} ms "
+        + f"scaled_dot_product_attention"
+        + (" (boolean mask)" if mask is not None else "")
+        + f" {out['library_ms']:.3f} ms "
         f"({flops / out['library_ms'] / 1e9:.2f} TFLOP/s), "
         + f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
         f"{flops:.4g} FLOP at {PEAK_BF16_FLOPS:.3g} FLOP/s = "
         f"{flops / PEAK_BF16_FLOPS * 1e3:.4f} ms; {nbytes:.4g} bytes at "
         f"{PEAK_HBM_BYTES_PER_S:.3g} B/s = "
         f"{nbytes / PEAK_HBM_BYTES_PER_S * 1e3:.4f} ms)")
-    del q, k, v
+    del q, k, v, mask
     torch.cuda.empty_cache()
     return out
 
@@ -1868,11 +1942,29 @@ def expert_route(kernel: bool):
         lm_model.moe_ffn = moe_ffn
 
 
-def run_forward(model, tokens, cfg, ctx, *, use_kernel, what, experts=None):
-    """One forward with every launch count set to 0 just before and read
-    just after; returns (logits, wall seconds, counts, peak bytes).
-    ``experts`` (default ``use_kernel``) sets the MoE blocks' expert GEMMs
-    apart from attention (``expert_route``)."""
+def attention_blocks(cfg) -> int:
+    """The attention blocks of ``cfg``'s stack (its layers, for a model of
+    attention blocks only)."""
+    return (cfg.units * cfg.block_pattern.count("attn")
+            + cfg.tail.count("attn"))
+
+
+def stream_shape(inputs: dict, cfg) -> tuple[int, int]:
+    """(B, S) of the residual stream ``inputs`` give: embeddings first,
+    then the tokens (when the model embeds them)."""
+    parts = [inputs[k] for k in ("embeds", "tokens") if inputs.get(k) is
+             not None and (k == "embeds" or cfg.embed_inputs)]
+    return parts[0].shape[0], sum(x.shape[1] for x in parts)
+
+
+def run_forward(model, inputs, cfg, ctx, *, use_kernel, what, experts=None):
+    """One forward of ``inputs`` (a dict, or the tokens alone) with every
+    launch count set to 0 just before and read just after; returns
+    (logits, wall seconds, counts, peak bytes).  ``experts`` (default
+    ``use_kernel``) sets the MoE blocks' expert GEMMs apart from attention
+    (``expert_route``)."""
+    if isinstance(inputs, torch.Tensor):
+        inputs = {"tokens": inputs}
     experts = use_kernel if experts is None else experts
     for fn in COUNTERS.values():
         fn.launches = 0
@@ -1881,8 +1973,7 @@ def run_forward(model, tokens, cfg, ctx, *, use_kernel, what, experts=None):
     resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     with torch.inference_mode(), expert_route(experts):
-        logits, _ = forward(model, {"tokens": tokens}, cfg, ctx,
-                            use_kernel=use_kernel)
+        logits, _ = forward(model, inputs, cfg, ctx, use_kernel=use_kernel)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -1890,14 +1981,15 @@ def run_forward(model, tokens, cfg, ctx, *, use_kernel, what, experts=None):
     log(f"  {what}: launches {counts}; wall {wall:.3f} s; peak device "
         f"memory {peak / 2**30:.2f} GiB ({resident / 2**30:.2f} GiB resident "
         f"before the call)")
-    want = {"flash_attention": cfg.num_layers if use_kernel else 0,
-            "grouped_gemm": (MOE_LAUNCHES_PER_LAYER * cfg.num_layers
+    n_attn = attention_blocks(cfg)
+    want = {"flash_attention": n_attn if use_kernel else 0,
+            "grouped_gemm": (MOE_LAUNCHES_PER_LAYER * n_attn
                              if experts and cfg.moe is not None else 0)}
     if any(n != want.get(name, 0) for name, n in counts.items()):
         raise AssertionError(
             f"{what}: expected launches {want} and no other kernel, got "
             f"{counts}")
-    b, s = tokens.shape
+    b, s = stream_shape(inputs, cfg)
     if logits.shape != (b, s, cfg.vocab_size) or logits.dtype != torch.float32:
         raise AssertionError(f"{what}: logits {tuple(logits.shape)} "
                              f"{logits.dtype}")
@@ -2248,21 +2340,22 @@ def hold_witnesses(model, tokens, cfg, plain, kernel) -> dict:
                 attention_share=a_share)
 
 
-def moe_model(cfg):
+def card_model(cfg):
     """``cfg``'s model on the card, from ``init_model`` (seed 0)."""
     t0 = time.perf_counter()
     model = init_model(cfg, generator=torch.Generator(
         device=DEVICE).manual_seed(SEED), device=DEVICE)
     torch.cuda.synchronize()
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    count = sum(p.numel() for p in model.parameters())
     log(f"  init_model({cfg.name}, {cfg.num_layers} layers) on the card: "
-        f"{time.perf_counter() - t0:.2f} s, {weights / 2**30:.2f} GiB of "
-        f"weights")
+        f"{time.perf_counter() - t0:.2f} s, {count / 1e9:.3f} B parameters, "
+        f"{weights / 2**30:.2f} GiB of weights")
     return model
 
 
-def moe_tokens(cfg, b: int, seed: int) -> torch.Tensor:
-    return torch.randint(0, cfg.vocab_size, (b, MOE_SEQ),
+def prompt_tokens(cfg, b: int, seed: int, s: int = MOE_SEQ) -> torch.Tensor:
+    return torch.randint(0, cfg.vocab_size, (b, s),
                          generator=torch.Generator(
                              device=DEVICE).manual_seed(seed),
                          device=DEVICE)
@@ -2283,8 +2376,8 @@ def phase_moe() -> dict:
     # the hold: MOE_HOLD_LAYERS layers against their fp32 twin
     cfg = dataclasses.replace(base, num_layers=MOE_HOLD_LAYERS)
     out["mixtral_attention"] = hold_moe_attention(cfg, MOE_BATCH, gen)
-    model = moe_model(cfg)
-    tokens = moe_tokens(cfg, MOE_BATCH, SEED + 10)
+    model = card_model(cfg)
+    tokens = prompt_tokens(cfg, MOE_BATCH, SEED + 10)
     model32, cfg32 = fp32_twin(model, cfg)
     ref32, _, _, _ = run_forward(
         model32, tokens, cfg32, xla, use_kernel=False,
@@ -2314,7 +2407,7 @@ def phase_moe() -> dict:
     torch.cuda.empty_cache()
     # the depth-cut model: walls, memory, greedy tokens, the kernels
     cfg = dataclasses.replace(base, num_layers=MOE_LAYERS)
-    model = moe_model(cfg)
+    model = card_model(cfg)
     logits, cold, _, _ = run_forward(
         model, tokens, cfg, xla, use_kernel=True,
         what=f"forward(use_kernel=True), {MOE_LAYERS} layers, first call")
@@ -2343,8 +2436,8 @@ def phase_moe() -> dict:
         f"{cfg.resolved_head_dim}), vocab {cfg.vocab_size}; B={KIMI_BATCH} "
         f"S={MOE_SEQ}")
     out["kimi_attention"] = hold_moe_attention(cfg, KIMI_BATCH, gen)
-    model = moe_model(cfg)
-    tokens = moe_tokens(cfg, KIMI_BATCH, SEED + 11)
+    model = card_model(cfg)
+    tokens = prompt_tokens(cfg, KIMI_BATCH, SEED + 11)
     plain, _, _, _ = run_forward(model, tokens, cfg, xla, use_kernel=False,
                                  what="bf16 forward(use_kernel=False)")
     logits, cold, _, _ = run_forward(
@@ -2370,6 +2463,475 @@ def phase_moe() -> dict:
     out["kimi_times"] = moe_launches(model.units[0]["b0"].moe, cfg,
                                      KIMI_BATCH, MOE_SEQ, gen, 5)
     del model
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [recurrent] and [frontends]
+
+
+def hold_against_twin(model, inputs, cfg, forms, what: str) -> dict:
+    """``forms``: (label, ctx, use_kernel, fp32 tolerance) of the forward,
+    the first the yardstick's.  The fp32 twin of ``model`` runs each form;
+    every other form must agree with the first on LM_FP32_AGREE of
+    argmaxes and, where its tolerance is not None, equal it within that
+    share of max |logit|.  Then in bf16 each other form must be no
+    further from the fp32 first form than LM_BF16_REL_RATIO x the bf16
+    first form is, its argmax agreement within LM_BF16_AGREE_DROP of that
+    one's.  Returns the distances."""
+    out = {}
+    model32, cfg32 = fp32_twin(model, cfg)
+    inputs32 = {k: (v.float() if k == "embeds" else v)  # exact
+                for k, v in inputs.items()}
+    label0, ctx0, kernel0, _ = forms[0]
+    ref32, _, _, _ = run_forward(model32, inputs32, cfg32, ctx0,
+                                 use_kernel=kernel0,
+                                 what=f"{what} fp32 {label0}")
+    for label, ctx, use_kernel, fp32_tol in forms[1:]:
+        got, _, _, _ = run_forward(model32, inputs32, cfg32, ctx,
+                                   use_kernel=use_kernel,
+                                   what=f"{what} fp32 {label}")
+        rel, share = logit_distance(got, ref32,
+                                    f"fp32 {label} vs fp32 {label0}")
+        hold((fp32_tol is None or rel <= fp32_tol)
+             and share >= LM_FP32_AGREE,
+             f"fp32 {label} vs fp32 {label0}: "
+             + (f"within {fp32_tol} and " if fp32_tol is not None else "")
+             + f"argmax at least {LM_FP32_AGREE}")
+        out[f"fp32 {label}"] = (rel, share)
+        del got
+    del model32
+    torch.cuda.empty_cache()
+    first, _, _, _ = run_forward(model, inputs, cfg, ctx0, use_kernel=kernel0,
+                                 what=f"{what} bf16 {label0}")
+    rel_p, share_p = logit_distance(first, ref32,
+                                    f"bf16 {label0} vs fp32 {label0}")
+    out[f"bf16 {label0}"] = (rel_p, share_p)
+    del first
+    for label, ctx, use_kernel, _ in forms[1:]:
+        got, _, _, _ = run_forward(model, inputs, cfg, ctx,
+                                   use_kernel=use_kernel,
+                                   what=f"{what} bf16 {label}")
+        rel, share = logit_distance(got, ref32,
+                                    f"bf16 {label} vs fp32 {label0}")
+        hold(rel <= LM_BF16_REL_RATIO * rel_p
+             and share >= share_p - LM_BF16_AGREE_DROP,
+             f"bf16 {label} vs fp32 {label0}: no further than "
+             f"{LM_BF16_REL_RATIO} x the bf16 {label0}'s {rel_p:.6g}, argmax "
+             f"within {LM_BF16_AGREE_DROP} of its {share_p:.6f}")
+        out[f"bf16 {label}"] = (rel, share)
+        del got
+    del ref32
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_attention_call(cfg, b: int, s: int, gen) -> float:
+    """``flash_attention`` at ``cfg``'s own attention call on ``b``
+    prompts of ``s`` positions (its causality and window) against its
+    plain version; returns the error."""
+    q, k, v = attention_operands(cfg, b, s, gen)
+    got = flash_attention_cuda(q, k, v, causal=cfg.causal, window=cfg.window)
+    torch.cuda.synchronize()
+    err = compare_attention(
+        got, flash_attention_plain(q, k, v, causal=cfg.causal,
+                                   window=cfg.window), torch.bfloat16,
+        f"flash_attention bf16 {cfg.name} (B={b}, H={cfg.num_heads}, "
+        f"Hkv={cfg.num_kv_heads}, S={s}, Dh={cfg.resolved_head_dim}, "
+        f"{'causal' if cfg.causal else 'non-causal'}, window {cfg.window})")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return err
+
+
+def depth_run(model, inputs, cfg, what: str) -> dict:
+    """The kernel forward twice (first and warm): walls, peak, launches,
+    finite logits and each prompt's greedy next token."""
+    xla = ParallelCtx(None)
+    logits, cold, _, _ = run_forward(model, inputs, cfg, xla, use_kernel=True,
+                                     what=f"{what}, first call")
+    for i in range(logits.shape[0]):
+        if not torch.isfinite(logits[i]).all():
+            raise AssertionError(f"{what}: non-finite logits")
+    greedy = logits[:, -1].argmax(-1).tolist()
+    log(f"  all logits finite; greedy next token of each prompt: {greedy}")
+    del logits
+    _, wall, counts, peak = run_forward(model, inputs, cfg, xla,
+                                        use_kernel=True,
+                                        what=f"{what}, warm")
+    return dict(cold=cold, wall=wall, peak=peak, greedy=greedy,
+                launches=counts["flash_attention"])
+
+
+def event_ms(fn) -> float:
+    """Elapsed device time of one call of ``fn`` between two CUDA events
+    (idle time inside it included)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def continue_state(p, kind: str, cfg, x) -> tuple:
+    """(the sequence form of block ``p`` over all of ``x`` at its last
+    REC_STEPS positions, ``return_state`` over the rest then REC_STEPS
+    tokens of ``*_step``)."""
+    seq = {"rglru": rec.rglru_block, "mlstm": rec.mlstm_block,
+           "slstm": rec.slstm_block}[kind]
+    step = {"rglru": rec.rglru_step, "mlstm": rec.mlstm_step,
+            "slstm": rec.slstm_step}[kind]
+    ctx = ParallelCtx(None)
+    s = x.shape[1] - REC_STEPS
+    with torch.inference_mode():
+        whole = seq(p, x, cfg, ctx)[:, s:]
+        _, state = seq(p, x[:, :s], cfg, ctx, return_state=True)
+        got = []
+        for t in range(s, s + REC_STEPS):
+            y, state = step(p, x[:, t], state, cfg)
+            got.append(y)
+    return whole, torch.stack(got, 1)
+
+
+def state_continuation(p, kind: str, cfg, gen) -> dict:
+    """``return_state`` over REC_STATE_SEQ tokens, then REC_STEPS tokens of
+    ``*_step``, against the sequence form over all of them at those
+    positions.  In an fp32 twin of the block the two must agree within
+    LM_FP32_REL_TOL of max |output|; in bf16 the step form must lie within
+    the bf16 tolerance (BF16_MAX_RTOL of max |output|) of the fp32
+    sequence form, which is the truth both bf16 forms round away from
+    (``*_step`` sums the conv in fp32 where the sequence form rounds each
+    tap to bf16, as the reference's do, so the two bf16 forms differ by
+    their roundings).  Returns the distances."""
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = type(p)(cfg32, dtype=torch.float32, device=DEVICE)
+    params = dict(p.named_parameters())
+    for name, q in p32.named_parameters():
+        q.data.copy_(params[name])
+    x = randn((REC_STATE_BATCH, REC_STATE_SEQ + REC_STEPS, cfg.d_model),
+              torch.bfloat16, gen)
+    what = (f"{cfg.name} {kind}: return_state over {REC_STATE_SEQ} tokens "
+            f"+ {REC_STEPS} {kind}_step vs the sequence form over "
+            f"{REC_STATE_SEQ + REC_STEPS}")
+    whole32, step32 = continue_state(p32, kind, cfg32, x.float())
+    del p32
+    scale = whole32.abs().max().item()
+    rel32 = (step32 - whole32).abs().max().item() / scale
+    log(f"  {what}, fp32: {rel32:.6g} of max |output| {scale:.6g}")
+    hold(rel32 <= LM_FP32_REL_TOL, f"fp32 within {LM_FP32_REL_TOL}")
+    whole, step = continue_state(p, kind, cfg, x)
+    rel_seq = (whole.float() - whole32).abs().max().item() / scale
+    rel = (step.float() - whole32).abs().max().item() / scale
+    log(f"  {what}, bf16: the step form {rel:.6g} and the sequence form "
+        f"{rel_seq:.6g} of max |output| from the fp32 sequence form")
+    hold(torch.isfinite(step).all().item() and rel <= BF16_MAX_RTOL,
+         f"bf16 step form within {BF16_MAX_RTOL} of the fp32 sequence form")
+    return dict(fp32=rel32, bf16=rel, bf16_sequence=rel_seq)
+
+
+def mlstm_core_fp64(q, k, v, i_pre, f_pre) -> torch.Tensor:
+    """The stabilized parallel mLSTM (the xLSTM paper's quadratic form)
+    written here in float64, as the yardstick of the port's fp32 cores."""
+    q, k, v = q.double(), k.double(), v.double()
+    s, dh = q.shape[2], q.shape[3]
+    cum_f = torch.cumsum(torch.nn.functional.logsigmoid(f_pre.double()), -1)
+    dmat = cum_f[..., :, None] - cum_f[..., None, :] + i_pre.double()[..., None, :]
+    dmat.masked_fill_(~torch.ones((s, s), dtype=torch.bool,
+                                  device=q.device).tril(), -math.inf)
+    m = dmat.amax(-1, keepdim=True)
+    w = torch.exp(dmat.sub_(m))
+    del dmat
+    sw = torch.matmul(q, k.transpose(-1, -2)).mul_(w) / math.sqrt(dh)
+    del w
+    norm = torch.maximum(sw.sum(-1, keepdim=True).abs(), torch.exp(-m))
+    return torch.matmul(sw.div_(norm), v)
+
+
+def hold_mlstm_core(cfg, b: int, s: int, gen) -> dict:
+    """The chunkwise mLSTM core and the parallel one in fp32 at the
+    model's call (B, H, S, Di/H), on draws as the reference's own test
+    makes them (tests/test_perf_features.py::
+    test_chunkwise_mlstm_matches_parallel: normal q, k, v and input gates,
+    forget gates shifted by 2), against the parallel form in float64
+    (``mlstm_core_fp64``): the chunkwise core must lie within the
+    reference test's 1e-4 of max |output| of it, or no further than
+    LM_BF16_REL_RATIO x the fp32 parallel core does (at S = 4096 the
+    parallel form subtracts cumulative log-gates of ~500 in fp32).
+    Returns the distances."""
+    nh = cfg.num_heads
+    dh = 2 * cfg.d_model // nh
+    q, k, v = (torch.randn((b, nh, s, dh), generator=gen, device=DEVICE)
+               for _ in range(3))
+    i_pre = torch.randn((b, nh, s), generator=gen, device=DEVICE)
+    f_pre = torch.randn((b, nh, s), generator=gen, device=DEVICE) + 2.0
+    with torch.inference_mode():
+        full = rec._mlstm_core(q, k, v, i_pre, f_pre)
+        chunked = rec._mlstm_core_chunked(q, k, v, i_pre, f_pre, MLSTM_CHUNK)
+        torch.cuda.empty_cache()
+        want = mlstm_core_fp64(q, k, v, i_pre, f_pre)
+    if not torch.isfinite(chunked).all():
+        raise AssertionError("chunkwise mLSTM core: non-finite values")
+    scale = want.abs().max().item()
+    out = dict(parallel=(full.double() - want).abs().max().item() / scale,
+               chunked=(chunked.double() - want).abs().max().item() / scale,
+               pair=((full - chunked).abs().max() / full.abs().max()).item())
+    log(f"  mLSTM core, fp32, B={b} H={nh} S={s} Dh={dh}: from the float64 "
+        f"parallel core, parallel {out['parallel']:.6g} and chunkwise "
+        f"({MLSTM_CHUNK}) {out['chunked']:.6g} of max |output|; chunkwise "
+        f"vs parallel {out['pair']:.6g}")
+    hold(out["chunked"] <= max(1e-4, LM_BF16_REL_RATIO * out["parallel"]),
+         f"chunkwise mLSTM core within 1e-4 of the float64 core or no "
+         f"further than {LM_BF16_REL_RATIO} x the parallel core")
+    del q, k, v, full, chunked, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def walk_blocks(model, inputs, cfg, ctx, other, kinds, what: str) -> float:
+    """``model`` block by block under ``ctx``; each block of ``kinds`` also
+    runs under ``other`` on the same input and is held to the first at
+    BF16_MAX_RTOL x max |output| (a chain of forwards in bf16 would
+    compound each rounding that differs); returns the worst share."""
+    worst = 0.0
+    with torch.inference_mode():
+        x = lm_model.embed_inputs(model, inputs, cfg)
+        b, s = x.shape[:2]
+        pos = torch.arange(s, device=x.device)[None].expand(b, s)
+        blocks = [(kind, unit[f"b{j}"]) for unit in model.units
+                  for j, kind in enumerate(cfg.block_pattern)]
+        blocks += list(zip(cfg.tail, model.tail))
+        for i, (kind, p) in enumerate(blocks):
+            y, _ = lm_model.apply_block(kind, p, x, pos, cfg, ctx)
+            if kind in kinds:
+                z, _ = lm_model.apply_block(kind, p, x, pos, cfg, other)
+                w = abs_worst(z, y)
+                worst = max(worst, w)
+                del z
+            x = y
+    log(f"  {what}: worst block at {worst:.4g} of {BF16_MAX_RTOL} x "
+        f"max|output| -> {'ok' if worst <= 1 else 'OUT OF TOLERANCE'}")
+    if worst > 1:
+        raise AssertionError(f"{what}: out of tolerance")
+    return worst
+
+
+def abs_worst(got, want) -> float:
+    """max |got - want| over BF16_MAX_RTOL x max|want|; raises on a
+    non-finite value."""
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite values")
+    limit = BF16_MAX_RTOL * want.float().abs().max().item()
+    return (got.float() - want.float()).abs().max().item() / limit
+
+
+def phase_recurrent() -> dict:
+    """[recurrent] recurrentgemma-9b and xlstm-1.3b at full width through
+    ``forward(use_kernel=True)``; returns their numbers."""
+    xla = ParallelCtx(None)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    out = {}
+    base = get_config(RG_ARCH)
+    log(f"[recurrent] {base.name} at full width: {base.num_layers} layers "
+        f"(units {base.block_pattern} x {base.units} + tail {base.tail}), "
+        f"d_model {base.d_model}, heads {base.num_heads}/{base.num_kv_heads} "
+        f"(Dh {base.resolved_head_dim}), window {base.window}, d_ff "
+        f"{base.d_ff}, vocab {base.vocab_size}, {base.dtype}; B={RG_BATCH} "
+        f"S={REC_SEQ}")
+    out["rg_attention"] = hold_attention_call(base, RG_BATCH, REC_SEQ, gen)
+    out["rg_times"] = time_attention(base, RG_BATCH, REC_SEQ, 10)
+    cfg = dataclasses.replace(base, num_layers=len(base.block_pattern))
+    model = card_model(cfg)
+    tokens = prompt_tokens(cfg, RG_BATCH, SEED + 13, REC_SEQ)
+    summa = ParallelCtx(Grid.local(DEVICE), matmul_strategy="summa")
+    out["rg_hold"] = hold_against_twin(
+        model, {"tokens": tokens}, cfg,
+        [("plain", xla, False, None), ("kernel", xla, True, LM_FP32_REL_TOL),
+         ("summa kernel", summa, True, LM_FP32_REL_TOL)],
+        f"{cfg.name} one unit")
+    out["rglru_state"] = state_continuation(model.units[0]["b0"].rec,
+                                            "rglru", cfg, gen)
+    del model
+    torch.cuda.empty_cache()
+    model = card_model(base)
+    out["rg"] = depth_run(model, {"tokens": tokens}, base,
+                          f"{base.name} forward(use_kernel=True), "
+                          f"{base.num_layers} layers")
+    # where the time goes: one RG-LRU block, its scan alone, the forward
+    with torch.inference_mode():
+        x = model_layers.embed(model.embed, tokens)
+        p = model.units[0]["b0"].rec
+        block_ms = event_ms(lambda: rec.rglru_block(p, x, base, xla))
+        a = torch.rand((RG_BATCH, REC_SEQ, base.d_model), generator=gen,
+                       device=DEVICE)
+        scan_ms = cuda_ms(lambda: rec.associative_scan(a, a), 5)
+        del a
+        fwd_ms = event_ms(lambda: forward(model, {"tokens": tokens}, base,
+                                          xla, use_kernel=True))
+    n_rglru = (base.units * base.block_pattern.count("rglru")
+               + base.tail.count("rglru"))
+    out["rg_profile"] = dict(block_ms=block_ms, scan_ms=scan_ms,
+                             forward_ms=fwd_ms, n_rglru=n_rglru)
+    log(f"  {base.name}: one RG-LRU sublayer {block_ms:.3f} ms (its "
+        f"associative scan alone {scan_ms:.3f} ms), the forward "
+        f"{fwd_ms:.3f} ms of device time; {n_rglru} RG-LRU sublayers "
+        f"{n_rglru * block_ms / fwd_ms:.3f} of it, their scans "
+        f"{n_rglru * scan_ms / fwd_ms:.3f}")
+    del model, x
+    torch.cuda.empty_cache()
+    # xlstm-1.3b: no attention, so no kernel; the two mLSTM forms
+    base = get_config(XL_ARCH)
+    chunked = ParallelCtx(None, mlstm_chunk=MLSTM_CHUNK)
+    log(f"[recurrent] {base.name} at full width: {base.num_layers} layers "
+        f"(units {base.block_pattern} x {base.units}), d_model "
+        f"{base.d_model}, {base.num_heads} heads, vocab {base.vocab_size}, "
+        f"{base.dtype}; B={XL_BATCH} S={REC_SEQ}; mLSTM parallel and chunkwise "
+        f"(mlstm_chunk={MLSTM_CHUNK})")
+    cfg = dataclasses.replace(base, num_layers=len(base.block_pattern))
+    model = card_model(cfg)
+    tokens = prompt_tokens(cfg, XL_BATCH, SEED + 14, REC_SEQ)
+    out["xl_hold"] = hold_against_twin(
+        model, {"tokens": tokens}, cfg,
+        [("parallel mLSTM", xla, True, None),
+         ("chunkwise mLSTM", chunked, True, None)],
+        f"{cfg.name} one unit")
+    out["mlstm_core"] = hold_mlstm_core(cfg, XL_BATCH, REC_SEQ, gen)
+    out["mlstm_state"] = state_continuation(model.units[0]["b0"].rec,
+                                            "mlstm", cfg, gen)
+    out["slstm_state"] = state_continuation(model.units[0]["b7"].rec,
+                                            "slstm", cfg, gen)
+    del model
+    torch.cuda.empty_cache()
+    model = card_model(base)
+    out["xl"] = depth_run(model, {"tokens": tokens}, base,
+                          f"{base.name} forward, parallel mLSTM, "
+                          f"{base.num_layers} layers")
+    _, wall, _, peak = run_forward(
+        model, tokens, base, chunked, use_kernel=True,
+        what=f"{base.name} forward, chunkwise mLSTM ({MLSTM_CHUNK}), "
+             f"{base.num_layers} layers")
+    out["xl_chunked"] = dict(wall=wall, peak=peak)
+    out["xl_walk"] = walk_blocks(
+        model, {"tokens": tokens}, base, xla, chunked, ("mlstm",),
+        f"{base.name}: each of {base.units * 7} mLSTM blocks chunkwise vs "
+        f"parallel on the parallel stream's input")
+    with torch.inference_mode():
+        x = model_layers.embed(model.embed, tokens)
+        p = model.units[0]["b7"].rec
+        slstm_ms = event_ms(lambda: rec.slstm_block(p, x, base, xla))
+        p = model.units[0]["b0"].rec
+        mlstm_ms = event_ms(lambda: rec.mlstm_block(p, x, base, xla))
+        mlstm_chunk_ms = event_ms(lambda: rec.mlstm_block(p, x, base,
+                                                          chunked))
+        fwd_ms = event_ms(lambda: forward(model, {"tokens": tokens}, base,
+                                          xla))
+    n_slstm = base.units * base.block_pattern.count("slstm")
+    out["xl_profile"] = dict(slstm_ms=slstm_ms, mlstm_ms=mlstm_ms,
+                             mlstm_chunk_ms=mlstm_chunk_ms,
+                             forward_ms=fwd_ms, n_slstm=n_slstm)
+    log(f"  {base.name}: one sLSTM block {slstm_ms:.3f} ms ({REC_SEQ} cell "
+        f"steps), one mLSTM block {mlstm_ms:.3f} ms parallel / "
+        f"{mlstm_chunk_ms:.3f} ms chunkwise, the forward {fwd_ms:.3f} ms of "
+        f"device time; {n_slstm} sLSTM loops {n_slstm * slstm_ms / fwd_ms:.3f}"
+        f" of it")
+    del model, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def mrope_positions(batch: int, s_vis: int, s_text: int) -> torch.Tensor:
+    """(B, S, 3) t/h/w positions: vision patches on a ~square grid, text
+    sequential after the vision span (the reference's rule for its VLM
+    data, Qwen2-VL's scheme simplified)."""
+    side = max(int(math.isqrt(s_vis)), 1)
+    idx = torch.arange(s_vis)
+    vis = torch.stack([torch.zeros_like(idx), idx // side, idx % side], -1)
+    start = int(vis.max()) + 1 if s_vis else 0
+    txt = (start + torch.arange(s_text))[:, None].expand(s_text, 3)
+    pos = torch.cat([vis, txt], 0)
+    return pos[None].expand(batch, -1, -1).contiguous().to(DEVICE)
+
+
+def vlm_inputs(cfg, b: int, gen) -> dict:
+    """VLM_PATCHES stub patch embeddings (N(0, 1), bf16) before
+    FRONT_SEQ - VLM_PATCHES tokens, with their (t, h, w) streams."""
+    s_text = FRONT_SEQ - VLM_PATCHES
+    tokens = torch.randint(0, cfg.vocab_size, (b, s_text), generator=gen,
+                           device=DEVICE)
+    return {"embeds": randn((b, VLM_PATCHES, cfg.d_model), torch.bfloat16,
+                            gen),
+            "tokens": tokens,
+            "positions": mrope_positions(b, VLM_PATCHES, s_text)}
+
+
+def phase_frontends() -> dict:
+    """[frontends] hubert-xlarge and qwen2-vl-72b through
+    ``forward(use_kernel=True)``; returns their numbers."""
+    xla = ParallelCtx(None)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    out = {}
+    cfg = get_config(HUBERT_ARCH)
+    log(f"[frontends] {cfg.name} at full width and depth: {cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} (Dh {cfg.resolved_head_dim}), non-causal, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}; B={HUBERT_BATCH} x {FRONT_SEQ} "
+        f"frame embeddings")
+    out["hubert_attention"] = hold_attention_call(cfg, HUBERT_BATCH,
+                                                  FRONT_SEQ, gen)
+    out["hubert_times"] = time_attention(cfg, HUBERT_BATCH, FRONT_SEQ, 10)
+    model = card_model(cfg)
+    inputs = {"embeds": randn((HUBERT_BATCH, FRONT_SEQ, cfg.d_model),
+                              torch.bfloat16, gen)}
+    out["hubert_hold"] = hold_against_twin(
+        model, inputs, cfg, [("plain", xla, False, None),
+                             ("kernel", xla, True, LM_FP32_REL_TOL)],
+        cfg.name)
+    out["hubert"] = depth_run(model, inputs, cfg,
+                              f"{cfg.name} forward(use_kernel=True)")
+    del model, inputs
+    torch.cuda.empty_cache()
+    base = get_config(VLM_ARCH)
+    log(f"[frontends] {base.name} at full width: d_model {base.d_model}, "
+        f"heads {base.num_heads}/{base.num_kv_heads} (Dh "
+        f"{base.resolved_head_dim}), d_ff {base.d_ff}, vocab "
+        f"{base.vocab_size}, M-RoPE; {VLM_PATCHES} patch embeddings + "
+        f"{FRONT_SEQ - VLM_PATCHES} tokens, B={VLM_BATCH}")
+    out["vlm_attention"] = hold_attention_call(base, VLM_BATCH, FRONT_SEQ,
+                                               gen)
+    out["vlm_times"] = time_attention(base, VLM_BATCH, FRONT_SEQ, 10)
+    cfg = dataclasses.replace(base, num_layers=VLM_HOLD_LAYERS)
+    model = card_model(cfg)
+    inputs = vlm_inputs(cfg, VLM_BATCH, gen)
+    out["vlm_hold"] = hold_against_twin(
+        model, inputs, cfg, [("plain", xla, False, None),
+                             ("kernel", xla, True, LM_FP32_REL_TOL)],
+        f"{cfg.name} {VLM_HOLD_LAYERS} layers")
+    # text only: three equal position streams make M-RoPE RoPE
+    tokens = inputs["tokens"][:, :FRONT_SEQ - VLM_PATCHES]
+    pos = torch.arange(tokens.shape[1], device=DEVICE)[None].expand(
+        VLM_BATCH, -1)
+    mrope, _, _, _ = run_forward(
+        model, {"tokens": tokens, "positions": pos[..., None].expand(
+            -1, -1, 3)}, cfg, xla, use_kernel=True,
+        what="text only, three equal streams, M-RoPE")
+    rope, _, _, _ = run_forward(
+        model, {"tokens": tokens, "positions": pos},
+        dataclasses.replace(cfg, rope="rope"), xla, use_kernel=True,
+        what="text only, the same model under RoPE")
+    out["vlm_text_equal"] = torch.equal(mrope, rope)
+    hold(out["vlm_text_equal"], "M-RoPE with equal streams equals RoPE "
+         "bitwise")
+    del model, mrope, rope
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(base, num_layers=VLM_LAYERS)
+    model = card_model(cfg)
+    out["vlm"] = depth_run(model, inputs, cfg,
+                           f"{cfg.name} forward(use_kernel=True), "
+                           f"{VLM_LAYERS} layers")
+    del model, inputs
     torch.cuda.empty_cache()
     return out
 
@@ -2468,6 +3030,18 @@ def main() -> None:
             f"{MOE_LAYERS if key == 'mixtral' else KIMI_LAYERS} layers): "
             f"warm {r['wall']:.3f} s, first {r['cold']:.3f} s, peak "
             f"{r['peak'] / 2**30:.2f} GiB, launches {r['launches']}")
+    recurrent = phase_recurrent()
+    frontends = phase_frontends()
+    for arch, r in ((RG_ARCH, recurrent["rg"]), (XL_ARCH, recurrent["xl"]),
+                    (HUBERT_ARCH, frontends["hubert"]),
+                    (f"{VLM_ARCH} ({VLM_LAYERS} layers)", frontends["vlm"])):
+        log(f"  {arch} forward (host clock, ending in synchronize): warm "
+            f"{r['wall']:.3f} s, first {r['cold']:.3f} s, peak "
+            f"{r['peak'] / 2**30:.2f} GiB, {r['launches']} flash_attention "
+            f"launches, greedy {r['greedy']}")
+    log(f"  {XL_ARCH} chunkwise mLSTM forward: warm "
+        f"{recurrent['xl_chunked']['wall']:.3f} s, peak "
+        f"{recurrent['xl_chunked']['peak'] / 2**30:.2f} GiB")
     log(f"  [25d] 2.5D {summa_25d['wall_25d']:.3f} s and tuple-axis "
         f"{summa_25d['wall_tuple']:.3f} s against the 2-D route's "
         f"{summa_25d['wall_2d']:.3f} s, {summa_25d['launches_25d']} "

@@ -1,2 +1,2 @@
 """Experiment configurations: the paper's matmul sizes (``paper_mm``) and
-the models of the dense-attention family (``registry.get_config``)."""
+the reference's ten model architectures (``registry.get_config``)."""

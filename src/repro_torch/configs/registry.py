@@ -1,12 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
 The port of ``repro.configs.registry``, with the reference's ten ids.
-Each ported id maps to a module exporting ``CONFIG`` (the full,
+Each id maps to a module exporting ``CONFIG`` (the full,
 paper-faithful configuration) and ``SMOKE`` (a reduced variant for CPU
-tests); ``get_config(arch, smoke=...)`` picks one.  The port runs the
-dense-attention and mixture-of-experts families so far: any other known
-id raises ``NotImplementedError`` naming the ROADMAP item its blocks
-wait for.
+tests); ``get_config(arch, smoke=...)`` picks one.  Every id resolves:
+the dense, mixture-of-experts, recurrent (RecurrentGemma, xLSTM), audio
+and vision-language families.
 """
 from __future__ import annotations
 
@@ -29,24 +28,12 @@ _MODULES = {
     "qwen2-vl-72b": "qwen2_vl_72b",
 }
 
-#: ids whose blocks the port cannot run yet -> what they wait for
-_UNPORTED = {
-    "recurrentgemma-9b": "models/recurrent.py (RG-LRU blocks), ROADMAP A9b",
-    "xlstm-1.3b": "models/recurrent.py (mLSTM/sLSTM blocks), ROADMAP A9b",
-    "hubert-xlarge": "the audio frontend, ROADMAP A9d",
-    "qwen2-vl-72b": "M-RoPE and the VLM frontend, ROADMAP A9d",
-}
-
 ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch in _UNPORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: it needs {_UNPORTED[arch]}"
-        )
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.SMOKE if smoke else mod.CONFIG
 

@@ -4,9 +4,9 @@ The port of ``repro.dist.context``.  Every model entry point takes a
 ``ParallelCtx``.  It bundles the device grid with the axis roles (which
 grid axis acts as data parallel, which as tensor parallel) and the
 feature switches of the reference that the ported modules read (matmul
-strategy, attention implementation, pure data parallelism, static
-weight sparsity).  The reference's switches of unported modules (mLSTM
-chunking, sLSTM replication: ROADMAP A9b; ZeRO-1: A10; KV-cache
+strategy, attention implementation, mLSTM chunking, sLSTM replication,
+pure data parallelism, static weight sparsity).  The reference's
+switches of unported modules (ZeRO-1: ROADMAP A10; KV-cache
 quantization: A11) are not fields here.  Model code never
 touches the grid directly; it goes through ``ctx.wsc`` and
 ``repro_torch.dist.collective_matmul.project``.
@@ -55,6 +55,12 @@ class ParallelCtx:
     tp_axis: str | None = "model"
     matmul_strategy: str = "xla"  # "xla" | "summa" | "allgather" | "auto"
     attention_impl: str = "ref"  # "ref" | "chunked"
+    # mLSTM blocks run the chunkwise form at this chunk length (None: the
+    # quadratic parallel form over the whole sequence)
+    mlstm_chunk: int | None = None
+    # sLSTM recurrence kept tp-replicated (one sharding constraint, which
+    # is the identity here: the flag changes no number)
+    slstm_replicated: bool = False
     pure_dp: bool = False
     # Static block-sparsity of projection weights: maps (d_in, d_out) ->
     # bool block mask.  ``project`` consults it so sparse FFN weights run

@@ -4,8 +4,9 @@ The port of ``repro.models.attention``.  ``use_kernel=True`` runs the
 hand-written flash-attention CUDA kernel through ``kernels.ops`` (the
 plain version on CPU tensors); otherwise attention is the plain PyTorch
 version, which materialises the fp32 scores.  The reference's
-``attention_impl="chunked"`` (``models/chunked_attention.py``) and M-RoPE
-are not ported yet and raise.
+``attention_impl="chunked"`` (``models/chunked_attention.py``) is not
+ported yet and raises.  M-RoPE (``cfg.rope == "mrope"``) takes positions
+of shape (B, S, 3).
 """
 from __future__ import annotations
 
@@ -54,17 +55,15 @@ def _project_qkv(p: Attention, x, positions, cfg: ModelConfig,
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
     elif cfg.rope == "mrope":
-        raise NotImplementedError(
-            "M-RoPE (apply_mrope) is not ported yet: it comes with the VLM "
-            "family (ROADMAP A9d)"
-        )
+        q = L.apply_mrope(q, positions, cfg.rope_theta)
+        k = L.apply_mrope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def attention(
     p: Attention,
     x: torch.Tensor,  # (B, S, D)
-    positions: torch.Tensor,  # (B, S)
+    positions: torch.Tensor,  # (B, S) or (B, S, 3) for mrope
     cfg: ModelConfig,
     ctx: ParallelCtx,
     *,

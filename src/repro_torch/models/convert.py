@@ -53,7 +53,9 @@ def params_from_reference(np_params: dict, cfg: ModelConfig,
                           device="cuda", *, ep: int = 1) -> LM:
     """The port's ``LM`` holding the reference's parameters; a MoE
     block's ``norm``, ``router.w``, ``w_gate``, ``w_up``, ``w_down`` and
-    ``shared`` keep their paths.  ``ep`` is the expert-parallel degree the
+    ``shared``, and a recurrent block's ``rec`` subtree (``lambda``,
+    ``conv_w``, ``conv_b``, ``r_gates``, ``head_norm``, ...) keep their
+    paths.  ``ep`` is the expert-parallel degree the
     reference padded the experts for (its context's tp size).
 
     Raises ``ValueError`` if the two trees name different parameters or

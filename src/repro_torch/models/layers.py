@@ -8,8 +8,7 @@ module allocates its parameters on construction and draws them in
 ``reset_parameters(generator)`` from the reference's distributions;
 functions (``rmsnorm``, ``dense``, ...) apply them, as in the
 reference.  Parameters do not require gradients: the port runs the
-forward only (training is ROADMAP A10).  ``apply_mrope`` waits for the
-VLM family (ROADMAP A9d).
+forward only (training is ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -20,8 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
-    "ACTIVATIONS", "Dense", "Embedding", "LayerNorm", "RMSNorm",
-    "apply_rope", "dense", "embed", "gelu", "init_params", "layernorm",
+    "ACTIVATIONS", "Dense", "Embedding", "LayerNorm", "MROPE_SECTIONS",
+    "RMSNorm", "apply_mrope", "apply_rope", "dense", "embed", "gelu", "init_params", "layernorm",
     "matmul_f32", "rmsnorm", "rope_frequencies", "silu", "torch_dtype",
     "unembed",
 ]
@@ -181,6 +180,35 @@ def apply_rope(
     dh = x.shape[-1]
     freqs = rope_frequencies(dh, theta, x.device)  # (Dh/2,)
     angles = positions[..., None].float() * freqs  # (B, S, Dh/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# M-RoPE (Qwen2-VL): the rotary frequency bands are partitioned into three
+# sections (temporal, height, width); each section rotates by its own
+# position stream.  Text tokens carry identical positions in all three
+# streams, so M-RoPE degenerates to RoPE for text.
+MROPE_SECTIONS = (0.25, 0.375, 0.375)  # fractions of Dh/2 per (t, h, w)
+
+
+def apply_mrope(
+    x: torch.Tensor,  # (B, S, H, Dh)
+    positions: torch.Tensor,  # (B, S, 3) -> (t, h, w) position per token
+    theta: float = 1_000_000.0,
+) -> torch.Tensor:
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = rope_frequencies(dh, theta, x.device)  # (half,)
+    n_t = int(half * MROPE_SECTIONS[0])
+    n_h = int(half * MROPE_SECTIONS[1])
+    section = torch.full((half,), 2, dtype=torch.int64, device=x.device)
+    section[:n_t] = 0
+    section[n_t:n_t + n_h] = 1
+    pos = positions.float()[..., section]  # (B, S, half): per-band stream
+    angles = pos * freqs
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

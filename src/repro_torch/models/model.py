@@ -1,8 +1,7 @@
 """The assembled LM: block stacks, the forward and the loss.
 
-The port of ``repro.models.model`` for models made of attention blocks
-(the dense family).  A model is ``embed -> [units of the repeating
-block pattern] -> tail -> norm -> head``.  The reference scans the
+The port of ``repro.models.model``.  A model is ``embed -> [units of
+the repeating block pattern] -> tail -> norm -> head``.  The reference scans the
 stacked unit parameters with ``jax.lax.scan`` under remat; here ``LM``
 holds one module per unit (``units.<i>.b<j>``, so every parameter path
 is the reference's with the scan axis unstacked) and ``forward`` loops
@@ -12,11 +11,14 @@ stays with training (ROADMAP A10).
 An attention block holds a mixture of experts (``models.moe``) in place
 of its FFN when the config has one (``cfg.moe``: mixtral-8x7b,
 kimi-k2); its load-balance loss is the forward's aux loss.  The
-recurrent kinds ``rglru``, ``mlstm``, ``slstm`` (ROADMAP A9b) are not
-ported: building such a model raises ``NotImplementedError``.
+recurrent kinds (``models.recurrent``) hold ``rec`` and, for ``rglru``,
+an FFN: RecurrentGemma's units (rglru, rglru, attn), xLSTM's (mlstm×7,
+slstm).
 
-Inputs are a dict: ``tokens`` (B, S) int64 and/or ``embeds`` (B, S, D),
-and optionally ``positions`` (B, S).
+Inputs are a dict: ``tokens`` (B, S) int64 and/or ``embeds`` (B, S, D)
+(the audio and VLM frontends are the reference's stubs: precomputed
+frame or patch embeddings, placed before the tokens), and optionally
+``positions`` (B, S), or (B, S, 3) for M-RoPE.
 """
 from __future__ import annotations
 
@@ -29,68 +31,68 @@ from repro_torch.models.attention import Attention, attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import FFN, ffn
 from repro_torch.models.moe import MoE, moe_ffn
+from repro_torch.models.recurrent import (
+    MLSTMBlock,
+    RGLRUBlock,
+    SLSTMBlock,
+    mlstm_block,
+    rglru_block,
+    slstm_block,
+)
 
 __all__ = [
     "AUX_LOSS_COEF", "Block", "LM", "Z_LOSS_COEF", "apply_block",
-    "check_supported", "embed_inputs", "forward", "init_model", "loss_fn",
+    "embed_inputs", "forward", "init_model", "loss_fn",
 ]
 
-_UNPORTED_KINDS = {
-    "rglru": "models/recurrent.py (ROADMAP A9b)",
-    "mlstm": "models/recurrent.py (ROADMAP A9b)",
-    "slstm": "models/recurrent.py (ROADMAP A9b)",
-}
-
-
-def _check_kind(kind: str, cfg: ModelConfig) -> None:
-    if kind in _UNPORTED_KINDS:
-        raise NotImplementedError(
-            f"{cfg.name}: {kind!r} blocks need {_UNPORTED_KINDS[kind]}, "
-            "which is not ported yet"
-        )
-    if kind != "attn":
-        raise ValueError(kind)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for blocks the port cannot run yet."""
-    for kind in cfg.block_pattern:
-        _check_kind(kind, cfg)
+_RECURRENT = {"rglru": RGLRUBlock, "mlstm": MLSTMBlock, "slstm": SLSTMBlock}
 
 
 class Block(nn.Module):
-    """An attention block: ``attn`` and, as the reference's block, either
-    ``moe`` (a config with experts, padded for ``ep``) or, when the config
-    has a width for one, ``ffn``."""
+    """One block of ``kind``, with the reference's parameter tree: an
+    attention block holds ``attn`` and either ``moe`` (a config with
+    experts, padded for ``ep``) or, when the config has a width for one,
+    ``ffn``; ``rglru`` holds ``rec`` and ``ffn``; ``mlstm`` and ``slstm``
+    hold ``rec``."""
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device, ep: int = 1):
+    def __init__(self, kind: str, cfg: ModelConfig, *, dtype, device,
+                 ep: int = 1):
         super().__init__()
-        self.attn = Attention(cfg, dtype=dtype, device=device)
-        self.moe = (MoE(cfg, ep=ep, dtype=dtype, device=device)
-                    if cfg.moe is not None else None)
-        self.ffn = (FFN(cfg, dtype=dtype, device=device)
-                    if cfg.moe is None and cfg.d_ff else None)
+        kw = dict(dtype=dtype, device=device)
+        self.attn = self.moe = self.ffn = self.rec = None
+        if kind == "attn":
+            self.attn = Attention(cfg, **kw)
+            if cfg.moe is not None:
+                self.moe = MoE(cfg, ep=ep, **kw)
+            elif cfg.d_ff:
+                self.ffn = FFN(cfg, **kw)
+        elif kind in _RECURRENT:
+            self.rec = _RECURRENT[kind](cfg, **kw)
+            if kind == "rglru":
+                self.ffn = FFN(cfg, **kw)
+        else:
+            raise ValueError(kind)
 
 
 class LM(nn.Module):
-    """Parameters of a model of attention blocks, laid out as the
-    reference's pytree: ``units.<i>.b<j>``, ``tail.<j>``, ``final_norm``,
-    ``embed`` (when tokens are embedded) and ``head`` (untied).  ``ep`` is
+    """Parameters of a model, laid out as the reference's pytree:
+    ``units.<i>.b<j>``, ``tail.<j>``, ``final_norm``, ``embed`` (when
+    tokens are embedded) and ``head`` (untied).  ``ep`` is
     the expert-parallel degree (``ctx.tp_size``) the experts of a MoE
     config are padded for, as the reference's ``init_model`` pads them
     for its context."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda", ep: int = 1):
         super().__init__()
-        check_supported(cfg)
         dtype = L.torch_dtype(cfg.dtype)
         kw = dict(dtype=dtype, device=device)
         self.units = nn.ModuleList(
-            nn.ModuleDict({f"b{j}": Block(cfg, **kw, ep=ep)
-                           for j in range(len(cfg.block_pattern))})
+            nn.ModuleDict({f"b{j}": Block(kind, cfg, **kw, ep=ep)
+                           for j, kind in enumerate(cfg.block_pattern)})
             for _ in range(cfg.units)
         )
-        self.tail = nn.ModuleList(Block(cfg, **kw, ep=ep) for _ in cfg.tail)
+        self.tail = nn.ModuleList(Block(kind, cfg, **kw, ep=ep)
+                                  for kind in cfg.tail)
         self.final_norm = L.RMSNorm(cfg.d_model, device=device)
         self.embed = (L.Embedding(cfg.vocab_size, cfg.d_model, **kw)
                       if cfg.embed_inputs else None)
@@ -105,7 +107,8 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
     ``device``) with the reference's shapes, dtypes and distributions:
     dense kernels N(0, 1/d_in) drawn in fp32 and cast to ``cfg.dtype``
     (expert weights likewise, the router in fp32), embeddings N(0, 1),
-    biases zero and norm scales one (fp32)."""
+    biases zero and norm scales one (fp32); the recurrent blocks' own
+    parameters as ``models.recurrent`` says."""
     return L.init_params(LM(cfg, device=device, ep=ep), generator)
 
 
@@ -125,17 +128,26 @@ def apply_block(
     use_kernel: bool = False,
 ):
     """Residual application of one block; returns (x, aux_loss)."""
-    _check_kind(kind, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = x + attention(
-        p.attn, x, positions, cfg, ctx, window=cfg.window,
-        use_kernel=use_kernel,
-    )
-    if p.moe is not None:
-        y, aux = moe_ffn(p.moe, x, cfg, ctx, use_kernel=use_kernel)
-        x = x + y
-    elif p.ffn is not None:
+    if kind == "attn":
+        x = x + attention(
+            p.attn, x, positions, cfg, ctx, window=cfg.window,
+            use_kernel=use_kernel,
+        )
+        if p.moe is not None:
+            y, aux = moe_ffn(p.moe, x, cfg, ctx, use_kernel=use_kernel)
+            x = x + y
+        elif p.ffn is not None:
+            x = x + ffn(p.ffn, x, cfg, ctx)
+    elif kind == "rglru":
+        x = x + rglru_block(p.rec, x, cfg, ctx)
         x = x + ffn(p.ffn, x, cfg, ctx)
+    elif kind == "mlstm":
+        x = x + mlstm_block(p.rec, x, cfg, ctx)
+    elif kind == "slstm":
+        x = x + slstm_block(p.rec, x, cfg, ctx)
+    else:
+        raise ValueError(kind)
     return x, aux
 
 
@@ -161,9 +173,10 @@ def forward(
     """Returns (logits (B, S, V) fp32, aux_loss scalar).
 
     ``use_kernel=True`` runs every attention block through the
-    flash-attention kernel (one launch per layer on a CUDA model) and
-    every MoE block's expert GEMMs through the grouped-GEMM kernel (three
-    launches per layer)."""
+    flash-attention kernel (one launch per attention block on a CUDA
+    model) and every MoE block's expert GEMMs through the grouped-GEMM
+    kernel (three launches per layer); recurrent blocks have no kernel
+    of their own."""
     x = embed_inputs(model, inputs, cfg)
     positions = inputs.get("positions")
     if positions is None:

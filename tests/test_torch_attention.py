@@ -557,6 +557,11 @@ def test_chunked_attention_and_mrope_raise():
     # reference
     attention(p, x, pos, cfg, ParallelCtx(None, attention_impl="chunked"),
               use_kernel=True)
-    with pytest.raises(NotImplementedError, match="A9d"):
-        attention(p, x, pos, dataclasses.replace(cfg, rope="mrope"),
-                  ParallelCtx(None))
+    # M-RoPE (A9d), which raised here until it was ported, takes three
+    # position streams; three equal streams give RoPE's attention
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, 8, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    pos = torch.arange(8)[None]
+    got = attention(p, x, pos[..., None].expand(1, 8, 3),
+                    dataclasses.replace(cfg, rope="mrope"), ParallelCtx(None))
+    assert torch.equal(got, attention(p, x, pos, cfg, ParallelCtx(None)))
