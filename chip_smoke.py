@@ -12,7 +12,8 @@ and without the schedule tuner, and ``NonuniformMatmul``), the
 block-sparse tensor front-end (``DistributedMatmul.contract`` and
 ``contract_chain``) on a coupled-cluster contraction, then the LM
 forwards of llama3.2-1b, the MoE, recurrent and frontend families
-through ``models.model.forward``, and checks every hand-written kernel
+through ``models.model.forward``, a server (``launch.serve.main`` and
+``serve.scheduler.Scheduler``), and checks every hand-written kernel
 against its plain PyTorch version.  Phases, in the order they run — any failure
 raises, so the script exits non-zero:
 
@@ -168,7 +169,32 @@ raises, so the script exits non-zero:
    135 GiB) on 1024 stub patch embeddings and 3072 tokens with M-RoPE
    (t, h, w) streams built by the reference's rule: its attention call,
    the hold at 2 layers against the fp32 twin, text-only M-RoPE with
-   equal streams against RoPE (bitwise), walls, peak, 16 launches.
+   equal streams against RoPE (bitwise), walls, peak, 16 launches;
+
+   [serve] the serving path through ``launch.serve.main`` (its lines
+   echoed) and ``serve.scheduler.Scheduler``, bf16, weights from
+   ``init_model`` (seed 0), every kernel's plain version made to raise on
+   a CUDA tensor meanwhile: llama3.2-1b at full width and depth, 4
+   prompts of 4096 tokens generating 64 — first and warm calls (one
+   ``flash_attention`` launch per layer in the prefill, none in decode),
+   ``--matmul-strategy summa`` (every FFN projection through
+   ``DistributedMatmul``; ``tiled_matmul`` launched once the autotune
+   cache names it for the projections' panels, ``warm_kernel_cache``),
+   ``auto`` with ``--plan-cache`` twice (the warm run tunes nothing and
+   hits all four shapes), ``--continuous`` over ``launch.serve``'s 16 ragged
+   requests (2048 or 4096 tokens, 16 or 64 new) on 4 slots, dense and
+   ``--paged``, and ``ParallelCtx(kv_quant=True)``; then recurrentgemma-9b
+   at full width and depth, 2 prompts of 4096 generating 32 (its window
+   of 2048: prefill packs the ring, decode wraps it).  Holds: on an fp32
+   twin cut to one unit, a prefill of 4096 and 8 decode steps against
+   ``forward`` of the whole sequence at each position (the reference's
+   serving hold), and continuous and paged tokens equal to the serial
+   per-request loop's; in bf16 at full depth each step no further from
+   the fp32 twin's forward than 1.5x the bf16 forward is; one decode
+   step on the int8 cache against attention over the cache dequantized
+   here.  Prints prefill and decode tok/s, continuous tok/s with p50 and
+   p99 step ms, first call beside warm, peak memory and the int8 cache's
+   bytes beside bf16's.
 
 Every product runs on an empty autotune cache, so its launch counts do
 not depend on the cache, except the two that check the cache: the end of
@@ -183,6 +209,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -260,13 +287,19 @@ from repro_torch.kernels.tiled_matmul import (  # noqa: E402
     tiled_matmul_cuda,
     tiled_matmul_plain,
 )
+from repro_torch.kernels import bsmm as bsmm_kernel  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import attention as attention_layer  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models import recurrent as rec  # noqa: E402
 from repro_torch.models.model import LM, forward, init_model  # noqa: E402
 from repro_torch.sched import abstract_summa_config, tune_plan  # noqa: E402
+from repro_torch.serve import engine as serve_engine  # noqa: E402
+from repro_torch.serve.plan_service import set_plan_service  # noqa: E402
+from repro_torch.serve.scheduler import Scheduler, ragged_trace  # noqa: E402
 
 N, BLOCK = COMMODITY_N, COMMODITY_BLOCK
 K_PANELS = N // BLOCK  # 128 K panels of width 256
@@ -339,6 +372,23 @@ BF16_MAX_RTOL = 2e-2
 #: the LM forward: full llama3.2-1b, train_4k's length and prefill_32k's
 LM_ARCH = "llama3.2-1b"
 LM_BATCH, LM_SEQ, LM_LONG_SEQ = 4, 4096, 32768
+#: [serve]: the serving path through ``launch.serve.main`` and
+#: ``serve.scheduler.Scheduler``, bf16, weights from init_model (seed 0):
+#: llama3.2-1b at full width and depth, a fixed batch of SERVE_BATCH
+#: prompts of SERVE_PROMPT tokens generating SERVE_GEN, and ``launch.serve``'s
+#: ragged trace (4 x SERVE_BATCH requests of SERVE_PROMPT / 2 or
+#: SERVE_PROMPT tokens, generating SERVE_GEN / 4 or SERVE_GEN) on
+#: SERVE_BATCH slots; recurrentgemma-9b at full width and depth,
+#: RG_SERVE_BATCH prompts of SERVE_PROMPT tokens generating RG_SERVE_GEN
+#: (its window of 2048 makes prefill pack the ring, and decode wraps it).
+#: The holds: a prefill then SERVE_HOLD_STEPS decode steps against the
+#: forward of the whole sequence, on an fp32 twin cut to one unit
+#: (SERVE_HOLD_LAYERS) at SERVE_HOLD_BATCH prompts, and at full depth in
+#: bf16 on one prompt
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 64
+RG_SERVE_BATCH, RG_SERVE_GEN = 2, 32
+SERVE_HOLD_STEPS, SERVE_HOLD_BATCH = 8, 2
+SERVE_HOLD_LAYERS = {LM_ARCH: 2, RG_ARCH: 3}
 #: Tolerances of the whole forward (max |logit difference| / max |logit|,
 #: and the least share of positions whose argmax agrees).  In fp32 the
 #: kernel's forward (and the summa one) must equal the plain-attention
@@ -2936,6 +2986,470 @@ def phase_frontends() -> dict:
     return out
 
 
+# -- [serve] ---------------------------------------------------------------
+
+#: every kernel's plain version where the wrappers and the attention layer
+#: reach it: [serve] makes each raise on a CUDA tensor
+PLAIN_VERSIONS = ((kops, "tiled_matmul_plain"), (kops, "bsmm_plain"),
+                  (kops, "grouped_gemm_plain"),
+                  (kops, "flash_attention_plain"),
+                  (attention_layer, "flash_attention_plain"),
+                  (bsmm_kernel, "tiled_matmul_plain"))
+
+
+@contextlib.contextmanager
+def serving_guard():
+    """Inside: a kernel's plain version called with a CUDA tensor raises,
+    so the serving path is shown to launch the kernels and nothing else."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in PLAIN_VERSIONS]
+
+    def guard(fn, name):
+        def run(*args, **kw):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda
+                   for a in (*args, *kw.values())):
+                raise AssertionError(f"[serve]: {name} ran on a CUDA tensor")
+            return fn(*args, **kw)
+        return run
+
+    for mod, name, fn in saved:
+        setattr(mod, name, guard(fn, name))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def zero_counts() -> None:
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTERS.items()}
+
+
+def hold_counts(counts: dict, want: dict, what: str) -> None:
+    """Raises unless every kernel launched exactly ``want`` times (none
+    for a kernel ``want`` does not name)."""
+    hold(all(n == want.get(name, 0) for name, n in counts.items()),
+         f"{what}: launches {counts}, expected {want} and no other kernel")
+
+
+def serve_main(argv: list, what: str) -> tuple:
+    """``launch.serve.main(argv)`` on the card inside ``serving_guard``,
+    every count set to 0 just before and read just after; its printed
+    lines echoed.  Returns (its result, its text, counts, peak bytes)."""
+    buf = io.StringIO()
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with serving_guard(), contextlib.redirect_stdout(buf):
+        result = launch_serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, peak = read_counts(), torch.cuda.max_memory_allocated()
+    text = buf.getvalue()
+    log(f"  {what}: python -m repro_torch.launch.serve {' '.join(argv)}")
+    for line in text.splitlines():
+        log(f"    | {line}")
+    log(f"    launches {counts}; whole call {wall:.3f} s (model init "
+        f"included); peak device memory {peak / 2**30:.2f} GiB")
+    return result, text, counts, peak
+
+
+def fixed_walls(text: str) -> tuple[float, float]:
+    """(prefill s, decode s) from ``launch.serve``'s ``wall:`` line."""
+    m = re.search(r"wall: prefill ([0-9.]+) s, decode ([0-9.]+) s", text)
+    if m is None:
+        raise AssertionError("launch.serve printed no wall line")
+    return float(m.group(1)), float(m.group(2))
+
+
+def cut_twin(model, cfg, layers: int):
+    """An fp32 copy of ``model``'s first ``layers`` layers (exact)."""
+    cut = dataclasses.replace(cfg, dtype="float32", num_layers=layers)
+    twin = LM(cut, device=DEVICE)
+    params = dict(model.named_parameters())
+    for name, p in twin.named_parameters():
+        p.data.copy_(params[name])
+    return twin, cut
+
+
+def engine_steps(model, cfg, tokens, what: str) -> torch.Tensor:
+    """Prefill ``tokens`` less the last SERVE_HOLD_STEPS, then one decode
+    step on each of those, through the engine on the card (under
+    ``serving_guard``): one ``flash_attention`` launch per attention
+    block in the prefill, none in decode.  Returns the logits of the
+    prefill's last position and of each step, (B, 1 + steps, V)."""
+    xla = ParallelCtx(None)
+    total = tokens.shape[1]
+    p = total - SERVE_HOLD_STEPS
+    with torch.inference_mode(), serving_guard():
+        zero_counts()
+        logits, cache = serve_engine.prefill(model, {"tokens": tokens[:, :p]},
+                                             cfg, xla, max_len=total)
+        hold_counts(read_counts(),
+                    {"flash_attention": attention_blocks(cfg)},
+                    f"{what}: prefill of {p} tokens")
+        steps = [logits]
+        zero_counts()
+        for t in range(SERVE_HOLD_STEPS):
+            logits, cache = serve_engine.decode_step(model, cache,
+                                                     tokens[:, p + t], cfg,
+                                                     xla)
+            steps.append(logits)
+        torch.cuda.synchronize()
+        hold_counts(read_counts(), {}, f"{what}: {SERVE_HOLD_STEPS} decode "
+                    "steps")
+    return torch.stack(steps, dim=1)
+
+
+def hold_engine_twin(model, cfg, gen, what: str) -> float:
+    """The engine on an fp32 twin of ``model`` cut to one unit, held
+    against ``forward`` (plain attention) of the whole sequence at each
+    position, at the reference's serving hold (tests/test_serve.py):
+    atol max(2e-3 x max|logit|, 1e-3), rtol 0.01.  Returns the worst
+    element's share of its limit."""
+    layers = SERVE_HOLD_LAYERS[cfg.name]
+    twin, cut = cut_twin(model, cfg, layers)
+    total = SERVE_PROMPT + SERVE_HOLD_STEPS
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_HOLD_BATCH, total),
+                           generator=gen, device=DEVICE)
+    with torch.inference_mode():
+        full, _ = forward(twin, {"tokens": tokens}, cut, ParallelCtx(None),
+                          use_kernel=False)
+        want = full[:, SERVE_PROMPT - 1:].clone()
+        del full
+    got = engine_steps(twin, cut, tokens, f"{what} fp32 twin, {layers} "
+                       "layers")
+    scale = want.abs().max().item()
+    atol = max(2e-3 * scale, 1e-3)
+    share = ((got - want).abs() / (atol + 0.01 * want.abs())).amax(
+        dim=(0, 2)).tolist()
+    log(f"  {what} fp32 twin ({layers} layers), B={SERVE_HOLD_BATCH}: engine "
+        f"against forward(use_kernel=False) of the whole {total} tokens; "
+        f"worst element's share of the hold (atol {atol:.4g}, rtol 0.01) at "
+        f"the prefill's last position and each decode step: "
+        + ", ".join(f"{x:.4g}" for x in share))
+    hold(torch.isfinite(got).all().item() and max(share) <= 1,
+         f"{what}: prefill and {SERVE_HOLD_STEPS} decode steps equal the "
+         "forward of the whole sequence")
+    del twin, got, want
+    torch.cuda.empty_cache()
+    return max(share)
+
+
+def hold_engine_depth(model, cfg, gen, what: str) -> dict:
+    """At full depth in bf16, one prompt: each decode step's distance from
+    the fp32 twin's forward (max |difference| / max |logit| of the whole
+    sequence), printed beside the bf16 forward's own distance at that
+    position; at every position the engine's must be no larger than
+    LM_BF16_REL_RATIO x the bf16 forward's there (phase 8's margin)."""
+    xla = ParallelCtx(None)
+    total = SERVE_PROMPT + SERVE_HOLD_STEPS
+    tokens = torch.randint(0, cfg.vocab_size, (1, total), generator=gen,
+                           device=DEVICE)
+    twin, cfg32 = fp32_twin(model, cfg)
+    with torch.inference_mode():
+        ref32, _ = forward(twin, {"tokens": tokens}, cfg32, xla,
+                           use_kernel=False)
+    del twin
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        bf16, _ = forward(model, {"tokens": tokens}, cfg, xla,
+                          use_kernel=True)
+    rel_fwd, _ = logit_distance(bf16, ref32, f"{what} bf16 forward(use_kernel"
+                                "=True) vs fp32 twin, whole sequence")
+    scale = ref32.abs().max().item()
+    want = ref32[:, SERVE_PROMPT - 1:].clone()
+    fwd = bf16[:, SERVE_PROMPT - 1:].clone()
+    del ref32, bf16
+    torch.cuda.empty_cache()
+    got = engine_steps(model, cfg, tokens, f"{what} bf16, full depth")
+    eng = ((got - want).abs().amax(dim=(0, 2)) / scale).tolist()
+    own = ((fwd - want).abs().amax(dim=(0, 2)) / scale).tolist()
+    log(f"  {what} bf16 at full depth, distance from the fp32 twin's forward "
+        f"(share of max |logit| {scale:.6g}) at the prefill's last position "
+        f"and each decode step: engine "
+        + ", ".join(f"{x:.4g}" for x in eng) + "; bf16 forward "
+        + ", ".join(f"{x:.4g}" for x in own))
+    hold(all(e <= LM_BF16_REL_RATIO * o for e, o in zip(eng, own)),
+         f"{what}: the bf16 engine no further from the fp32 twin than "
+         f"{LM_BF16_REL_RATIO} x the bf16 forward at each position (the "
+         f"forward's {rel_fwd:.6g} over the whole sequence)")
+    del got, want, fwd
+    torch.cuda.empty_cache()
+    return dict(engine=max(eng), forward=rel_fwd)
+
+
+def serial_outputs(model, cfg, reqs) -> dict:
+    """Each request alone through the engine, batch 1: prefill, then
+    greedy decode (the reference's yardstick for the scheduler)."""
+    xla = ParallelCtx(None)
+    out = {}
+    max_len = SERVE_PROMPT + SERVE_GEN
+    with torch.inference_mode(), serving_guard():
+        for r in reqs:
+            prompt = torch.as_tensor(r.prompt.astype(np.int64),
+                                     device=DEVICE)[None]
+            logits, cache = serve_engine.prefill(model, {"tokens": prompt},
+                                                 cfg, xla, max_len=max_len)
+            tok = logits.argmax(-1)
+            toks = [tok]
+            for _ in range(r.max_new_tokens - 1):
+                logits, cache = serve_engine.decode_step(model, cache, tok,
+                                                         cfg, xla)
+                tok = logits.argmax(-1)
+                toks.append(tok)
+            out[r.rid] = torch.cat(toks).tolist()
+    return out
+
+
+def serve_trace(cfg) -> list:
+    """``launch.serve``'s ragged trace of ``--continuous`` (launch.serve)."""
+    return ragged_trace(4 * SERVE_BATCH,
+                        prompt_lens=(SERVE_PROMPT // 2, SERVE_PROMPT),
+                        gen_lens=(SERVE_GEN // 4, SERVE_GEN),
+                        vocab=cfg.vocab_size, seed=SEED)
+
+
+def agreement(got: dict, want: dict) -> float:
+    """Share of generated tokens equal position by position."""
+    same = total = 0
+    for rid, toks in want.items():
+        total += len(toks)
+        same += sum(a == b for a, b in zip(got[rid], toks))
+    return same / total
+
+
+def hold_scheduler_twin(model, cfg) -> None:
+    """Continuous and paged on the fp32 twin cut to one unit: the tokens
+    of every request equal the serial per-request loop's."""
+    twin, cut = cut_twin(model, cfg, SERVE_HOLD_LAYERS[cfg.name])
+    want = serial_outputs(twin, cut, serve_trace(cut))
+    for backend in ("dense", "paged"):
+        with torch.inference_mode(), serving_guard():
+            res = Scheduler(twin, cut, ParallelCtx(None),
+                            n_slots=SERVE_BATCH,
+                            max_len=SERVE_PROMPT + SERVE_GEN,
+                            backend=backend).run(serve_trace(cut))
+        hold(res["outputs"] == want,
+             f"fp32 twin ({cut.num_layers} layers): continuous[{backend}] "
+             f"tokens equal the serial per-request loop's, request by "
+             f"request ({res['generated_tokens']} tokens, {res['steps']} "
+             "steps)")
+    del twin
+    torch.cuda.empty_cache()
+
+
+def cache_bytes(cache) -> int:
+    """Bytes a serving cache's tensors hold."""
+    sizes = []
+    serve_engine.map_cache(
+        lambda _, x: sizes.append(x.numel() * x.element_size()), cache)
+    return sum(sizes)
+
+
+def own_quantize(x: torch.Tensor) -> tuple:
+    """Absmax int8 quantization of the last axis, written here."""
+    s = x.abs().amax(-1, keepdim=True).clamp(min=1e-6) / 127.0
+    return torch.clamp(torch.round(x / s), -127, 127), s
+
+
+def hold_kv_quant_step(cache, cfg, gen) -> float:
+    """One decode-attention step on the first layer's int8 cache (a copy)
+    against an attention over the cache dequantized here, in float64,
+    the new token quantized here and written at its slot; fp32 hold."""
+    b, hkv, s_c, dh = cache["units"]["b0"]["k"][0].shape
+    kq, vq, ks, vs = (cache["units"]["b0"][n][0].clone()
+                      for n in ("k", "v", "k_s", "v_s"))
+    q = torch.randn((b, cfg.num_heads, dh), generator=gen, device=DEVICE)
+    k_new = torch.randn((b, hkv, 1, dh), generator=gen, device=DEVICE)
+    v_new = torch.randn((b, hkv, 1, dh), generator=gen, device=DEVICE)
+    slot = torch.full((b,), SERVE_PROMPT, dtype=torch.int64, device=DEVICE)
+    ctx = ParallelCtx(Grid.local(DEVICE), kv_quant=True)
+    k = kq.double() * ks.double()
+    v = vq.double() * vs.double()
+    for buf, new in ((k, k_new), (v, v_new)):
+        nq, ns = own_quantize(new.double())
+        buf[:, :, SERVE_PROMPT] = (nq * ns)[:, :, 0]
+    with torch.inference_mode():
+        got = serve_engine._decode_attention(q, k_new, v_new, kq, vq, slot,
+                                             slot + 1, ctx, ks, vs)[0]
+    g = cfg.num_heads // hkv
+    qg = q.double().reshape(b, hkv, g, dh) / math.sqrt(dh)
+    scores = torch.einsum("bhgd,bhsd->bhgs", qg, k[:, :, :SERVE_PROMPT + 1])
+    want = torch.einsum("bhgs,bhsd->bhgd", torch.softmax(scores, -1),
+                        v[:, :, :SERVE_PROMPT + 1]).reshape(b, -1, dh)
+    return compare_attention(got, want.float(), torch.float32,
+                             "kv_quant decode attention (int8 cache, first "
+                             "layer) vs float64 attention over the cache "
+                             "dequantized here")
+
+
+def phase_serve() -> dict:
+    """[serve] the serving path on the card; returns its numbers."""
+    out = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    cfg = get_config(LM_ARCH)
+    max_len = SERVE_PROMPT + SERVE_GEN
+    fixed = ["--arch", LM_ARCH, "--batch", str(SERVE_BATCH), "--prompt-len",
+             str(SERVE_PROMPT), "--gen", str(SERVE_GEN)]
+    log(f"[serve] {cfg.name} at full width and depth ({cfg.num_layers} "
+        f"layers, vocab {cfg.vocab_size}), bf16, init_model seed {SEED}: "
+        f"{SERVE_BATCH} x {SERVE_PROMPT} prompts, {SERVE_GEN} tokens each")
+    n_attn = attention_blocks(cfg)
+    runs = {}
+    for label in ("first", "warm"):
+        tokens, text, counts, peak = serve_main(fixed, f"fixed batch, {label}")
+        hold_counts(counts, {"flash_attention": n_attn},
+                    f"fixed batch ({label}): one prefill")
+        hold(tokens.shape == (SERVE_BATCH, SERVE_GEN)
+             and int(tokens.min()) >= 0
+             and int(tokens.max()) < cfg.vocab_size,
+             f"fixed batch ({label}): {tokens.shape} in-vocab tokens")
+        runs[label] = dict(tokens=tokens, walls=fixed_walls(text), peak=peak)
+    hold(np.array_equal(runs["first"]["tokens"], runs["warm"]["tokens"]),
+         "the warm call generates the first call's tokens")
+    out["fixed"] = runs
+    # summa: every FFN projection through DistributedMatmul, whose local
+    # products are torch.matmul (local_matmul "xla", as the reference's)
+    # on an empty autotune cache; then with the cache naming the kernel
+    # for the projections' panel buckets (warm_kernel_cache)
+    projections = 3 * cfg.num_layers * SERVE_GEN  # one run per call
+    out["summa"] = {}
+    for label in ("cold autotune cache", "tiled_matmul on the autotune "
+                  "cache"):
+        set_autotune_cache(None)
+        kernel = label.startswith("tiled")
+        if kernel:
+            buckets = serve_engine.warm_kernel_cache(
+                cfg, ParallelCtx(Grid.local(DEVICE), matmul_strategy="summa"),
+                SERVE_BATCH, SERVE_PROMPT, routes=("pallas",))
+            set_plan_service(None)
+            log(f"  warm_kernel_cache(routes=('pallas',)): buckets {buckets}")
+        hits = core_summa.executable_cache_stats()["hits"]
+        tokens, text, counts, _ = serve_main(
+            fixed + ["--matmul-strategy", "summa"], f"fixed batch, summa, "
+            f"{label}")
+        hits = core_summa.executable_cache_stats()["hits"] - hits
+        set_autotune_cache(None)
+        hold(counts["flash_attention"] == n_attn
+             and (counts["tiled_matmul"] > 0) == kernel
+             and counts["bsmm"] == counts["grouped_gemm"] == 0
+             and hits >= projections,
+             f"summa, {label}: {n_attn} flash_attention launches, "
+             f"tiled_matmul {counts['tiled_matmul']}, {hits} engine runs "
+             f"(at least {projections}: every FFN projection of the prefill "
+             f"and of each step)")
+        out["summa"][label] = dict(
+            walls=fixed_walls(text), launches=counts["tiled_matmul"],
+            agree=float((tokens == runs["warm"]["tokens"]).mean()))
+        log(f"  summa ({label}) tokens agree with the xla route's at "
+            f"{out['summa'][label]['agree']:.4f} of positions (bf16; not "
+            "held)")
+    plans = ROOT / "build" / "serve_plans.json"
+    plans.parent.mkdir(parents=True, exist_ok=True)
+    plans.unlink(missing_ok=True)
+    stats = []
+    for label in ("cold", "warm"):
+        set_plan_service(None)  # each run starts as a fresh process does
+        _, text, counts, _ = serve_main(
+            fixed + ["--matmul-strategy", "auto", "--plan-cache",
+                     str(plans)], f"fixed batch, auto, plan cache {label}")
+        m = re.search(r"tunes=(\d+) hits=(\d+)", text)
+        stats.append((int(m.group(1)), int(m.group(2))))
+        hold_counts(counts, {"flash_attention": n_attn},
+                    f"auto ({label}): one prefill")
+    hold(stats[0][0] == 4 and stats[1] == (0, 4),
+         f"plan cache: the cold run tunes every shape ({stats[0]}), the warm "
+         f"run tunes none and hits all four ({stats[1]})")
+    plans.unlink(missing_ok=True)
+    set_plan_service(None)
+    trace_out = {}
+    for backend in ("dense", "paged"):
+        flags = ["--continuous"] + (["--paged"] if backend == "paged" else [])
+        res, _, counts, peak = serve_main(fixed + flags,
+                                          f"continuous[{backend}]")
+        hold_counts(counts, {"flash_attention": n_attn * res["prefills"]},
+                    f"continuous[{backend}]: {res['prefills']} prefills")
+        trace_out[backend] = dict(res, peak=peak)
+    out["continuous"] = trace_out
+    model = card_model(cfg)
+    serial = serial_outputs(model, cfg, serve_trace(cfg))
+    for backend, res in trace_out.items():
+        res["agree"] = agreement(res["outputs"], serial)
+        log(f"  bf16 continuous[{backend}] tokens agree with the serial "
+            f"per-request loop's at {res['agree']:.4f} (not held: in bf16 a "
+            f"greedy path parts where another order of fp32 sums rounds a "
+            f"near-tie the other way)")
+    inputs = launch_serve.prompt_inputs(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                        DEVICE)
+    ctxq = ParallelCtx(Grid.local(DEVICE), kv_quant=True)
+    with torch.inference_mode(), serving_guard():
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, cache = serve_engine.prefill(model, inputs, cfg, ctxq,
+                                             max_len=max_len)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        out["kv_quant_attention"] = hold_kv_quant_step(cache, cfg, gen)
+        toks = [tok]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SERVE_GEN - 1):
+            logits, cache = serve_engine.decode_step(model, cache, tok, cfg,
+                                                     ctxq)
+            tok = logits.argmax(-1)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t_dec = time.perf_counter() - t0
+    hold_counts(read_counts(), {"flash_attention": n_attn},
+                "kv_quant: one prefill")
+    quant_tokens = torch.stack(toks, 1).cpu().numpy()
+    bf16_bytes = cache_bytes(serve_engine.init_cache(
+        cfg, SERVE_BATCH, max_len, device="meta"))
+    out["kv_quant"] = dict(
+        walls=(t_pre, t_dec), peak=torch.cuda.max_memory_allocated(),
+        bytes=cache_bytes(cache), bf16_bytes=bf16_bytes,
+        agree=float((quant_tokens == runs["warm"]["tokens"]).mean()))
+    log(f"  kv_quant fixed batch: prefill {t_pre:.4f} s, decode {t_dec:.4f} s "
+        f"over {SERVE_GEN - 1} steps; cache {out['kv_quant']['bytes']:,} "
+        f"bytes against bf16's {bf16_bytes:,}; peak "
+        f"{out['kv_quant']['peak'] / 2**30:.2f} GiB; tokens agree with the "
+        f"bf16 cache's at {out['kv_quant']['agree']:.4f} (not held)")
+    del cache, logits
+    out["twin"] = hold_engine_twin(model, cfg, gen, cfg.name)
+    hold_scheduler_twin(model, cfg)
+    out["depth"] = hold_engine_depth(model, cfg, gen, cfg.name)
+    del model
+    torch.cuda.empty_cache()
+
+    rg = get_config(RG_ARCH)
+    log(f"[serve] {rg.name} at full width and depth ({rg.num_layers} layers, "
+        f"window {rg.window}), bf16: {RG_SERVE_BATCH} x {SERVE_PROMPT} "
+        f"prompts, {RG_SERVE_GEN} tokens each")
+    tokens, text, counts, peak = serve_main(
+        ["--arch", RG_ARCH, "--batch", str(RG_SERVE_BATCH), "--prompt-len",
+         str(SERVE_PROMPT), "--gen", str(RG_SERVE_GEN)], "fixed batch")
+    hold_counts(counts, {"flash_attention": attention_blocks(rg)},
+                "recurrentgemma fixed batch: one prefill")
+    hold(tokens.shape == (RG_SERVE_BATCH, RG_SERVE_GEN)
+         and int(tokens.max()) < rg.vocab_size, "in-vocab tokens")
+    out["rg"] = dict(walls=fixed_walls(text), peak=peak)
+    model = card_model(rg)
+    out["rg_twin"] = hold_engine_twin(model, rg, gen, rg.name)
+    out["rg_depth"] = hold_engine_depth(model, rg, gen, rg.name)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     kind, count = phase_device()
     phase_build()
@@ -3039,6 +3553,31 @@ def main() -> None:
             f"{r['wall']:.3f} s, first {r['cold']:.3f} s, peak "
             f"{r['peak'] / 2**30:.2f} GiB, {r['launches']} flash_attention "
             f"launches, greedy {r['greedy']}")
+    serve = phase_serve()
+    fixed, cont, quant = serve["fixed"], serve["continuous"], serve["kv_quant"]
+    for label in ("first", "warm"):
+        pre, dec = fixed[label]["walls"]
+        log(f"  {LM_ARCH} serving, fixed batch {SERVE_BATCH} x {SERVE_PROMPT}"
+            f" + {SERVE_GEN} ({label} call; host clock ending in "
+            f"synchronize): prefill {SERVE_BATCH * SERVE_PROMPT / pre:,.0f} "
+            f"tok/s ({pre:.4f} s), decode "
+            f"{SERVE_BATCH * (SERVE_GEN - 1) / dec:,.0f} tok/s ({dec:.4f} s),"
+            f" peak {fixed[label]['peak'] / 2**30:.2f} GiB")
+    log(f"  {LM_ARCH} serving, continuous over {4 * SERVE_BATCH} requests on "
+        f"{SERVE_BATCH} slots: dense {cont['dense']['tokens_per_s']:,.0f} "
+        f"tok/s (p50 {cont['dense']['p50_step_ms']:.3f} / p99 "
+        f"{cont['dense']['p99_step_ms']:.3f} ms), paged "
+        f"{cont['paged']['tokens_per_s']:,.0f} tok/s (p50 "
+        f"{cont['paged']['p50_step_ms']:.3f} / p99 "
+        f"{cont['paged']['p99_step_ms']:.3f} ms); kv_quant cache "
+        f"{quant['bytes'] / 2**20:.1f} MiB against bf16's "
+        f"{quant['bf16_bytes'] / 2**20:.1f} MiB")
+    pre, dec = serve["rg"]["walls"]
+    log(f"  {RG_ARCH} serving, fixed batch {RG_SERVE_BATCH} x {SERVE_PROMPT} "
+        f"+ {RG_SERVE_GEN}: prefill {RG_SERVE_BATCH * SERVE_PROMPT / pre:,.0f}"
+        f" tok/s ({pre:.4f} s), decode "
+        f"{RG_SERVE_BATCH * (RG_SERVE_GEN - 1) / dec:,.0f} tok/s "
+        f"({dec:.4f} s), peak {serve['rg']['peak'] / 2**30:.2f} GiB")
     log(f"  {XL_ARCH} chunkwise mLSTM forward: warm "
         f"{recurrent['xl_chunked']['wall']:.3f} s, peak "
         f"{recurrent['xl_chunked']['peak'] / 2**30:.2f} GiB")

@@ -285,13 +285,19 @@ class Grid:
         dist.reduce_scatter_tensor(out, x0, group=group)
         return out.movedim(0, dim).contiguous()
 
-    def all_reduce(self, x: torch.Tensor, axis) -> torch.Tensor:
-        """The sum of every rank's ``x`` along ``axis``, as a new tensor
-        (the reference's ``psum``); the identity on an axis of one rank."""
+    def all_reduce(self, x: torch.Tensor, axis, op: str = "sum"
+                   ) -> torch.Tensor:
+        """The sum (``op="sum"``, the reference's ``psum``) or the
+        elementwise maximum (``op="max"``, its ``pmax``) of every rank's
+        ``x`` along ``axis``, as a new tensor; the identity on an axis of
+        one rank."""
+        ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+        if op not in ops:
+            raise ValueError(f"op={op!r}; known: {sorted(ops)}")
         if self.axis_size(axis) == 1:
             return x
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=self._group(axis))
+        dist.all_reduce(out, op=ops[op], group=self._group(axis))
         return out
 
     def exchange(self, sends, recvs) -> int:

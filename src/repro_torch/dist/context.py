@@ -4,12 +4,12 @@ The port of ``repro.dist.context``.  Every model entry point takes a
 ``ParallelCtx``.  It bundles the device grid with the axis roles (which
 grid axis acts as data parallel, which as tensor parallel) and the
 feature switches of the reference that the ported modules read (matmul
-strategy, attention implementation, mLSTM chunking, sLSTM replication,
-pure data parallelism, static weight sparsity).  The reference's
-switches of unported modules (ZeRO-1: ROADMAP A10; KV-cache
-quantization: A11) are not fields here.  Model code never
-touches the grid directly; it goes through ``ctx.wsc`` and
-``repro_torch.dist.collective_matmul.project``.
+strategy, attention implementation, mLSTM chunking, int8 KV-cache
+quantization for serving (``kv_quant``, read by ``serve.engine``),
+sLSTM replication, pure data parallelism, static weight sparsity).  The
+reference's switch of an unported module (ZeRO-1: ROADMAP A10) is not
+a field here.  Model code never touches the grid directly; it goes
+through ``ctx.wsc`` and ``repro_torch.dist.collective_matmul.project``.
 
 The port holds a ``core.grid.Grid`` (or ``None``) where the reference
 holds a ``Mesh``.  Activations are whole on every rank, so ``wsc`` (the
@@ -58,6 +58,8 @@ class ParallelCtx:
     # mLSTM blocks run the chunkwise form at this chunk length (None: the
     # quadratic parallel form over the whole sequence)
     mlstm_chunk: int | None = None
+    # serving caches hold K/V as int8 with per-(token, head) fp32 scales
+    kv_quant: bool = False
     # sLSTM recurrence kept tp-replicated (one sharding constraint, which
     # is the identity here: the flag changes no number)
     slstm_replicated: bool = False

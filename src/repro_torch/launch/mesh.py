@@ -1,0 +1,29 @@
+"""Grid construction for the launchers.
+
+The port of ``repro.launch.mesh``: where the reference builds a
+``jax.sharding.Mesh``, the port builds a ``core.grid.Grid``.  A grid of
+one rank is ``Grid.local``; a larger one runs one process per rank under
+an initialised ``torch.distributed`` (``init_process_group`` with the
+address, world size and rank given by the caller).
+"""
+from __future__ import annotations
+
+import math
+
+from repro_torch.core.grid import Grid
+
+__all__ = ["make_grid", "make_host_grid"]
+
+
+def make_grid(shape: tuple[int, ...], axes: tuple[str, ...],
+              device="cuda") -> Grid:
+    """A grid of ``shape`` with ``axes``: ``Grid.local`` for one rank,
+    else one over the initialised ``torch.distributed`` world."""
+    if math.prod(shape) == 1:
+        return Grid.local(device, axis_names=axes)
+    return Grid.from_process_group(*shape, device=device, axis_names=axes)
+
+
+def make_host_grid(data: int = 1, model: int = 1, device="cuda") -> Grid:
+    """The ``("data", "model")`` grid of ``data x model`` ranks."""
+    return make_grid((data, model), ("data", "model"), device)

@@ -7,6 +7,11 @@ into ``units.<i>``, the tail and a tied or untied head are carried as
 they are.  A bf16 leaf arrives as an ``ml_dtypes.bfloat16`` array, which
 ``torch.from_numpy`` refuses; it goes through float32, which holds every
 bf16 value exactly.
+
+``cache_from_reference`` and ``cache_to_numpy`` carry a serving cache
+(``serve.engine``'s tree of ``units`` / ``tail`` / ``pos``) across the
+same way, leaf by leaf with the same tree: every value exactly, the
+positions as the port's int64.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LM
 
-__all__ = ["load_leaves", "params_from_reference", "reference_leaves"]
+__all__ = ["cache_from_reference", "cache_to_numpy", "load_leaves",
+           "params_from_reference", "reference_leaves"]
 
 
 def reference_leaves(np_params: dict, cfg: ModelConfig) -> dict:
@@ -85,3 +91,36 @@ def load_leaves(module, leaves: dict):
         src = torch.from_numpy(np.array(leaf, dtype=np.float32))
         param.data.copy_(src)  # exact: every leaf is fp32 or bf16
     return module
+
+
+def cache_from_reference(np_cache, device="cuda"):
+    """The port's serving cache holding the reference's (given as numpy
+    arrays, ``jax.tree.map(np.asarray, cache)``): the same nested dicts
+    and lists, each leaf a tensor of the same shape on ``device`` — bf16
+    exactly (through float32), int8 as int8, and the int32 positions as
+    the port's int64."""
+    if isinstance(np_cache, dict):
+        return {k: cache_from_reference(v, device) for k, v in
+                np_cache.items()}
+    if isinstance(np_cache, (list, tuple)):
+        return [cache_from_reference(v, device) for v in np_cache]
+    a = np.asarray(np_cache)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device,
+                                                           torch.bfloat16)
+    if a.dtype == np.int32:
+        a = a.astype(np.int64)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def cache_to_numpy(cache):
+    """A serving cache as numpy arrays with the same tree (bf16 as
+    float32, which holds it exactly)."""
+    if isinstance(cache, dict):
+        return {k: cache_to_numpy(v) for k, v in cache.items()}
+    if isinstance(cache, (list, tuple)):
+        return [cache_to_numpy(v) for v in cache]
+    t = cache.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

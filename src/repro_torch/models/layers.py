@@ -12,6 +12,7 @@ forward only (training is ROADMAP A10).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -224,8 +225,16 @@ def apply_mrope(
 # where F.silu / F.gelu would round once at the end.
 
 
-def _const(value: float, x: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(value, dtype=x.dtype, device=x.device)
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _const(value: float, x: torch.Tensor) -> float:
+    """``value`` rounded to ``x``'s dtype, as the reference's weakly typed
+    constant is, kept a Python scalar: a scalar operand needs no copy to
+    the device, and a copy from host memory would make the stream wait."""
+    return _rounded(value, x.dtype)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
