@@ -13,7 +13,8 @@ block-sparse tensor front-end (``DistributedMatmul.contract`` and
 ``contract_chain``) on a coupled-cluster contraction, then the LM
 forwards of llama3.2-1b, the MoE, recurrent and frontend families
 through ``models.model.forward``, a server (``launch.serve.main`` and
-``serve.scheduler.Scheduler``), and checks every hand-written kernel
+``serve.scheduler.Scheduler``), a trainer (``train.train_step`` and
+``launch.train.main``), and checks every hand-written kernel
 against its plain PyTorch version.  Phases, in the order they run — any failure
 raises, so the script exits non-zero:
 
@@ -194,7 +195,28 @@ raises, so the script exits non-zero:
    step on the int8 cache against attention over the cache dequantized
    here.  Prints prefill and decode tok/s, continuous tok/s with p50 and
    p99 step ms, first call beside warm, peak memory and the int8 cache's
-   bytes beside bf16's.
+   bytes beside bf16's;
+
+   [train] the training path, bf16, every kernel's plain version made to
+   raise on a CUDA tensor: llama3.2-1b at full width and depth, its
+   weights from ``make_train_state`` with a seeded generator, AdamW,
+   ``attention_impl="chunked"`` and remat, 3 steps of ``SyntheticData``'s
+   8 x 4096 tokens in 2 microbatches through ``build_train_step`` — the
+   step walls (first and warm), tokens/s, peak memory, the losses and
+   the four kernels' launches (0: no TPU kernel is on the reference's
+   training path); at full width cut to 2 layers, a step of 2
+   microbatches against 1 (params within 5e-2) and 3 steps under
+   ``matmul_strategy="summa"`` (the FFN projections and both products of
+   their backward through ``DistributedMatmul``) against ``"xla"``
+   (losses within rtol 2e-2); ``chunked_attention`` at llama's
+   attention call (4 x 4096, 32/8 heads of 64) in fp32 against
+   ``flash_attention_plain`` under autograd (output 2e-5, dQ/dK/dV 2e-4
+   of the operands' rms), and forward + backward timed in fp32 and bf16
+   beside the plain version and ``scaled_dot_product_attention``; then
+   ``launch.train.main --smoke`` on the card: the loss falls over 40
+   steps, ``--fail-at-step 16`` exits 42 and ``--resume`` ends within
+   1e-4 of the uninterrupted run, and recurrentgemma-9b gives finite
+   losses.
 
 Every product runs on an empty autotune cache, so its launch counts do
 not depend on the cache, except the two that check the cache: the end of
@@ -208,6 +230,7 @@ the rest of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -290,14 +313,28 @@ from repro_torch.kernels.tiled_matmul import (  # noqa: E402
 from repro_torch.kernels import bsmm as bsmm_kernel  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import attention as attention_layer  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.models import recurrent as rec  # noqa: E402
+from repro_torch.models.chunked_attention import (  # noqa: E402
+    chunked_attention,
+)
 from repro_torch.models.model import LM, forward, init_model  # noqa: E402
 from repro_torch.sched import abstract_summa_config, tune_plan  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
+from repro_torch.train import tree as train_tree  # noqa: E402
+from repro_torch.train.data import SyntheticData  # noqa: E402
+from repro_torch.train.optimizer import (  # noqa: E402
+    OptimizerConfig,
+    make_optimizer,
+)
+from repro_torch.train.train_step import (  # noqa: E402
+    build_train_step,
+    make_train_state,
+)
 from repro_torch.serve.plan_service import set_plan_service  # noqa: E402
 from repro_torch.serve.scheduler import Scheduler, ragged_trace  # noqa: E402
 
@@ -389,6 +426,24 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 64
 RG_SERVE_BATCH, RG_SERVE_GEN = 2, 32
 SERVE_HOLD_STEPS, SERVE_HOLD_BATCH = 8, 2
 SERVE_HOLD_LAYERS = {LM_ARCH: 2, RG_ARCH: 3}
+#: [train]: llama3.2-1b's train step at full width and depth, bf16, AdamW,
+#: chunked attention and remat, TRAIN_STEPS steps of TRAIN_BATCH x
+#: TRAIN_SEQ tokens (train_4k's length) in TRAIN_MICRO microbatches; the
+#: holds at full width cut to TRAIN_HOLD_LAYERS layers: microbatches 2
+#: against 1 on TRAIN_HOLD_BATCH x TRAIN_SEQ (params within the
+#: reference's 5e-2, tests/test_models.py:120; first moments within 5e-2
+#: of each leaf's largest, a dropped microbatch outside it), summa against xla over TRAIN_HOLD_STEPS
+#: steps (rtol 2e-2, tests/test_system.py:33); the chunked attention at
+#: llama's call against the plain one at the reference's 2e-5 / 2e-4
+#: (tests/test_perf_features.py); then launch.train's CLI with --smoke:
+#: the loss falls over CLI_STEPS, a run killed at CLI_FAIL_AT of
+#: CLI_RESUME_STEPS resumes losslessly
+TRAIN_BATCH, TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 4096, 3
+TRAIN_MICRO_BATCH = TRAIN_BATCH // TRAIN_MICRO
+TRAIN_HOLD_LAYERS, TRAIN_HOLD_BATCH, TRAIN_HOLD_STEPS = 2, 4, 3
+TRAIN_MB_HOLD, TRAIN_MB_M_HOLD, TRAIN_SUMMA_RTOL = 5e-2, 5e-2, 2e-2
+CHUNKED_O_TOL, CHUNKED_GRAD_TOL = 2e-5, 2e-4
+CLI_STEPS, CLI_RESUME_STEPS, CLI_FAIL_AT = 40, 24, 16
 #: Tolerances of the whole forward (max |logit difference| / max |logit|,
 #: and the least share of positions whose argmax agrees).  In fp32 the
 #: kernel's forward (and the summa one) must equal the plain-attention
@@ -2998,16 +3053,17 @@ PLAIN_VERSIONS = ((kops, "tiled_matmul_plain"), (kops, "bsmm_plain"),
 
 
 @contextlib.contextmanager
-def serving_guard():
-    """Inside: a kernel's plain version called with a CUDA tensor raises,
-    so the serving path is shown to launch the kernels and nothing else."""
-    saved = [(mod, name, getattr(mod, name)) for mod, name in PLAIN_VERSIONS]
+def plain_guard(versions=PLAIN_VERSIONS, phase: str = "[serve]"):
+    """Inside: each of ``versions`` (module, name of a kernel's plain
+    version) called with a CUDA tensor raises, so the path is shown to
+    launch the kernels and nothing else."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in versions]
 
     def guard(fn, name):
         def run(*args, **kw):
             if any(isinstance(a, torch.Tensor) and a.is_cuda
                    for a in (*args, *kw.values())):
-                raise AssertionError(f"[serve]: {name} ran on a CUDA tensor")
+                raise AssertionError(f"{phase}: {name} ran on a CUDA tensor")
             return fn(*args, **kw)
         return run
 
@@ -3037,15 +3093,16 @@ def hold_counts(counts: dict, want: dict, what: str) -> None:
 
 
 def serve_main(argv: list, what: str) -> tuple:
-    """``launch.serve.main(argv)`` on the card inside ``serving_guard``,
-    every count set to 0 just before and read just after; its printed
-    lines echoed.  Returns (its result, its text, counts, peak bytes)."""
+    """``launch.serve.main(argv)`` on the card inside the [serve]
+    ``plain_guard``, every count set to 0 just before and read just after;
+    its printed lines echoed.  Returns (its result, its text, counts, peak bytes)."""
     buf = io.StringIO()
     zero_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with serving_guard(), contextlib.redirect_stdout(buf):
+    with plain_guard(PLAIN_VERSIONS, "[serve]"), \
+            contextlib.redirect_stdout(buf):
         result = launch_serve.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3079,14 +3136,14 @@ def cut_twin(model, cfg, layers: int):
 
 def engine_steps(model, cfg, tokens, what: str) -> torch.Tensor:
     """Prefill ``tokens`` less the last SERVE_HOLD_STEPS, then one decode
-    step on each of those, through the engine on the card (under
-    ``serving_guard``): one ``flash_attention`` launch per attention
-    block in the prefill, none in decode.  Returns the logits of the
+    step on each of those, through the engine on the card (under the
+    [serve] ``plain_guard``): one ``flash_attention`` launch per
+    attention block in the prefill, none in decode.  Returns the logits of the
     prefill's last position and of each step, (B, 1 + steps, V)."""
     xla = ParallelCtx(None)
     total = tokens.shape[1]
     p = total - SERVE_HOLD_STEPS
-    with torch.inference_mode(), serving_guard():
+    with torch.inference_mode(), plain_guard(PLAIN_VERSIONS, "[serve]"):
         zero_counts()
         logits, cache = serve_engine.prefill(model, {"tokens": tokens[:, :p]},
                                              cfg, xla, max_len=total)
@@ -3190,7 +3247,7 @@ def serial_outputs(model, cfg, reqs) -> dict:
     xla = ParallelCtx(None)
     out = {}
     max_len = SERVE_PROMPT + SERVE_GEN
-    with torch.inference_mode(), serving_guard():
+    with torch.inference_mode(), plain_guard(PLAIN_VERSIONS, "[serve]"):
         for r in reqs:
             prompt = torch.as_tensor(r.prompt.astype(np.int64),
                                      device=DEVICE)[None]
@@ -3230,7 +3287,8 @@ def hold_scheduler_twin(model, cfg) -> None:
     twin, cut = cut_twin(model, cfg, SERVE_HOLD_LAYERS[cfg.name])
     want = serial_outputs(twin, cut, serve_trace(cut))
     for backend in ("dense", "paged"):
-        with torch.inference_mode(), serving_guard():
+        with torch.inference_mode(), \
+                plain_guard(PLAIN_VERSIONS, "[serve]"):
             res = Scheduler(twin, cut, ParallelCtx(None),
                             n_slots=SERVE_BATCH,
                             max_len=SERVE_PROMPT + SERVE_GEN,
@@ -3388,7 +3446,7 @@ def phase_serve() -> dict:
     inputs = launch_serve.prompt_inputs(cfg, SERVE_BATCH, SERVE_PROMPT,
                                         DEVICE)
     ctxq = ParallelCtx(Grid.local(DEVICE), kv_quant=True)
-    with torch.inference_mode(), serving_guard():
+    with torch.inference_mode(), plain_guard(PLAIN_VERSIONS, "[serve]"):
         zero_counts()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -3447,6 +3505,332 @@ def phase_serve() -> dict:
     out["rg_depth"] = hold_engine_depth(model, rg, gen, rg.name)
     del model
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# [train]: the training path (models.chunked_attention, train/, launch.train)
+# ---------------------------------------------------------------------------
+
+#: [train]'s guards: every kernel's plain version raises on a CUDA tensor
+#: in llama3.2-1b's train step (chunked attention); ``launch.train``'s CLI
+#: trains with the reference's default ``attention_impl="ref"``, the plain
+#: attention the attention layer calls itself (no kernel stands for it in
+#: training: the flash kernel is forward-only, in both packages), so there
+#: only the kernel wrappers' plain versions are made to raise
+CLI_PLAIN_VERSIONS = tuple(v for v in PLAIN_VERSIONS
+                           if v != (attention_layer, "flash_attention_plain"))
+
+
+def state_bytes(state) -> dict:
+    """Bytes of the train state's parts: bf16 params, and each optimizer
+    slot."""
+    out = {"params": sum(p.numel() * p.element_size()
+                         for p in state["params"].parameters())}
+    for slot, tree in state["opt"].items():
+        out[slot] = sum(t.numel() * t.element_size()
+                        for _, t in train_tree.leaves(tree))
+    return out
+
+
+def run_train_steps(state, step_fn, data, steps: int, what: str) -> dict:
+    """``steps`` train steps on ``data.batch_at(i)`` inside the plain
+    guard, every count set to 0 just before and read just after: each
+    step's wall (host clock ending in ``synchronize``), loss and metrics."""
+    walls, losses = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_guard(PLAIN_VERSIONS, "[train]"):
+        zero_counts()
+        for i in range(steps):
+            batch = data.batch_at(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        counts = read_counts()
+    hold_counts(counts, {}, f"{what}: {steps} train steps")
+    hold(all(math.isfinite(x) for x in losses), f"{what}: finite losses "
+         f"{losses}")
+    return dict(state=state, walls=walls, losses=losses, counts=counts,
+                peak=torch.cuda.max_memory_allocated())
+
+
+def train_ctx(strategy: str = "xla") -> ParallelCtx:
+    return ParallelCtx(Grid.local(DEVICE), matmul_strategy=strategy,
+                       attention_impl="chunked")
+
+
+def train_opt(steps: int):
+    return make_optimizer(OptimizerConfig(total_steps=steps, warmup_steps=1))
+
+
+def new_train_state(cfg, ctx, opt):
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 24)
+    return make_train_state(cfg, ctx, opt, generator=gen, device=DEVICE)
+
+
+def first_moment_gap(m, ref) -> float:
+    """max over leaves of max |m - ref| / max |ref| (fp32 trees of one
+    layout)."""
+    gap = 0.0
+    for path, x in train_tree.leaves(m):
+        r = train_tree.at(ref, path)
+        d, scale = float((x - r).abs().max()), float(r.abs().max())
+        gap = max(gap, d / scale if scale else d)
+    return gap
+
+
+def hold_train_microbatches(cut) -> dict:
+    """One step with ``microbatches=2`` against ``microbatches=1`` from
+    the same state, clipping off.  The updated params within the
+    reference's 5e-2 (``tests/test_models.py:120``): a first AdamW step
+    moves a parameter by about ``lr``, so that alone cannot fail.  So the
+    step's first moment ``m`` (``(1 - b1)`` times the accumulated fp32
+    gradient) is held too: per leaf, max |m2 - m1| within TRAIN_MB_M_HOLD
+    of max |m1|.  The same check on the first microbatch's ``m`` halved
+    (what the accumulation gives if it drops the second microbatch) must
+    fail, so each run shows the check can fail.  Returns the gaps."""
+    ctx = train_ctx()
+    opt = make_optimizer(OptimizerConfig(
+        total_steps=TRAIN_HOLD_STEPS, warmup_steps=1, clip_norm=math.inf))
+    base = new_train_state(cut, ctx, opt)
+    batch = SyntheticData(cut, TRAIN_HOLD_BATCH, TRAIN_SEQ,
+                          seed=SEED + 1).batch_at(0)
+    first = {k: x[:TRAIN_HOLD_BATCH // 2] for k, x in batch.items()}
+    params, m = {}, {}
+    with plain_guard(PLAIN_VERSIONS, "[train]"):
+        zero_counts()
+        for name, mb, data in (("first", 1, first), ("one", 1, batch),
+                               ("two", 2, batch)):
+            st = base if name == "two" else copy.deepcopy(base)
+            st, _ = build_train_step(cut, ctx, opt, microbatches=mb)(st, data)
+            params[name] = {n: p.detach().float() for n, p
+                            in st["params"].named_parameters()}
+            m[name] = st["opt"]["m"]
+            del st
+        hold_counts(read_counts(), {}, "[train] microbatch hold")
+    out = dict(
+        params=max(float((p - params["one"][n]).abs().max())
+                   for n, p in params["two"].items()),
+        m=first_moment_gap(m["two"], m["one"]),
+        fault=first_moment_gap(
+            train_tree.tree_map(lambda x: 0.5 * x, m["first"]), m["one"]))
+    what = (f"{cut.num_layers} layers, {TRAIN_HOLD_BATCH} x {TRAIN_SEQ}, "
+            f"a step of 2 microbatches vs 1")
+    hold(out["params"] < TRAIN_MB_HOLD, f"{what}: params differ by at most "
+         f"{out['params']:.3e} (< {TRAIN_MB_HOLD})")
+    hold(out["m"] <= TRAIN_MB_M_HOLD, f"{what}: first moments differ by at "
+         f"most {out['m']:.3e} of the leaf's max |m| (<= {TRAIN_MB_M_HOLD})")
+    hold(out["fault"] > TRAIN_MB_M_HOLD, f"{what}, the second microbatch "
+         f"dropped: first moments differ by {out['fault']:.3e} of the "
+         f"leaf's max |m| (> {TRAIN_MB_M_HOLD}: the check fails it)")
+    del base, params, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def hold_train_summa(cut) -> dict:
+    """``matmul_strategy="summa"`` on ``Grid.local`` (every FFN projection
+    and the two products of its backward through ``DistributedMatmul``)
+    against ``"xla"``: the losses of TRAIN_HOLD_STEPS steps within rtol
+    2e-2 (``tests/test_system.py:33``)."""
+    data = SyntheticData(cut, TRAIN_HOLD_BATCH // 2, TRAIN_SEQ, seed=SEED + 2)
+    out = {}
+    for strategy in ("xla", "summa"):
+        ctx, opt = train_ctx(strategy), train_opt(TRAIN_HOLD_STEPS)
+        r = run_train_steps(new_train_state(cut, ctx, opt),
+                            build_train_step(cut, ctx, opt), data,
+                            TRAIN_HOLD_STEPS, f"[train] {strategy}")
+        out[strategy] = dict(losses=r["losses"], walls=r["walls"])
+        log(f"  {strategy}: losses {r['losses']}, step walls "
+            f"{[round(w, 4) for w in r['walls']]} s")
+        del r
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["summa"]["losses"],
+                                                  out["xla"]["losses"]))
+    hold(rel < TRAIN_SUMMA_RTOL, f"summa losses within rtol {rel:.3e} of "
+         f"xla's (< {TRAIN_SUMMA_RTOL})")
+    return out
+
+
+def attention_grads(fn, q, k, v, do):
+    """(output, dq, dk, dv) of ``fn`` under autograd."""
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o = fn(qs, ks, vs)
+    o.backward(do)
+    return [o.detach(), qs.grad, ks.grad, vs.grad]
+
+
+def hold_chunked_attention(cfg) -> dict:
+    """``chunked_attention`` at llama3.2-1b's attention call (B, 32/8
+    heads, Dh 64, S 4096) in fp32 against ``flash_attention_plain`` under
+    autograd: the output within 2e-5 and dQ/dK/dV within 2e-4 of the
+    operands' rms (the reference's holds, ``tests/test_perf_features.py``),
+    then forward + backward times in fp32 and bf16 beside the plain
+    version and ``scaled_dot_product_attention``."""
+    b, s, h, hkv, dh = (TRAIN_MICRO_BATCH, TRAIN_SEQ, cfg.num_heads,
+                        cfg.num_kv_heads, cfg.resolved_head_dim)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 25)
+    q, k, v, do = (randn(shape, torch.float32, gen) for shape in
+                   ((b, h, s, dh), (b, hkv, s, dh), (b, hkv, s, dh),
+                    (b, h, s, dh)))
+    scale = max(float(t.square().mean().sqrt()) for t in (q, k, v, do))
+    got = attention_grads(chunked_attention, q, k, v, do)
+    want = attention_grads(flash_attention_plain, q, k, v, do)
+    out = {}
+    for name, g, w, tol in zip(("o", "dq", "dk", "dv"), got, want,
+                               (CHUNKED_O_TOL,) + (CHUNKED_GRAD_TOL,) * 3):
+        err = float((g - w).abs().max())
+        out[name] = err
+        hold(err <= tol * scale, f"chunked {name} vs plain at B={b} "
+             f"{h}/{hkv} heads S={s} Dh={dh} fp32: max |diff| {err:.3e} = "
+             f"{err / (tol * scale):.3f} of the hold ({tol} x rms "
+             f"{scale:.4f})")
+    del got, want
+    torch.cuda.empty_cache()
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        args = [t.to(dtype) for t in (q, k, v, do)]
+        routes = (("chunked", chunked_attention),
+                  ("plain", flash_attention_plain),
+                  ("sdpa", lambda q_, k_, v_: torch.nn.functional.scaled_dot_product_attention(
+                      q_, k_, v_, is_causal=True, enable_gqa=True)))
+        for name, fn in routes:
+            ms = cuda_ms(lambda fn=fn: attention_grads(fn, *args), 2)
+            times[(name, dtype)] = ms
+            torch.cuda.empty_cache()
+        # causal: ~half the S x S pairs, 2 products forward, 5 backward
+        # (dP, dQ, dK, dV and the recomputed S), 2 Dh FLOP each
+        flop = live_pairs(s, True, None) * b * h * dh * 2 * 7
+        nbytes = sum(t.numel() * t.element_size() for t in args) * 2
+        bnd, by = bound(flop, nbytes, PEAK_BF16_FLOPS
+                        if dtype == torch.bfloat16 else PEAK_FP32_FLOPS)
+        log(f"  attention forward + backward at B={b} {h}/{hkv} heads "
+            f"S={s} Dh={dh} {str(dtype).split('.')[1]} (CUDA events, "
+            f"{torch.cuda.get_device_name(0)}): chunked "
+            f"{times[('chunked', dtype)]:.3f} ms, plain "
+            f"{times[('plain', dtype)]:.3f} ms, "
+            f"scaled_dot_product_attention {times[('sdpa', dtype)]:.3f} ms; "
+            f"bound {bnd:.3f} ms ({by})")
+        del args
+    out["times"] = times
+    return out
+
+
+def train_cli(argv: list, what: str) -> tuple:
+    """``launch.train.main(argv)`` on the card inside the CLI guard, every
+    count set to 0 just before and read just after; its printed lines
+    echoed.  Returns (its losses or the SystemExit it raised, counts)."""
+    buf = io.StringIO()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with plain_guard(CLI_PLAIN_VERSIONS, "[train]"), \
+                contextlib.redirect_stdout(buf):
+            result = launch_train.main(argv)
+    except SystemExit as exc:
+        result = exc
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"  {what}: python -m repro_torch.launch.train {' '.join(argv)}")
+    for line in buf.getvalue().splitlines():
+        log(f"    | {line}")
+    log(f"    launches {counts}; whole call {wall:.3f} s")
+    hold_counts(counts, {}, what)
+    return result, counts
+
+
+def phase_train_cli() -> dict:
+    """``launch.train.main`` on the card with ``--smoke``: the loss falls
+    over CLI_STEPS steps, a run killed at step CLI_FAIL_AT (exit 42) and
+    resumed ends within 1e-4 of the uninterrupted run, and the hybrid
+    recurrentgemma-9b trains to finite losses."""
+    dev = ["--device", DEVICE]
+    losses, _ = train_cli(["--arch", LM_ARCH, "--smoke", "--steps",
+                           str(CLI_STEPS), "--global-batch", "4", "--seq",
+                           "64", "--log-every", "10", *dev], "loss falls")
+    hold(losses[-1] < 0.9 * losses[0], f"loss {losses[0]:.4f} -> "
+         f"{losses[-1]:.4f} over {CLI_STEPS} steps (< 0.9 x the first)")
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    common = ["--arch", LM_ARCH, "--smoke", "--steps", str(CLI_RESUME_STEPS),
+              "--global-batch", "2", "--seq", "32", "--ckpt-every", "8",
+              "--log-every", "50", *dev]
+    ref, _ = train_cli(common + ["--ckpt-dir", str(ckpt_dir / "ref")],
+                       "uninterrupted")
+    died, _ = train_cli(common + ["--ckpt-dir", str(ckpt_dir / "ft"),
+                                  "--fail-at-step", str(CLI_FAIL_AT)],
+                        f"killed at step {CLI_FAIL_AT}")
+    hold(isinstance(died, SystemExit) and died.code == 42,
+         f"--fail-at-step {CLI_FAIL_AT} exits 42 "
+         f"({getattr(died, 'code', died)})")
+    resumed, _ = train_cli(common + ["--ckpt-dir", str(ckpt_dir / "ft"),
+                                     "--resume"], "resumed")
+    gap = abs(resumed[-1] - ref[-1])
+    hold(len(resumed) == CLI_RESUME_STEPS - CLI_FAIL_AT and gap < 1e-4,
+         f"resumed run's last loss {resumed[-1]:.6f} within {gap:.2e} of the "
+         f"uninterrupted {ref[-1]:.6f} (< 1e-4)")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rg, _ = train_cli(["--arch", RG_ARCH, "--smoke", "--steps", "10",
+                       "--global-batch", "2", "--seq", "32", "--log-every",
+                       "100", *dev], "hybrid")
+    hold(all(math.isfinite(x) for x in rg), f"{RG_ARCH} --smoke: finite "
+         f"losses {[round(x, 4) for x in rg]}")
+    return dict(first=losses[0], last=losses[-1], gap=gap)
+
+
+def phase_train() -> dict:
+    """[train] the training path on the card; returns its numbers."""
+    t_phase = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    log(f"[train] {cfg.name} at full width and depth ({cfg.num_layers} "
+        f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}, tied), "
+        f"bf16, AdamW, attention_impl=chunked, remat; SyntheticData "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {TRAIN_MICRO} "
+        f"microbatches of {TRAIN_MICRO_BATCH}; every kernel's plain version "
+        f"raises on a CUDA tensor")
+    ctx, opt = train_ctx(), train_opt(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = new_train_state(cfg, ctx, opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    parts = state_bytes(state)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    log(f"  train state: {n_params:,} parameters; bytes {parts} "
+        f"({sum(parts.values()) / 2**30:.2f} GiB; with the bf16 grads and "
+        f"the fp32 accumulator of a step "
+        f"{(sum(parts.values()) + n_params * 6) / 2**30:.2f} GiB); "
+        f"make_train_state {init_s:.3f} s")
+    step_fn = build_train_step(cfg, ctx, opt, microbatches=TRAIN_MICRO,
+                               remat=True)
+    data = SyntheticData(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    r = run_train_steps(state, step_fn, data, TRAIN_STEPS, f"[train] {cfg.name}")
+    warm = min(r["walls"][1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = dict(walls=r["walls"], losses=r["losses"], peak=r["peak"],
+               warm=warm, tokens_per_s=tokens / warm, counts=r["counts"])
+    log(f"  {cfg.name} train step ({torch.cuda.get_device_name(0)}; host "
+        f"clock ending in synchronize): walls {[round(w, 4) for w in r['walls']]}"
+        f" s (first {r['walls'][0]:.4f}, warm {warm:.4f}), "
+        f"{tokens / warm:,.0f} tokens/s warm, peak device memory "
+        f"{r['peak'] / 2**30:.2f} GiB, losses {r['losses']}, launches "
+        f"{r['counts']}")
+    del state, r, step_fn
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=TRAIN_HOLD_LAYERS)
+    out["microbatches"] = hold_train_microbatches(cut)
+    out["summa"] = hold_train_summa(cut)
+    out["attention"] = hold_chunked_attention(cfg)
+    out["cli"] = phase_train_cli()
+    out["wall"] = time.perf_counter() - t_phase
+    log(f"  [train] took {out['wall']:.1f} s")
     return out
 
 
@@ -3554,6 +3938,7 @@ def main() -> None:
             f"{r['peak'] / 2**30:.2f} GiB, {r['launches']} flash_attention "
             f"launches, greedy {r['greedy']}")
     serve = phase_serve()
+    train = phase_train()
     fixed, cont, quant = serve["fixed"], serve["continuous"], serve["kv_quant"]
     for label in ("first", "warm"):
         pre, dec = fixed[label]["walls"]
@@ -3578,6 +3963,12 @@ def main() -> None:
         f" tok/s ({pre:.4f} s), decode "
         f"{RG_SERVE_BATCH * (RG_SERVE_GEN - 1) / dec:,.0f} tok/s "
         f"({dec:.4f} s), peak {serve['rg']['peak'] / 2**30:.2f} GiB")
+    log(f"  {LM_ARCH} train step, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"{TRAIN_MICRO} microbatches (host clock ending in synchronize): "
+        f"first {train['walls'][0]:.4f} s, warm {train['warm']:.4f} s, "
+        f"{train['tokens_per_s']:,.0f} tokens/s, peak "
+        f"{train['peak'] / 2**30:.2f} GiB, launches {train['counts']}; "
+        f"[train] {train['wall']:.1f} s")
     log(f"  {XL_ARCH} chunkwise mLSTM forward: warm "
         f"{recurrent['xl_chunked']['wall']:.3f} s, peak "
         f"{recurrent['xl_chunked']['peak'] / 2**30:.2f} GiB")

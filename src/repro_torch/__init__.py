@@ -20,7 +20,10 @@ for module (``repro_torch/core/plan.py`` is the port of
   stationary routes of mask plans;
 * the block-sparse tensor front-end — ``contract``, ``contract_chain``
   and ``BlockSparseTensor`` (``core.contract``) — over the digest-keyed
-  executable cache of ``core.summa`` (``compiled=True``).
+  executable cache of ``core.summa`` (``compiled=True``);
+* the MoE, recurrent and frontend families, serving (``serve``,
+  ``launch.serve``) and training (``train``, ``launch.train``, with
+  ``models.chunked_attention``).
 
 Each of the reference's four Pallas kernels is a hand-written CUDA kernel
 for Hopper (``csrc/``).  Entry points run on ``cuda`` unless the caller

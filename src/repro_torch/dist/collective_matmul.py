@@ -27,6 +27,16 @@ planned schedule then prunes dead K panels; the xla path zeroes masked
 blocks so every strategy computes the same masked product.  All
 strategies accumulate in fp32 and return the activation dtype, so
 swapping them changes only the schedule, not the arithmetic contract.
+
+Gradients.  The xla route differentiates through ``matmul_f32``.  The
+engine routes run as ``_EngineMatmul``, an autograd Function whose
+backward runs two more engine products with the same schedule: dX =
+dY·Wᵀ (under Wᵀ's block mask) and dW = Xᵀ·dY (the weight's masked
+blocks zeroed), so the paper's algorithm runs in the backward too, as the
+reference's autodiff of its ``shard_map`` program does.  Autograd never
+traces the executors (their in-place accumulation and the ``Grid``
+collectives are not autograd-aware): every rank holds whole operands,
+runs the same products and so gets the whole gradient.
 """
 from __future__ import annotations
 
@@ -52,6 +62,33 @@ def _ring_eligible(ctx, x2: torch.Tensor, w: torch.Tensor) -> bool:
     )
 
 
+class _EngineMatmul(torch.autograd.Function):
+    """``mm(x2, w)`` on the engine, with an engine backward."""
+
+    @staticmethod
+    def forward(ctx, x2, w, mm, w_mask, strategy, tune):
+        ctx.save_for_backward(x2, w)
+        ctx.route = (mm, w_mask, strategy, tune)
+        return mm(x2, w, b_mask=w_mask, strategy=strategy, tune=tune)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w = ctx.saved_tensors
+        mm, w_mask, strategy, tune = ctx.route
+        dy = dy.to(x2.dtype).contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt_mask = None if w_mask is None else np.asarray(w_mask).T
+            dx = mm(dy, w.t().contiguous(), b_mask=wt_mask,
+                    strategy=strategy, tune=tune)
+        if ctx.needs_input_grad[1]:
+            dw = mm(x2.t().contiguous(), dy, strategy=strategy, tune=tune)
+            if w_mask is not None:
+                dw = _mask_weight(dw, w_mask)
+            dw = dw.to(w.dtype)
+        return dx, dw, None, None, None, None
+
+
 def project(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -72,7 +109,7 @@ def project(
     if ctx.matmul_strategy == "xla" or not ctx.has_grid or ctx.pure_dp:
         if w_mask is not None:
             w = _mask_weight(w, w_mask)
-        return matmul_f32(x, w).to(x.dtype)
+        return matmul_f32(x, w, out_dtype=x.dtype)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     strategy = ctx.matmul_strategy
@@ -105,7 +142,6 @@ def project(
             "ported yet (ROADMAP A8)"
         )
     summa_strategy = None if strategy == "summa" else strategy
-    out = ctx.matmul()(
-        x2, w, b_mask=w_mask, strategy=summa_strategy, tune=tune
-    )
+    out = _EngineMatmul.apply(x2, w, ctx.matmul(), w_mask, summa_strategy,
+                              tune)
     return out.reshape(*lead, w.shape[-1])

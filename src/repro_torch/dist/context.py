@@ -3,12 +3,12 @@
 The port of ``repro.dist.context``.  Every model entry point takes a
 ``ParallelCtx``.  It bundles the device grid with the axis roles (which
 grid axis acts as data parallel, which as tensor parallel) and the
-feature switches of the reference that the ported modules read (matmul
-strategy, attention implementation, mLSTM chunking, int8 KV-cache
-quantization for serving (``kv_quant``, read by ``serve.engine``),
-sLSTM replication, pure data parallelism, static weight sparsity).  The
-reference's switch of an unported module (ZeRO-1: ROADMAP A10) is not
-a field here.  Model code never touches the grid directly; it goes
+feature switches of the reference (matmul strategy, attention
+implementation, mLSTM chunking, ZeRO-1 (``zero1``, read by
+``train.train_step``'s sharding specs; it changes no number), int8
+KV-cache quantization for serving (``kv_quant``, read by
+``serve.engine``), sLSTM replication, pure data parallelism, static
+weight sparsity).  Model code never touches the grid directly; it goes
 through ``ctx.wsc`` and ``repro_torch.dist.collective_matmul.project``.
 
 The port holds a ``core.grid.Grid`` (or ``None``) where the reference
@@ -58,6 +58,9 @@ class ParallelCtx:
     # mLSTM blocks run the chunkwise form at this chunk length (None: the
     # quadratic parallel form over the whole sequence)
     mlstm_chunk: int | None = None
+    # ZeRO-1: parameters replicated over the FSDP axis, optimizer state
+    # sharded over it (spec tuples only: every rank holds whole tensors)
+    zero1: bool = False
     # serving caches hold K/V as int8 with per-(token, head) fp32 scales
     kv_quant: bool = False
     # sLSTM recurrence kept tp-replicated (one sharding constraint, which

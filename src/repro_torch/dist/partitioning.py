@@ -19,10 +19,12 @@ names, or ``None``): the reference's ``PartitionSpec`` entries for the
 same leaf, less the leading ``None`` of the scan axis.  ``param_specs``
 proposes specs from these rules; ``_validate_spec`` makes them safe for
 a concrete grid (a dim that does not divide its axis-group size falls
-back to replicated); ``param_shardings`` composes both.  The
-reference's ``fsdp=False`` / ``tp=False`` filters (ZeRO-1 mirrors,
-pure data parallelism) serve its trainer and come with it (ROADMAP
-A10).
+back to replicated); ``param_shardings`` composes both over a mapping of
+names to shapes, with ``fsdp=False`` (ZeRO-1 parameters) and
+``tp=False`` (pure data parallelism) dropping the respective axes
+(``_filter_spec``).  ``launch.serve`` calls it with the model's
+parameters, ``train.train_step.state_shardings`` with the reference's
+stacked tree.
 
 The port keeps every weight whole on every rank until the sharding
 rules of ROADMAP A8 land: ``launch.serve`` computes these specs on its
@@ -35,7 +37,8 @@ import math
 
 from torch import nn
 
-__all__ = ["param_specs", "param_shardings", "_validate_spec"]
+__all__ = ["param_specs", "param_shardings", "_filter_spec",
+           "_leaf_spec", "_validate_spec"]
 
 _FSDP_AXIS = "data"
 _TP_AXIS = "model"
@@ -47,7 +50,7 @@ _EXPERT_DOWN_KEYS = ("w_down",)  # (..., E, d_ff, d_model)
 
 
 def _leaf_spec(name: str, shape) -> tuple:
-    last = name.rsplit(".", 1)[-1]
+    last = name.replace("/", ".").rsplit(".", 1)[-1]
     nd = len(shape)
     lead = [None] * max(nd - 2, 0)
 
@@ -69,6 +72,32 @@ def param_specs(model: nn.Module) -> dict[str, tuple]:
     """Parameter name -> spec tuple (one entry per dimension)."""
     return {name: _leaf_spec(name, p.shape)
             for name, p in model.named_parameters()}
+
+
+def _filter_spec(spec: tuple, *, fsdp: bool, tp: bool) -> tuple:
+    """Drop the FSDP and/or TP axis from a spec (ZeRO-1 / pure-DP)."""
+
+    def keep(axis):
+        if axis == _FSDP_AXIS and not fsdp:
+            return False
+        if axis == _TP_AXIS and not tp:
+            return False
+        return True
+
+    out = []
+    for entry in spec:
+        if entry is None:
+            out.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        kept = tuple(a for a in axes if keep(a))
+        if not kept:
+            out.append(None)
+        elif len(kept) == 1:
+            out.append(kept[0])
+        else:
+            out.append(kept)
+    return tuple(out)
 
 
 def _validate_spec(spec: tuple, shape: tuple[int, ...], grid) -> tuple:
@@ -109,9 +138,15 @@ def _validate_spec(spec: tuple, shape: tuple[int, ...], grid) -> tuple:
     return tuple(out)
 
 
-def param_shardings(model: nn.Module, grid) -> dict[str, tuple]:
-    """Parameter name -> the spec it takes on ``grid``: ``param_specs``
-    with indivisible dims degraded to replicated per ``_validate_spec``."""
-    shapes = {name: tuple(p.shape) for name, p in model.named_parameters()}
-    return {name: _validate_spec(spec, shapes[name], grid)
-            for name, spec in param_specs(model).items()}
+def param_shardings(shapes, grid, *, fsdp: bool = True,
+                    tp: bool = True) -> dict[str, tuple]:
+    """Parameter name -> the spec it takes on ``grid``, for ``shapes``
+    (name -> shape; names joined by ``.`` or ``/``, unstacked or with the
+    units stacked as the reference's tree holds them): the ``_leaf_spec``
+    rules less the axes ``fsdp=False`` (ZeRO-1 parameter mirrors) or
+    ``tp=False`` (pure data parallelism) drop, with indivisible dims
+    degraded to replicated per ``_validate_spec``."""
+    return {name: _validate_spec(
+                _filter_spec(_leaf_spec(name, shape), fsdp=fsdp, tp=tp),
+                tuple(shape), grid)
+            for name, shape in shapes.items()}

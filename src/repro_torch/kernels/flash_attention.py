@@ -112,23 +112,32 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The reference's ``flash_attention_ref`` math (fp32 scores of the
     scaled queries, masked, softmax, times V) written as ``exp(s - max)``
     normalised after the product with V, so that a row with no live key
-    gives 0 and not NaN.  The scores are updated in place: one fp32
-    buffer of B·H·Sq·Sk elements is the peak (8.6 GB at B = 4, H = 32,
-    S = 4096), freed on return.
+    gives 0 and not NaN.  Outside autograd the scores are updated in
+    place: one fp32 buffer of B·H·Sq·Sk elements is the peak (8.6 GB at
+    B = 4, H = 32, S = 4096), freed on return.  While autograd records
+    (an operand requires grad) the same ops run out of place, and the row
+    maximum is a constant of the graph (the softmax does not depend on
+    it), so the gradient is the reference's.
     """
     _check_shapes(q, k, v)
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = h // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    records = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     qg = (q.float() * scale).reshape(b, hkv, g, sq, dh)
     s = torch.matmul(qg, k.float().unsqueeze(2).transpose(-1, -2))
     del qg
-    s.masked_fill_(~_live_mask(sq, sk, causal, window, q.device),
-                   float("-inf"))
-    m = s.amax(dim=-1, keepdim=True)
+    dead = ~_live_mask(sq, sk, causal, window, q.device)
+    if records:
+        s = s.masked_fill(dead, float("-inf"))
+    else:
+        s.masked_fill_(dead, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True).detach()
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
-    p = s.sub_(m).exp_()  # exp(-inf) = 0 on masked keys
+    # exp(-inf) = 0 on masked keys
+    p = (s - m).exp() if records else s.sub_(m).exp_()
     denom = p.sum(dim=-1, keepdim=True)
     out = torch.matmul(p, v.float().unsqueeze(2))
     del s, p

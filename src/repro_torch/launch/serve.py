@@ -76,10 +76,11 @@ def param_bytes(params, grid) -> tuple[int, int]:
     ``param_shardings`` on ``grid``).  The port keeps the weights whole
     on every rank until the sharding rules land (ROADMAP A8) and slices
     nothing."""
-    specs = param_shardings(params, grid)
+    named = dict(params.named_parameters())
+    specs = param_shardings({n: p.shape for n, p in named.items()}, grid)
     shape = dict(grid.shape)
     whole = shard = 0
-    for name, p in params.named_parameters():
+    for name, p in named.items():
         n = p.numel() * p.element_size()
         whole += n
         for entry in specs[name]:

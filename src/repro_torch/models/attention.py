@@ -3,9 +3,9 @@
 The port of ``repro.models.attention``.  ``use_kernel=True`` runs the
 hand-written flash-attention CUDA kernel through ``kernels.ops`` (the
 plain version on CPU tensors); otherwise attention is the plain PyTorch
-version, which materialises the fp32 scores.  The reference's
-``attention_impl="chunked"`` (``models/chunked_attention.py``) is not
-ported yet and raises.  M-RoPE (``cfg.rope == "mrope"``) takes positions
+version, which materialises the fp32 scores, or, with
+``ctx.attention_impl == "chunked"``, ``models.chunked_attention`` (the
+training route: tiled, with its own backward).  M-RoPE (``cfg.rope == "mrope"``) takes positions
 of shape (B, S, 3).
 """
 from __future__ import annotations
@@ -17,6 +17,7 @@ from repro_torch.dist.context import ParallelCtx
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.models import layers as L
+from repro_torch.models.chunked_attention import chunked_attention
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["Attention", "attention", "init_attention"]
@@ -79,10 +80,7 @@ def attention(
     if use_kernel:
         o = kops.flash_attention(qt, kt, vt, causal=cfg.causal, window=window)
     elif ctx.attention_impl == "chunked":
-        raise NotImplementedError(
-            "attention_impl='chunked' (models/chunked_attention.py) is not "
-            "ported yet (ROADMAP A9c)"
-        )
+        o = chunked_attention(qt, kt, vt, causal=cfg.causal, window=window)
     else:
         o = flash_attention_plain(qt, kt, vt, causal=cfg.causal,
                                   window=window)

@@ -8,6 +8,15 @@ they are.  A bf16 leaf arrives as an ``ml_dtypes.bfloat16`` array, which
 ``torch.from_numpy`` refuses; it goes through float32, which holds every
 bf16 value exactly.
 
+``params_tree`` gives the port's parameters in the reference's tree
+(units stacked on a leading axis, leaves keyed by the reference's paths)
+and ``load_params_tree`` copies such a tree back, unstacking the units;
+``train_state_from_reference`` and ``train_state_to_numpy`` carry a
+whole train state (``train.train_step``'s ``params``, ``opt`` and
+``step``: AdamW's ``master``/``m``/``v`` or Adafactor's ``vr``/``vc``/
+``v``, which the port keeps in the reference's tree already) across in
+either direction.
+
 ``cache_from_reference`` and ``cache_to_numpy`` carry a serving cache
 (``serve.engine``'s tree of ``units`` / ``tail`` / ``pos``) across the
 same way, leaf by leaf with the same tree: every value exactly, the
@@ -20,9 +29,12 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LM
+from repro_torch.train.tree import leaves, tree_map, unflatten
 
 __all__ = ["cache_from_reference", "cache_to_numpy", "load_leaves",
-           "params_from_reference", "reference_leaves"]
+           "load_params_tree", "param_groups", "params_from_reference",
+           "params_tree", "reference_leaves", "train_state_from_reference",
+           "train_state_to_numpy"]
 
 
 def reference_leaves(np_params: dict, cfg: ModelConfig) -> dict:
@@ -124,3 +136,102 @@ def cache_to_numpy(cache):
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def param_groups(model: LM) -> dict[str, list]:
+    """The reference's leaf path -> the port's parameters that form it:
+    the U parameters of a unit leaf in unit order (``units.<i>.b0.attn.
+    wq.w`` for ``units/b0/attn/wq/w``), one parameter elsewhere."""
+    groups: dict[str, list] = {}
+    for name, param in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "units":
+            parts = parts[:1] + parts[2:]  # drop the unit index
+        groups.setdefault("/".join(parts), []).append(param)
+    return groups
+
+
+def _is_unit(path: str) -> bool:
+    return path.startswith("units/")
+
+
+def params_tree(model: LM, grads: bool = False) -> dict:
+    """The parameters (or, with ``grads``, their gradients in fp32, zero
+    where a parameter has none) in the reference's tree: each unit leaf
+    stacked on a leading axis of the units (a new tensor), every other
+    leaf the parameter itself, detached."""
+
+    def leaf(p):
+        if not grads:
+            return p.detach()
+        return (p.grad.float() if p.grad is not None
+                else torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device))
+
+    flat = {}
+    for path, params in param_groups(model).items():
+        if _is_unit(path):
+            flat[path] = torch.stack([leaf(p) for p in params])
+        else:
+            flat[path] = leaf(params[0])
+    return unflatten(flat)
+
+
+@torch.no_grad()
+def load_params_tree(model: LM, tree) -> LM:
+    """Copy a tree of the reference's layout (tensors or numpy arrays,
+    units stacked) into ``model``'s parameters; returns ``model``.
+    Raises ``ValueError`` if the paths or a shape differ."""
+    flat = dict(leaves(tree))
+    groups = param_groups(model)
+    if set(flat) != set(groups):
+        raise ValueError(
+            f"parameter trees differ: only in the tree "
+            f"{sorted(set(flat) - set(groups))}, only in the model "
+            f"{sorted(set(groups) - set(flat))}"
+        )
+    for path, params in groups.items():
+        src = flat[path]
+        if not isinstance(src, torch.Tensor):
+            src = torch.from_numpy(np.array(src, dtype=np.float32))
+        parts = list(src) if _is_unit(path) else [src]
+        if len(parts) != len(params) or any(
+                tuple(a.shape) != tuple(p.shape)
+                for a, p in zip(parts, params)):
+            raise ValueError(
+                f"{path}: tree shape {tuple(src.shape)} does not fit "
+                f"{len(params)} parameter(s) of shape "
+                f"{tuple(params[0].shape)}")
+        for a, p in zip(parts, params):
+            p.copy_(a)
+    return model
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device,
+                                                           torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def train_state_from_reference(np_state: dict, cfg: ModelConfig,
+                               device="cuda", *, ep: int = 1) -> dict:
+    """The port's train state holding the reference's (given as numpy
+    arrays, ``jax.tree.map(np.asarray, state)``): ``params`` an ``LM``
+    whose parameters require grad, ``opt`` the same tree of tensors (every
+    value exactly), ``step`` an int32 scalar tensor."""
+    model = params_from_reference(np_state["params"], cfg, device, ep=ep)
+    return {
+        "params": model.requires_grad_(True),
+        "opt": tree_map(lambda a: _tensor(a, device), np_state["opt"]),
+        "step": _tensor(np.asarray(np_state["step"], np.int32), device),
+    }
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """A train state in the reference's tree as numpy arrays (bf16 as
+    float32, which holds it exactly)."""
+    tree = {"params": params_tree(state["params"]), "opt": state["opt"],
+            "step": state["step"]}
+    return cache_to_numpy(tree)

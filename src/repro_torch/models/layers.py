@@ -7,8 +7,10 @@ parameter path of the port equals the reference's pytree path.  Each
 module allocates its parameters on construction and draws them in
 ``reset_parameters(generator)`` from the reference's distributions;
 functions (``rmsnorm``, ``dense``, ...) apply them, as in the
-reference.  Parameters do not require gradients: the port runs the
-forward only (training is ROADMAP A10).
+reference.  Parameters are created frozen (``requires_grad=False``), so
+the inference paths record no graph; the train state
+(``train.train_step.make_train_state``) turns them on with
+``requires_grad_()``.
 """
 from __future__ import annotations
 
@@ -52,22 +54,63 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (2-D) as exact products summed in fp32, returned in fp32.
+
+    On the card a pair of one narrower dtype goes to one GEMM with an fp32
+    output (``torch.mm(..., out_dtype=torch.float32)``).  A pair of mixed
+    dtypes (an fp32 cotangent beside a bf16 weight) is widened to fp32
+    first, so no operand is rounded; so is every pair on the CPU, which
+    has no such kernel.
+    """
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.mm(a, b)
+    if not a.is_cuda or a.dtype != b.dtype:
+        return torch.mm(a.float(), b.float())
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``_mm_f32`` cast to ``out_dtype``, with a derivative
+    (``torch.mm(..., out_dtype=...)`` has none): the gradient of each
+    operand is again a product summed in fp32 of the cotangent, in the
+    output's dtype, and the other operand, returned in that operand's
+    dtype, as the reference's transpose of a
+    ``preferred_element_type=float32`` product is."""
+
+    @staticmethod
+    def forward(ctx, x2, w, out_dtype):
+        ctx.save_for_backward(x2, w)
+        return _mm_f32(x2, w).to(out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _mm_f32(g, w.t()).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _mm_f32(x2.t(), g).to(w.dtype)
+        return dx, dw, None
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor, *,
+               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``x @ w`` (x (..., K), w (K, N)) as exact products summed in fp32,
-    returned in fp32: the reference's ``preferred_element_type=float32``.
+    returned in ``out_dtype``: the reference's
+    ``preferred_element_type=float32``, then ``.astype(out_dtype)``.
 
     On the card a bf16 pair goes to one bf16 GEMM with an fp32 output
     (``torch.mm(..., out_dtype=torch.float32)``); on the CPU, which has
-    no such kernel, the operands are widened first.
+    no such kernel, the operands are widened first.  Differentiable: the
+    backward runs two more such products (``_MatmulF32``), with the
+    cotangent in ``out_dtype``: a bf16 one keeps the bf16 GEMM, an fp32
+    one (the tied head's logits) widens the other operand.
     """
     if x.dtype == torch.float32 and w.dtype == torch.float32:
-        return torch.matmul(x, w)
+        return torch.matmul(x, w).to(out_dtype)
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x2.is_cuda:
-        y = torch.mm(x2, w, out_dtype=torch.float32)
-    else:
-        y = torch.mm(x2.float(), w.float())
+    y = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w, out_dtype)
     return y.reshape(*lead, w.shape[-1])
 
 

@@ -5,8 +5,10 @@ the repeating block pattern] -> tail -> norm -> head``.  The reference scans the
 stacked unit parameters with ``jax.lax.scan`` under remat; here ``LM``
 holds one module per unit (``units.<i>.b<j>``, so every parameter path
 is the reference's with the scan axis unstacked) and ``forward`` loops
-over them in Python.  Remat has no meaning in an inference forward and
-stays with training (ROADMAP A10).
+over them in Python.  Remat (the reference's ``jax.checkpoint`` of each
+unit) is ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` of
+each unit, applied only while autograd records: an inference forward
+runs as it would without it.
 
 An attention block holds a mixture of experts (``models.moe``) in place
 of its FFN when the config has one (``cfg.moe``: mixtral-8x7b,
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.dist.context import ParallelCtx
 from repro_torch.models import layers as L
@@ -162,6 +165,13 @@ def embed_inputs(model: LM, inputs: dict, cfg: ModelConfig) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
+def _records(model: LM, x: torch.Tensor) -> bool:
+    """Whether autograd records this forward: grad mode is on and the
+    input or a parameter requires grad."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(p.requires_grad for p in model.parameters()))
+
+
 def forward(
     model: LM,
     inputs: dict,
@@ -169,6 +179,7 @@ def forward(
     ctx: ParallelCtx,
     *,
     use_kernel: bool = False,
+    remat: bool = True,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V) fp32, aux_loss scalar).
 
@@ -176,17 +187,31 @@ def forward(
     flash-attention kernel (one launch per attention block on a CUDA
     model) and every MoE block's expert GEMMs through the grouped-GEMM
     kernel (three launches per layer); recurrent blocks have no kernel
-    of their own."""
+    of their own.  ``remat=True`` recomputes each unit in the backward
+    instead of keeping its activations, when autograd records."""
     x = embed_inputs(model, inputs, cfg)
     positions = inputs.get("positions")
     if positions is None:
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
+
+    def unit_fn(x, unit):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for j, kind in enumerate(cfg.block_pattern):
+            x, a = apply_block(kind, unit[f"b{j}"], x, positions, cfg, ctx,
+                               use_kernel=use_kernel)
+            aux = aux + a
+        return x, aux
+
+    remat = remat and _records(model, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    blocks = [(kind, unit[f"b{j}"]) for unit in model.units
-              for j, kind in enumerate(cfg.block_pattern)]
-    blocks += list(zip(cfg.tail, model.tail))
-    for kind, p in blocks:
+    for unit in model.units:
+        if remat:
+            x, a = checkpoint(unit_fn, x, unit, use_reentrant=False)
+        else:
+            x, a = unit_fn(x, unit)
+        aux = aux + a
+    for kind, p in zip(cfg.tail, model.tail):
         x, a = apply_block(kind, p, x, positions, cfg, ctx,
                            use_kernel=use_kernel)
         aux = aux + a
@@ -211,10 +236,12 @@ def loss_fn(
     batch: dict,
     cfg: ModelConfig,
     ctx: ParallelCtx,
+    *,
+    remat: bool = True,
 ) -> tuple[torch.Tensor, dict]:
     """Cross-entropy (+ MoE aux + z-loss).  ``batch`` must contain
     ``labels``; a negative label masks its position."""
-    logits, aux = forward(model, batch, cfg, ctx)
+    logits, aux = forward(model, batch, cfg, ctx, remat=remat)
     labels = batch["labels"]
     # labels may cover the token tail only (a prefix without labels)
     logits = logits[:, -labels.shape[1]:, :]

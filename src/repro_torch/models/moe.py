@@ -178,8 +178,16 @@ def _dispatch_compute_combine(h, topi, gates, w_gate, w_up, w_down, *,
     (ep+1)·E_loc)`` of the stacked weights (views), dispatch -> expert
     GEMMs -> combine, then the sum over ``tp_axis`` (the reference's
     ``psum``).  A context without a tp axis is one rank."""
+    ranks = grid.axis_size(tp_axis) if tp_axis is not None else 1
+    if ranks > 1 and torch.is_grad_enabled() and (
+            h.requires_grad or w_gate.requires_grad):
+        # the partial outputs' sum is not autograd-aware, and each rank
+        # would need the whole dh: a gradient here would be silently wrong
+        raise NotImplementedError(
+            "gradients through expert parallelism (Grid.all_reduce over "
+            f"{ranks} ranks) are not ported (ROADMAP A10)")
     ep = grid.axis_index(tp_axis) if tp_axis is not None else 0
-    e_loc = e_pad // (grid.axis_size(tp_axis) if tp_axis is not None else 1)
+    e_loc = e_pad // ranks
     mine = slice(ep * e_loc, (ep + 1) * e_loc)
     y = _dispatch_compute_combine_local(
         h, topi, gates, w_gate[mine], w_up[mine], w_down[mine], ep=ep,

@@ -1,0 +1,195 @@
+"""Optimizers: AdamW (fp32 master + moments) and Adafactor (factored).
+
+The port of ``repro.train.optimizer``: pure functions over trees of
+tensors (``train.tree``), no ``torch.optim``.  AdamW keeps an fp32
+master copy so bf16 params don't lose small updates.  Adafactor stores
+row/column-factored second moments and no master/first moment.  Both
+include global-norm clipping and a linear-warmup + cosine schedule, and
+compute the schedule and bias corrections as fp32 tensors from the step
+tensor, as the reference does (no host sync).
+
+The trees are the reference's: the train step hands the optimizer the
+units' parameters and gradients stacked on a leading unit axis
+(``units/b0/attn/wq/w`` of shape ``(U, d_in, d_out)``), so the rules
+that read a leaf's rank or reduce over a whole leaf see the reference's
+leaf: a unit's norm scale ``(U, d)`` is weight-decayed by AdamW and
+factored by Adafactor (its ``vc`` shared by the units), and Adafactor's
+RMS update clip is taken over the whole stacked leaf.
+
+``update(grads, opt_state, params, step) -> (new_params, opt_state)``
+updates ``opt_state`` in place (each slot is replaced leaf by leaf, so
+the old and new state never coexist in memory) and returns new params;
+``grads`` are read, not written.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.train.tree import at, leaves, tree_map
+
+__all__ = ["OptimizerConfig", "Optimizer", "make_optimizer"]
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"  # "adamw" | "adafactor"
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    # adafactor
+    decay_rate: float = 0.8
+    af_eps: float = 1e-30
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    init: Callable[[Any], Any]
+    update: Callable[[Any, Any, Any, Any], tuple[Any, Any]]
+    # update(grads, opt_state, params, step) -> (new_params, opt_state)
+
+
+def _step_f32(step) -> torch.Tensor:
+    return torch.as_tensor(step).to(torch.float32)
+
+
+def _schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
+    step = _step_f32(step)
+    warm = (step + 1.0) / max(cfg.warmup_steps, 1)
+    prog = torch.clamp(
+        (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1),
+        0.0,
+        1.0,
+    )
+    cos = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * 0.5 * (
+        1 + torch.cos(math.pi * prog))
+    return cfg.peak_lr * torch.minimum(warm, cos)
+
+
+def _global_norm(tree) -> torch.Tensor:
+    total = 0
+    for _, leaf in leaves(tree):
+        total = total + torch.sum(torch.square(leaf.float()))
+    return torch.sqrt(total)
+
+
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / (norm + 1e-12), max=1.0)
+
+
+def _set(tree, path: str, value) -> None:
+    parent, _, key = path.rpartition("/")
+    node = at(tree, parent)
+    if isinstance(node, list):
+        node[int(key)] = value
+    else:
+        node[key] = value
+
+
+def make_optimizer(cfg: OptimizerConfig) -> Optimizer:
+    if cfg.name == "adamw":
+        return _make_adamw(cfg)
+    if cfg.name == "adafactor":
+        return _make_adafactor(cfg)
+    raise ValueError(cfg.name)
+
+
+# ---------------------------------------------------------------- AdamW
+
+
+def _make_adamw(cfg: OptimizerConfig) -> Optimizer:
+    def init(params):
+        return {
+            "master": tree_map(lambda p: p.detach().float().clone(), params),
+            "m": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                          params),
+            "v": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                          params),
+        }
+
+    def update(grads, state, params, step):
+        scale = _clip_scale(_global_norm(grads), cfg.clip_norm)
+        lr = _schedule(cfg, step)
+        t = _step_f32(step) + 1.0
+        bc1 = 1.0 - cfg.b1 ** t
+        bc2 = 1.0 - cfg.b2 ** t
+        new_params = tree_map(lambda p: None, params)
+        for path, g in leaves(grads):
+            g = g.float() * scale
+            m = cfg.b1 * at(state["m"], path) + (1 - cfg.b1) * g
+            v = cfg.b2 * at(state["v"], path) + (1 - cfg.b2) * g * g
+            del g
+            master = at(state["master"], path)
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            if master.ndim >= 2:  # decoupled weight decay on matrices only
+                delta = delta + cfg.weight_decay * master
+            master = master - lr * delta
+            del delta
+            for slot, value in (("m", m), ("v", v), ("master", master)):
+                _set(state[slot], path, value)
+            _set(new_params, path, master.to(at(params, path).dtype))
+        return new_params, state
+
+    return Optimizer(init=init, update=update)
+
+
+# ------------------------------------------------------------- Adafactor
+
+
+def _make_adafactor(cfg: OptimizerConfig) -> Optimizer:
+    def init(params):
+        def leaf_state(p):
+            f32 = dict(dtype=torch.float32, device=p.device)
+            if p.ndim >= 2:
+                return {
+                    "vr": torch.zeros(p.shape[:-1], **f32),
+                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32),
+                }
+            return {"v": torch.zeros(p.shape, **f32)}
+
+        return {"v": tree_map(leaf_state, params)}
+
+    def update(grads, state, params, step):
+        scale = _clip_scale(_global_norm(grads), cfg.clip_norm)
+        lr = _schedule(cfg, step)
+        t = _step_f32(step) + 1.0
+        beta2 = 1.0 - t ** (-cfg.decay_rate)
+        new_params = tree_map(lambda p: None, params)
+        for path, g in leaves(grads):
+            g = g.float() * scale
+            p = at(params, path)
+            v = at(state["v"], path)
+            g2 = g * g + cfg.af_eps
+            if p.ndim >= 2:
+                vr = beta2 * v["vr"] + (1 - beta2) * g2.mean(dim=-1)
+                vc = beta2 * v["vc"] + (1 - beta2) * g2.mean(dim=-2)
+                # rank-1 reconstruction of the second moment
+                denom = vr[..., :, None] * vc[..., None, :]
+                denom = denom / torch.clamp(
+                    vr.mean(dim=-1)[..., None, None], min=cfg.af_eps)
+                upd = g / torch.sqrt(denom + cfg.af_eps)
+                nv = {"vr": vr, "vc": vc}
+            else:
+                vv = beta2 * v["v"] + (1 - beta2) * g2
+                upd = g / torch.sqrt(vv + cfg.af_eps)
+                nv = {"v": vv}
+            del g, g2
+            # update clipping by RMS (Adafactor's d=1.0 rule)
+            rms = torch.sqrt(torch.mean(upd * upd) + 1e-12)
+            upd = upd / torch.clamp(rms, min=1.0)
+            if p.ndim >= 2:
+                upd = upd + cfg.weight_decay * p.float()
+            _set(new_params, path, (p.float() - lr * upd).to(p.dtype))
+            _set(state["v"], path, nv)
+        return new_params, state
+
+    return Optimizer(init=init, update=update)

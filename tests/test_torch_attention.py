@@ -551,8 +551,17 @@ def test_chunked_attention_and_mrope_raise():
                        device="cpu")
     x = torch.zeros((1, 8, cfg.d_model), dtype=torch.bfloat16)
     pos = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A9c"):
-        attention(p, x, pos, cfg, ParallelCtx(None, attention_impl="chunked"))
+    # the chunked attention (A9c), which raised here until it was ported,
+    # computes the plain route's attention (held against the reference in
+    # tests/test_torch_chunked_attention.py)
+    xr = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(1, 8, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    posr = torch.arange(8)[None]
+    want = attention(p, xr, posr, cfg, ParallelCtx(None)).float()
+    got = attention(p, xr, posr, cfg,
+                    ParallelCtx(None, attention_impl="chunked")).float()
+    assert torch.allclose(got, want, rtol=0,
+                          atol=2e-2 * float(want.abs().max()))
     # the kernel flag wins over the implementation switch, as in the
     # reference
     attention(p, x, pos, cfg, ParallelCtx(None, attention_impl="chunked"),
