@@ -216,7 +216,26 @@ raises, so the script exits non-zero:
    ``launch.train.main --smoke`` on the card: the loss falls over 40
    steps, ``--fail-at-step 16`` exits 42 and ``--resume`` ends within
    1e-4 of the uninterrupted run, and recurrentgemma-9b gives finite
-   losses.
+   losses;
+
+   [dryrun] the cost analysis (``analysis.cost``) against the dry run
+   (``launch.dryrun``): four calls at full width, each counted on the
+   card under the counter and by the dry run of the same call on
+   ``meta`` — (a) llama3.2-1b's ``serve.engine.prefill`` of 4 x 4096
+   tokens (16 ``flash_attention`` launches), (b) its train step at
+   [train]'s shape (8 x 4096 in 2 microbatches, AdamW, chunked
+   attention, remat), (c) mixtral-8x7b's forward cut to 1 layer on 1 x
+   4096 tokens with ``use_kernel=True`` (3 ``grouped_gemm``, 1
+   ``flash_attention``), (d) the block-sparse product at N = 32768, fill
+   0.3 (one ``bsmm``), and ``tiled_matmul`` alone at phase 7's panel
+   shape.  FLOP, bytes and collective bytes must be equal, each kernel's
+   counted FLOP equal the figure phase 7's formula gives at its calls,
+   and the dry run's peak above its arguments within 15 % of
+   ``torch.cuda.max_memory_allocated``'s above what was allocated on
+   entry (stats reset before the call).  For (a) and (b) it prints the
+   uncounted warm wall, the bound on the card and its dominant term,
+   bound / wall and model FLOP / (wall x the bf16 peak).  The card's
+   peaks come from ``analysis.cost.DEFAULT_HW``.
 
 Every product runs on an empty autotune cache, so its launch counts do
 not depend on the cache, except the two that check the cache: the end of
@@ -249,6 +268,11 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import DistributedMatmul, Grid  # noqa: E402
+from repro_torch.analysis.cost import (  # noqa: E402
+    DEFAULT_HW,
+    analyze_step,
+    roofline,
+)
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.configs.paper_mm import (  # noqa: E402
     BENCH_CONFIGS,
@@ -312,6 +336,7 @@ from repro_torch.kernels.tiled_matmul import (  # noqa: E402
 )
 from repro_torch.kernels import bsmm as bsmm_kernel  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.launch import dryrun as launch_dryrun  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import attention as attention_layer  # noqa: E402
@@ -322,6 +347,7 @@ from repro_torch.models import recurrent as rec  # noqa: E402
 from repro_torch.models.chunked_attention import (  # noqa: E402
     chunked_attention,
 )
+from repro_torch.models.config import ShapeConfig  # noqa: E402
 from repro_torch.models.model import LM, forward, init_model  # noqa: E402
 from repro_torch.sched import abstract_summa_config, tune_plan  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
@@ -473,10 +499,11 @@ LM_BF16_PAIR_REL, LM_BF16_PAIR_AGREE = 0.08, 0.85
 #: agreement (LM_BF16_PAIR_AGREE), and witness forwards with one kernel
 #: each show which kernel the distance comes from.
 BF16_ULP_RTOL, BF16_RMS_ATOL = 2.0 ** -7, 2e-2
-#: published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet)
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12  # dense tensor cores
-PEAK_HBM_BYTES_PER_S = 3.35e12
+#: published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet),
+#: from the port's one source of them, ``analysis.cost.DEFAULT_HW``
+PEAK_FP32_FLOPS = DEFAULT_HW.peak_fp32_flops
+PEAK_BF16_FLOPS = DEFAULT_HW.peak_flops  # dense tensor cores
+PEAK_HBM_BYTES_PER_S = DEFAULT_HW.hbm_bw
 DTYPES = (torch.float32, torch.bfloat16)
 DEVICE = "cuda"
 
@@ -556,6 +583,26 @@ def split_bound(flops: float, nbytes: float) -> tuple[float, str, str]:
     return bound_ms, by, text
 
 
+def tiled_flops(m: int, k: int, n: int) -> float:
+    """The function ``tiled_matmul`` computes: 2·M·N·K FLOP."""
+    return 2.0 * m * n * k
+
+
+def bsmm_flops(live_blocks: int, bm: int, bk: int, n: int) -> float:
+    """``bsmm``'s: each live block of A times its K panel of B."""
+    return 2.0 * live_blocks * bm * bk * n
+
+
+def grouped_flops(t: int, d: int, f: int) -> float:
+    """``grouped_gemm``'s: every tile of T rows times its expert's D x F."""
+    return 2.0 * t * d * f
+
+
+def attention_flops(b: int, h: int, dh: int, pairs: int) -> float:
+    """Attention's two products over ``pairs`` (query, key) pairs a head."""
+    return 4.0 * b * h * dh * pairs
+
+
 def kron_mask(x: torch.Tensor, mask: np.ndarray) -> torch.Tensor:
     """``x`` with its dead blocks zeroed through an element mask made by
     repeating each entry of the block mask over its block (``np.kron`` of
@@ -571,6 +618,15 @@ def randn(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
 
 
+def smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -580,14 +636,9 @@ def phase_device() -> tuple[str, int]:
                  "False); the port's kernels run only on a card")
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
     log(f"[1 device] {kind} x{count}; torch {torch.__version__} "
         f"(CUDA {torch.version.cuda})")
-    log(smi)
+    log(smi())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"  torch.backends.cuda.matmul.allow_tf32="
@@ -1447,7 +1498,7 @@ def phase_contract_ladder() -> dict:
     hold_plan_kernel(plan, None, "ladder", gen)
     a_g, b_g, cols, (bm, bk, bn) = _bsmm_operands(plan, torch.float32, gen)
     live_blocks = int((plan.local_cols[0, 0] >= 0).sum())
-    flops = 2.0 * live_blocks * bm * bk * n
+    flops = bsmm_flops(live_blocks, bm, bk, n)
     nbytes = 4.0 * (live_blocks * bm * bk + b_g.numel() + m * n)
     bsmm_ms = cuda_ms(lambda: bsmm_cuda(a_g, b_g, cols, bm=bm, bk=bk, bn=bn),
                       3)
@@ -1747,7 +1798,7 @@ def phase_times(a, b, sparse_plan, rank_plan, r_pad) -> dict:
     log("[7 times] CUDA events, mean over repeated launches after a warm-up")
     out = {}
     a_panel, b_panel = a[:, :BLOCK], b[:BLOCK, :]
-    flops = 2.0 * N * BLOCK * N
+    flops = tiled_flops(N, BLOCK, N)
     nbytes = 4.0 * (N * BLOCK + BLOCK * N + N * N)
     ms = cuda_ms(lambda: tiled_matmul_cuda(a_panel, b_panel), 5)
     plain_ms = cuda_ms(lambda: tiled_matmul_plain(a_panel, b_panel), 5)
@@ -1770,7 +1821,7 @@ def phase_times(a, b, sparse_plan, rank_plan, r_pad) -> dict:
     cols = torch.as_tensor(plan.local_cols[0, 0], device=DEVICE)
     bm, bk, bn = plan.local_block
     live_blocks = int((plan.local_cols[0, 0] >= 0).sum())
-    flops = 2.0 * live_blocks * bm * bk * N
+    flops = bsmm_flops(live_blocks, bm, bk, N)
     nbytes = 4.0 * (live_blocks * bm * bk + b_g.numel() + N * N) + cols.numel() * 4
     ms = cuda_ms(lambda: bsmm_cuda(a_g, b_g, cols, bm=bm, bk=bk, bn=bn), 3)
     plain_ms = cuda_ms(
@@ -1806,7 +1857,7 @@ def _time_grouped(plan, r_pad, b) -> dict:
     t, d = x.shape
     e, _, f = w.shape
     live = len(plan.live_panels)
-    flops = 2.0 * t * d * f
+    flops = grouped_flops(t, d, f)
     nbytes = 4.0 * (t * d + live * d * f + t * f) + te.size * 4
     ms = cuda_ms(lambda: grouped_gemm_cuda(x, w, te, bt=bt), 5)
     te_dev = torch.as_tensor(te, device=DEVICE)
@@ -1991,7 +2042,7 @@ def time_attention(cfg, b, s, iters, plain=True) -> dict:
     q, k, v = attention_operands(cfg, b, s, gen)
     causal, window = cfg.causal, cfg.window
     pairs = live_pairs(s, causal, window)
-    flops = 4.0 * b * cfg.num_heads * cfg.resolved_head_dim * pairs
+    flops = attention_flops(b, cfg.num_heads, cfg.resolved_head_dim, pairs)
     nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel())
     ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=causal,
                                               window=window), iters)
@@ -2334,7 +2385,7 @@ def moe_launches(layer, cfg, b: int, s: int, gen, iters: int) -> dict:
         err = compare(got, want, d, torch.bfloat16, what)
         hold_at_scale(got, want, what)
         del got, want
-        flops = 2.0 * t * d * f
+        flops = grouped_flops(t, d, f)
         nbytes = 2.0 * (t * d + e * d * f + t * f)
         ms = cuda_ms(lambda: kops.grouped_gemm(x, w, te, bt=cap), iters)
         plain_ms = cuda_ms(lambda: grouped_gemm_plain(x, w, te_dev, bt=cap),
@@ -3833,6 +3884,247 @@ def phase_train() -> dict:
     log(f"  [train] took {out['wall']:.1f} s")
     return out
 
+# ---------------------------------------------------------------------------
+# [dryrun]: the cost analysis of the card's calls against the dry run's
+# ---------------------------------------------------------------------------
+
+#: [dryrun]: llama3.2-1b's prefill of DRY_PREFILL_BATCH x LM_SEQ tokens, its
+#: train step at [train]'s shape, mixtral-8x7b's forward cut to
+#: DRY_MOE_LAYERS layers on DRY_MOE_BATCH x MOE_SEQ tokens and the
+#: block-sparse product at N (fill SPARSE_FILL): each counted on the card
+#: and by the dry run on ``meta``; the dry run's peak above its arguments
+#: within DRY_PEAK_RTOL of the allocator's peak above what was allocated
+#: on entry
+DRY_PREFILL_BATCH = 4
+DRY_MOE_LAYERS, DRY_MOE_BATCH = 1, 1
+DRY_PEAK_RTOL = 0.15
+
+
+def meta_ctx(**kw) -> ParallelCtx:
+    """The dry run's context on the card's grid (``launch.dryrun``)."""
+    return launch_dryrun.make_ctx(Grid.local("meta"), False, **kw)
+
+
+def timed(fn, *args) -> float:
+    """One uncounted call's wall (host clock ending in synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def card_count(fn, *args, kernels: dict, what: str):
+    """``fn(*args)`` on the card under ``analysis.cost``'s counter, inside
+    the plain guard, every launch count set to 0 just before and held to
+    ``kernels`` just after: (WeightedCost, MemoryCost, the allocator's
+    peak above the bytes allocated on entry)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_guard(PLAIN_VERSIONS, "[dryrun]"):
+        zero_counts()
+        out, wc, mem = analyze_step(fn, *args, device=DEVICE)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    alloc = torch.cuda.max_memory_allocated() - base
+    del out
+    hold_counts(counts, kernels, what)
+    return wc, mem, alloc
+
+
+def hold_dry(what: str, card, meta, kernel_flops: dict) -> dict:
+    """Raises unless the card's count equals the dry run's exactly (FLOP,
+    bytes, collective bytes by kind), each kernel's counted FLOP equal
+    the figure phase 7's formula gives at its calls (``kernel_flops``),
+    and the dry run's peak above its arguments is within DRY_PEAK_RTOL of
+    the allocator's peak above what was allocated on entry."""
+    wc, _, alloc = card
+    mwc, mmem = meta
+    log(f"  {what}: FLOP card {wc.flops:.17g} / dry run {mwc.flops:.17g}; "
+        f"bytes {wc.hbm_bytes:.17g} / {mwc.hbm_bytes:.17g}; collective "
+        f"bytes {wc.coll_bytes:.17g} / {mwc.coll_bytes:.17g}")
+    same = (wc.flops == mwc.flops and wc.hbm_bytes == mwc.hbm_bytes
+            and wc.coll_bytes_by_op == mwc.coll_bytes_by_op)
+    if not same:  # name the ops that differ before failing
+        for op in sorted(set(wc.by_op) | set(mwc.by_op)):
+            if wc.by_op.get(op) != mwc.by_op.get(op):
+                log(f"    {op} [calls, FLOP, bytes]: card "
+                    f"{wc.by_op.get(op)}, dry run {mwc.by_op.get(op)}")
+    hold(same, f"{what}: the card's count equals the dry run's")
+    for name, want in kernel_flops.items():
+        for side, c in (("card", wc), ("dry run", mwc)):
+            got = c.by_op[name][1]
+            hold(got == want, f"{what}: {name}'s counted FLOP on the {side} "
+                 f"{got:.17g} == phase 7's figure {want:.17g} "
+                 f"({c.by_op[name][0]:g} calls)")
+    grown = mmem.peak_live_bytes - mmem.argument_size_in_bytes
+    ratio = grown / alloc if alloc else math.inf
+    log(f"  {what}: peak above the arguments, dry run {grown / 2**30:.3f} "
+        f"GiB, allocator {alloc / 2**30:.3f} GiB (ratio {ratio:.4f}); "
+        f"arguments {mmem.argument_size_in_bytes / 2**30:.3f} GiB, dry-run "
+        f"peak live {mmem.peak_live_bytes / 2**30:.3f} GiB")
+    hold(abs(ratio - 1) <= DRY_PEAK_RTOL,
+         f"{what}: peak within {DRY_PEAK_RTOL:.0%} of the allocator's")
+    return dict(flops=mwc.flops, bytes=mwc.hbm_bytes, peak=mmem.peak_live_bytes,
+                alloc=alloc, ratio=ratio)
+
+
+def dry_roofline(what: str, wc, wall: float, model_flops: float) -> dict:
+    """The counted step's bound on the card beside its warm wall."""
+    rep = roofline(wc.flops, wc.hbm_bytes, wc.wire_bytes, chips=1,
+                   model_flops=model_flops)
+    mfu = model_flops / (wall * DEFAULT_HW.peak_flops)
+    log(f"  {what}: warm wall {wall:.4f} s (uncounted); bound_s "
+        f"{rep.bound_s:.4f} s, dominant {rep.dominant} (compute "
+        f"{rep.compute_s:.4f} s at {DEFAULT_HW.peak_flops:.3g} FLOP/s, "
+        f"memory {rep.memory_s:.4f} s at {DEFAULT_HW.hbm_bw:.3g} B/s); "
+        f"bound_s / wall {rep.bound_s / wall:.4f}; model FLOP "
+        f"{model_flops:.4g}, model_flops / (wall x "
+        f"{DEFAULT_HW.peak_flops:.3g}) {mfu:.4f}; useful ratio "
+        f"{rep.useful_ratio:.4f}")
+    return dict(wall=wall, bound_s=rep.bound_s, dominant=rep.dominant,
+                bound_over_wall=rep.bound_s / wall, mfu=mfu)
+
+
+def dry_prefill() -> dict:
+    cfg = get_config(LM_ARCH)
+    b, s = DRY_PREFILL_BATCH, LM_SEQ
+    what = f"(a) prefill {cfg.name} {b} x {s}"
+    shape = ShapeConfig("prefill", s, b, "prefill")
+    model = card_model(cfg)
+    ctx = ParallelCtx(Grid.local(DEVICE))
+    inputs = {"tokens": prompt_tokens(cfg, b, SEED + 25, s).int()}
+
+    def fn(m, x):
+        return serve_engine.prefill(m, x, cfg, ctx, max_len=s)
+
+    fn(model, inputs)
+    card = card_count(fn, model, inputs, what=what,
+                      kernels={"flash_attention": cfg.num_layers})
+    wall = timed(fn, model, inputs)
+    del model
+    torch.cuda.empty_cache()
+    meta = launch_dryrun.count_cell(cfg, shape, meta_ctx(), 1)
+    out = hold_dry(what, card, meta, {"flash_attention": cfg.num_layers
+                                      * attention_flops(
+                                          b, cfg.num_heads,
+                                          cfg.resolved_head_dim, s * s)})
+    log(f"    (flash_attention counts the plain route's products over all "
+        f"{s * s} (query, key) pairs a head; phase 7's causal bound counts "
+        f"the {live_pairs(s, True, None)} live ones)")
+    out.update(dry_roofline(what, card[0], wall,
+                            launch_dryrun.model_flops_per_step(cfg, shape)))
+    return out
+
+
+def dry_train() -> dict:
+    cfg = get_config(LM_ARCH)
+    what = (f"(b) train step {cfg.name} {TRAIN_BATCH} x {TRAIN_SEQ} in "
+            f"{TRAIN_MICRO} microbatches")
+    shape = ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    ctx, opt = train_ctx(), train_opt(TRAIN_STEPS)
+    state = new_train_state(cfg, ctx, opt)
+    step = build_train_step(cfg, ctx, opt, microbatches=TRAIN_MICRO,
+                            remat=True)
+    batch = {k: torch.as_tensor(v).to(DEVICE, torch.int32) for k, v in
+             SyntheticData(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                           seed=SEED).batch_at(0).items()}
+    card = card_count(step, state, batch, kernels={}, what=what)
+    with plain_guard(PLAIN_VERSIONS, "[dryrun]"):
+        wall = timed(step, state, batch)
+    del state, step
+    torch.cuda.empty_cache()
+    meta = launch_dryrun.count_cell(
+        cfg, shape, meta_ctx(attention_impl="chunked"), TRAIN_MICRO,
+        opt=train_opt(TRAIN_STEPS))
+    out = hold_dry(what, card, meta, {})
+    out.update(dry_roofline(what, card[0], wall,
+                            launch_dryrun.model_flops_per_step(cfg, shape)))
+    return out
+
+
+def dry_moe() -> dict:
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=DRY_MOE_LAYERS)
+    b, s = DRY_MOE_BATCH, MOE_SEQ
+    what = f"(c) MoE forward {cfg.name} ({DRY_MOE_LAYERS} layer) {b} x {s}"
+    model = card_model(cfg)
+    ctx = ParallelCtx(Grid.local(DEVICE))
+    inputs = {"tokens": prompt_tokens(cfg, b, SEED + 26, s).int()}
+
+    def fn(m, x, ctx=ctx):
+        return forward(m, x, cfg, ctx, use_kernel=True)
+
+    fn(model, inputs)
+    e = model.units[0]["b0"].moe.w_gate.shape[0]
+    card = card_count(fn, model, inputs, what=what, kernels={
+        "flash_attention": DRY_MOE_LAYERS,
+        "grouped_gemm": MOE_LAUNCHES_PER_LAYER * DRY_MOE_LAYERS})
+    del model
+    torch.cuda.empty_cache()
+    meta_inputs = {"tokens": torch.empty((b, s), dtype=torch.int32,
+                                         device="meta")}
+    _, mwc, mmem = analyze_step(lambda m, x: fn(m, x, meta_ctx()),
+                                LM(cfg, device="meta"), meta_inputs)
+    t = b * e * moe_layer.capacity(cfg.moe, s, e)
+    return hold_dry(what, card, (mwc, mmem), {
+        "flash_attention": DRY_MOE_LAYERS * attention_flops(
+            b, cfg.num_heads, cfg.resolved_head_dim, s * s),
+        # gate and up (D x F), down (F x D): each 2·T·D·F
+        "grouped_gemm": MOE_LAUNCHES_PER_LAYER * DRY_MOE_LAYERS
+        * grouped_flops(t, cfg.d_model, cfg.moe.d_ff)})
+
+
+def dry_bsmm(a_mask, b_mask) -> dict:
+    what = f"(d) block-sparse product N={N} fill {SPARSE_FILL}"
+    kw = dict(strategy="taskbased", k_blocks=K_PANELS, local_matmul="pallas")
+    mm = DistributedMatmul(Grid.local(DEVICE), **kw)
+    mm_meta = DistributedMatmul(Grid.local("meta"), **kw)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 27)
+    a = torch.randn((N, N), generator=gen, device=DEVICE)
+    b = torch.randn((N, N), generator=gen, device=DEVICE)
+
+    def fn(a, b, mm=mm):
+        return mm(a, b, a_mask=a_mask, b_mask=b_mask)
+
+    fn(a, b)  # both counted warm: the executable holds its masks and map
+    card = card_count(fn, a, b, what=what, kernels={"bsmm": 1})
+    # the wrapper alone at phase 7's panel shape, on the card and on meta
+    a_panel, b_panel = a[:, :BLOCK], b[:BLOCK, :]
+    _, tc, _ = analyze_step(kops.tiled_matmul, a_panel, b_panel)
+    del a, b, a_panel, b_panel
+    torch.cuda.empty_cache()
+    am = torch.empty((N, N), device="meta")
+    fn(am, am, mm_meta)
+    _, mwc, mmem = analyze_step(fn, am, am, mm_meta)
+    _, tm, _ = analyze_step(kops.tiled_matmul, am[:, :BLOCK], am[:BLOCK, :])
+    hold(tc.by_op == tm.by_op and tc.by_op["tiled_matmul"][1] == tiled_flops(
+        N, BLOCK, N), f"tiled_matmul ({N},{BLOCK})x({BLOCK},{N}) counts "
+         f"{tc.by_op['tiled_matmul']} on the card, "
+         f"{tm.by_op['tiled_matmul']} on meta; phase 7's figure "
+         f"{tiled_flops(N, BLOCK, N):.17g}")
+    plan = mm.plan(N, N, N, a_mask=a_mask, b_mask=b_mask)
+    bm, bk, _ = plan.local_block
+    live = int((plan.local_cols[0, 0] >= 0).sum())
+    return hold_dry(what, card, (mwc, mmem),
+                    {"bsmm": bsmm_flops(live, bm, bk, N)})
+
+
+def phase_dryrun(a_mask, b_mask) -> dict:
+    """[dryrun] each call counted with ``analysis.cost`` on the card equals
+    the dry run of the same call on ``meta``; returns the numbers."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"[dryrun] analysis.cost on the card against launch.dryrun on meta "
+        f"({smi()}; peaks from analysis.cost.DEFAULT_HW: "
+        f"{DEFAULT_HW.peak_flops:.4g} FLOP/s bf16, {DEFAULT_HW.hbm_bw:.4g} "
+        f"B/s)")
+    out = {"bsmm": dry_bsmm(a_mask, b_mask), "prefill": dry_prefill(),
+           "moe": dry_moe(), "train": dry_train()}
+    out["wall"] = time.perf_counter() - t_phase
+    log(f"  [dryrun] took {out['wall']:.1f} s")
+    return out
+
 
 def main() -> None:
     kind, count = phase_device()
@@ -3939,6 +4231,7 @@ def main() -> None:
             f"launches, greedy {r['greedy']}")
     serve = phase_serve()
     train = phase_train()
+    dry = phase_dryrun(a_mask, b_mask)
     fixed, cont, quant = serve["fixed"], serve["continuous"], serve["kv_quant"]
     for label in ("first", "warm"):
         pre, dec = fixed[label]["walls"]
@@ -3969,6 +4262,14 @@ def main() -> None:
         f"{train['tokens_per_s']:,.0f} tokens/s, peak "
         f"{train['peak'] / 2**30:.2f} GiB, launches {train['counts']}; "
         f"[train] {train['wall']:.1f} s")
+    for key in ("prefill", "train"):
+        d = dry[key]
+        log(f"  [dryrun] {LM_ARCH} {key}: warm {d['wall']:.4f} s, bound "
+            f"{d['bound_s']:.4f} s ({d['dominant']}), bound/wall "
+            f"{d['bound_over_wall']:.4f}, model FLOP share "
+            f"{d['mfu']:.4f}; counted peak {d['peak'] / 2**30:.2f} GiB "
+            f"(peak above the arguments at {d['ratio']:.4f} of the "
+            f"allocator's); [dryrun] {dry['wall']:.1f} s")
     log(f"  {XL_ARCH} chunkwise mLSTM forward: warm "
         f"{recurrent['xl_chunked']['wall']:.3f} s, peak "
         f"{recurrent['xl_chunked']['peak'] / 2**30:.2f} GiB")

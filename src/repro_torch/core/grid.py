@@ -34,6 +34,11 @@ Three ways to build one:
 
 Every grid is on ``cuda`` unless its caller names another device: a grid
 built without one never runs on the CPU.
+
+Each collective over an axis with peers reports its result bytes on this
+rank to the active ``analysis.cost.CostCounter`` (``exchange`` as a
+``collective-permute`` per buffer received); the identity on an axis of
+one rank reports nothing.
 """
 from __future__ import annotations
 
@@ -43,6 +48,8 @@ import math
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.analysis.cost import report_collective
 
 __all__ = ["Grid"]
 
@@ -238,6 +245,7 @@ class Grid:
             buf, src=self.rank_at({axis: owner}), group=group,
             async_op=async_op,
         )
+        report_collective("broadcast", buf)
         return buf, work
 
     def all_gather(self, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
@@ -258,6 +266,7 @@ class Grid:
             out = torch.empty_like(chunks)
             out[order] = chunks
             out = out.view(size * x0.shape[0], *x0.shape[1:])
+        report_collective("all-gather", out)
         return out.movedim(0, dim).contiguous()
 
     def reduce_scatter(self, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
@@ -283,6 +292,7 @@ class Grid:
             device=x.device,
         )
         dist.reduce_scatter_tensor(out, x0, group=group)
+        report_collective("reduce-scatter", out)
         return out.movedim(0, dim).contiguous()
 
     def all_reduce(self, x: torch.Tensor, axis, op: str = "sum"
@@ -298,6 +308,7 @@ class Grid:
             return x
         out = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(out, op=ops[op], group=self._group(axis))
+        report_collective("all-reduce", out)
         return out
 
     def exchange(self, sends, recvs) -> int:
@@ -312,6 +323,8 @@ class Grid:
         works += [dist.isend(t, dst=peer) for peer, t in sends]
         for work in works:
             work.wait()
+        for _, buf in recvs:
+            report_collective("collective-permute", buf)
         return sum(buf.numel() * buf.element_size() for _, buf in recvs)
 
 

@@ -31,7 +31,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.tiled_matmul import tiled_matmul_plain
 
-__all__ = ["bsmm_cuda", "bsmm_plain"]
+__all__ = ["bsmm_cuda", "bsmm_plain", "check_kernel_operands"]
 
 
 def _check_shapes(a, b, cols, bm, bk, bn) -> None:
@@ -73,6 +73,18 @@ def bsmm_plain(a: torch.Tensor, b: torch.Tensor, cols: torch.Tensor, *,
     return tiled_matmul_plain(a_z, b, out_dtype)
 
 
+def check_kernel_operands(a, b, cols, bm: int, bk: int, bn: int) -> None:
+    """The kernel's checks of its operands but their device (the
+    shape-only route of ``kernels.ops`` runs them too)."""
+    _check_shapes(a, b, cols, bm, bk, bn)
+    if a.dtype != b.dtype:
+        raise TypeError(f"operand dtypes differ: {a.dtype} vs {b.dtype}")
+    if cols.dtype != torch.int32:
+        raise TypeError(f"cols must be int32, got {cols.dtype}")
+    if not (a.is_contiguous() and b.is_contiguous() and cols.is_contiguous()):
+        raise ValueError("bsmm_cuda needs contiguous a, b and cols")
+
+
 def bsmm_cuda(a: torch.Tensor, b: torch.Tensor, cols: torch.Tensor, *,
               bm: int, bk: int, bn: int,
               out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -87,18 +99,12 @@ def bsmm_cuda(a: torch.Tensor, b: torch.Tensor, cols: torch.Tensor, *,
     kernel tiles N by 256 and masks the edge.
     """
     out_dtype = out_dtype or a.dtype
-    _check_shapes(a, b, cols, bm, bk, bn)
-    if a.dtype != b.dtype:
-        raise TypeError(f"operand dtypes differ: {a.dtype} vs {b.dtype}")
-    if cols.dtype != torch.int32:
-        raise TypeError(f"cols must be int32, got {cols.dtype}")
+    check_kernel_operands(a, b, cols, bm, bk, bn)
     if not (a.is_cuda and b.device == a.device and cols.device == a.device):
         raise ValueError(
             "bsmm_cuda needs a, b and cols on one CUDA device, got "
             f"{a.device}, {b.device} and {cols.device}"
         )
-    if not (a.is_contiguous() and b.is_contiguous() and cols.is_contiguous()):
-        raise ValueError("bsmm_cuda needs contiguous a, b and cols")
     m = a.shape[0]
     n = b.shape[1]
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)

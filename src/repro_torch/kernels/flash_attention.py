@@ -42,8 +42,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention_cuda", "flash_attention_plain",
-           "tma_operand_problems"]
+__all__ = ["check_kernel_operands", "flash_attention_cuda",
+           "flash_attention_plain", "tma_operand_problems"]
 
 #: head widths the CUDA kernel takes
 HEAD_DIMS = range(1, 257)
@@ -81,6 +81,27 @@ def _live_mask(sq: int, sk: int, causal: bool, window: int | None,
     if window is not None:
         live &= pos_q - pos_k < window
     return live
+
+
+def check_kernel_operands(q, k, v) -> None:
+    """The kernel's checks of its operands but their device and TMA's
+    alignment (the shape-only route of ``kernels.ops`` runs them too)."""
+    _check_shapes(q, k, v)
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(
+            f"the flash-attention kernel takes head widths from 1 to "
+            f"{HEAD_DIMS[-1]}, not {q.shape[3]}"
+        )
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(
+            f"operand dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(3) != 1:
+            raise ValueError(
+                f"{name} must have unit stride along Dh (got strides "
+                f"{x.stride()})"
+            )
 
 
 def tma_operand_problems(name: str, x: torch.Tensor) -> list[str]:
@@ -158,29 +179,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     result is a new tensor of ``q``'s shape, dtype and layout
     (``torch.empty_like``).
     """
-    _check_shapes(q, k, v)
+    check_kernel_operands(q, k, v)
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(
-            f"the flash-attention kernel takes head widths from 1 to "
-            f"{HEAD_DIMS[-1]}, not {dh}"
-        )
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(
-            f"operand dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}"
-        )
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(
             f"flash_attention_cuda needs q, k, v on one CUDA device, got "
             f"{q.device}, {k.device}, {v.device}"
         )
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1:
-            raise ValueError(
-                f"{name} must have unit stride along Dh (got strides "
-                f"{x.stride()})"
-            )
     code = _build.dtype_code(q.dtype)
     if q.dtype == torch.bfloat16:  # the tensor-core route reads via TMA
         problems = [p for name, x in (("q", q), ("k", k), ("v", v))

@@ -36,8 +36,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["grouped_gemm_cuda", "grouped_gemm_plain", "host_to_device",
-           "tile_pairs"]
+__all__ = ["check_kernel_operands", "grouped_gemm_cuda", "grouped_gemm_plain",
+           "host_to_device", "tile_pairs"]
 
 #: rows of a unit: one consumer warpgroup's wgmma rows (csrc/split_gemm.cuh)
 UNIT_ROWS = 64
@@ -119,6 +119,25 @@ def host_to_device(array: np.ndarray, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def check_kernel_operands(x, w, tile_expert: torch.Tensor, bt: int) -> None:
+    """The kernel's checks of its operands and its host tile map but their
+    device (the shape-only route of ``kernels.ops`` runs them too)."""
+    _check_shapes(x, w, tile_expert, bt)
+    if x.dtype != w.dtype:
+        raise TypeError(f"operand dtypes differ: {x.dtype} vs {w.dtype}")
+    if tile_expert.dtype != torch.int32:
+        raise TypeError(f"tile_expert must be int32, got {tile_expert.dtype}")
+    if (x.stride(1) != 1 and x.shape[1] > 1) or (
+            w.stride(2) != 1 and w.shape[2] > 1):
+        raise ValueError(
+            "grouped_gemm_cuda needs unit last strides of x and w (got "
+            f"strides {x.stride()}, {w.stride()})"
+        )
+    if x.shape[0] >= 2**31:
+        raise ValueError(
+            f"the kernel indexes tokens in 32 bits, got T={x.shape[0]}")
+
+
 def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor, tile_expert, *,
                       bt: int,
                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -142,26 +161,14 @@ def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor, tile_expert, *,
             f"{tile_expert.device}"
         )
     host = torch.as_tensor(tile_expert)
-    _check_shapes(x, w, host, bt)
-    if x.dtype != w.dtype:
-        raise TypeError(f"operand dtypes differ: {x.dtype} vs {w.dtype}")
-    if host.dtype != torch.int32:
-        raise TypeError(f"tile_expert must be int32, got {host.dtype}")
+    check_kernel_operands(x, w, host, bt)
     if not (x.is_cuda and w.device == x.device):
         raise ValueError(
             "grouped_gemm_cuda needs x and w on one CUDA device, got "
             f"{x.device} and {w.device}"
         )
-    if (x.stride(1) != 1 and x.shape[1] > 1) or (
-            w.stride(2) != 1 and w.shape[2] > 1):
-        raise ValueError(
-            "grouped_gemm_cuda needs unit last strides of x and w (got "
-            f"strides {x.stride()}, {w.stride()})"
-        )
     t, d = x.shape
     e, _, f = w.shape
-    if t >= 2**31:
-        raise ValueError(f"the kernel indexes tokens in 32 bits, got T={t}")
     te = host_to_device(host.numpy(), x.device)
     pairs = host_to_device(tile_pairs(host, bt), x.device)
     y = torch.empty((t, f), dtype=out_dtype, device=x.device)

@@ -18,6 +18,15 @@ operands' device, so a launch never waits on the card to check them.
 ``flash_attention`` launches its kernel for every CUDA tensor, whatever
 the sequence length: the kernel masks a ragged tail, so the reference's
 fall-back to plain attention for lengths off the tile is not needed.
+
+A ``meta`` tensor takes a shape-only route: the wrapper's host checks,
+then an empty result of the kernel's shape and dtype, so a step can be
+counted without a card (``analysis.cost``).  Each wrapper reports its
+function's work to the active ``analysis.cost.CostCounter`` and suspends
+it inside, so the three routes count the same: ``tiled_matmul`` 2·M·N·K
+FLOP, ``bsmm`` 2·bm·bk·N per live block of its column map,
+``grouped_gemm`` 2·bt·D·F per tile, ``flash_attention`` 4·B·H·Sq·Sk·Dh
+(the plain route's two products); bytes, the operands and the result.
 """
 from __future__ import annotations
 
@@ -25,7 +34,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.cost import kernel_call
 from repro_torch.core.sparsity import block_csr_from_mask
+from repro_torch.kernels import bsmm as _bsmm
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import grouped_gemm as _gg
+from repro_torch.kernels import tiled_matmul as _tm
 from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain
 from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
@@ -46,12 +60,38 @@ __all__ = [
 ]
 
 
-def _route(x: torch.Tensor, kernel, plain):
+def _route(x: torch.Tensor, kernel, plain, meta):
     if x.device.type == "cuda":
         return kernel
     if x.device.type == "cpu":
         return plain
+    if x.device.type == "meta":
+        return meta
     raise RuntimeError(f"no kernel for tensors on {x.device}")
+
+
+# -- shape-only routes (meta tensors): the kernels' checks and results ------
+
+
+def _tiled_matmul_meta(a, b, out_dtype=None):
+    _tm.check_kernel_operands(a, b)
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype or a.dtype)
+
+
+def _bsmm_meta(a, b, cols, *, bm, bk, bn, out_dtype=None):
+    _bsmm.check_kernel_operands(a, b, cols, bm, bk, bn)
+    return a.new_empty((a.shape[0], b.shape[1]), dtype=out_dtype or a.dtype)
+
+
+def _grouped_gemm_meta(x, w, tile_expert, *, bt, out_dtype=None):
+    _gg.check_kernel_operands(x, w, torch.as_tensor(tile_expert), bt)
+    return x.new_empty((x.shape[0], w.shape[2]), dtype=out_dtype or x.dtype)
+
+
+def _flash_attention_meta(q, k, v, *, causal, window, scale):
+    del causal, window, scale
+    _fa.check_kernel_operands(q, k, v)
+    return torch.empty_like(q)
 
 
 def _pad2(x: torch.Tensor, mults) -> torch.Tensor:
@@ -81,16 +121,19 @@ def tiled_matmul(
 ) -> torch.Tensor:
     """C = A @ B through the tiled kernel (auto-padded on the CPU route)."""
     del accum_dtype  # the kernel always accumulates fp32
-    run = _route(a, tiled_matmul_cuda, tiled_matmul_plain)
-    if run is tiled_matmul_cuda:  # the kernel masks its ragged edges
-        return run(a, b, out_dtype)
+    run = _route(a, tiled_matmul_cuda, tiled_matmul_plain, _tiled_matmul_meta)
     m, k = a.shape
-    _, n = b.shape
-    bm = _pick_tile(m, bm)
-    bk = _pick_tile(k, bk)
-    bn = _pick_tile(n, bn)
-    c = run(_pad2(a, (bm, bk)), _pad2(b, (bk, bn)), out_dtype)
-    return c[:m, :n]
+    n = b.shape[1]
+    with kernel_call("tiled_matmul") as call:
+        if run is not tiled_matmul_plain:  # the kernel masks ragged edges
+            c = run(a, b, out_dtype)
+        else:
+            bm = _pick_tile(m, bm)
+            bk = _pick_tile(k, bk)
+            bn = _pick_tile(n, bn)
+            c = run(_pad2(a, (bm, bk)), _pad2(b, (bk, bn)), out_dtype)[:m, :n]
+        call.report(2.0 * m * n * k, (a, b), (c,))
+    return c
 
 
 def bsmm_cols(
@@ -110,14 +153,21 @@ def bsmm_cols(
     ``cols`` is a host array (numpy or a CPU tensor); it is checked here,
     on the host, and moved to ``a``'s device, unless the caller holds that
     copy already (``device_cols``: int32, on ``a``'s device)."""
-    run = _route(a, bsmm_cuda, bsmm_plain)
+    run = _route(a, bsmm_cuda, bsmm_plain, _bsmm_meta)
     cols = np.asarray(cols, dtype=np.int32)
     k_blocks = a.shape[1] // bk
     if cols.size and int(cols.max()) >= k_blocks:  # would read past A
         raise ValueError(f"col map names a block column >= K/bk={k_blocks}")
     if device_cols is None:
         device_cols = torch.as_tensor(cols, device=a.device)
-    return run(a, b, device_cols, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+    # the blocks the kernel multiplies: each row's prefix of valid entries
+    valid = (cols >= 0) & (cols < k_blocks)
+    live = int(np.cumprod(valid, axis=-1).sum()) if cols.size else 0
+    with kernel_call("bsmm") as call:
+        c = run(a, b, device_cols, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
+        call.report(2.0 * live * bm * bk * b.shape[1], (a, b, device_cols),
+                    (c,))
+    return c
 
 
 def bsmm(
@@ -173,13 +223,17 @@ def grouped_gemm(
     t = x.shape[0]
     if t % bt:
         raise ValueError(f"token count {t} must divide tile {bt}")
-    run = _route(x, grouped_gemm_cuda, grouped_gemm_plain)
+    run = _route(x, grouped_gemm_cuda, grouped_gemm_plain, _grouped_gemm_meta)
     te = np.asarray(tile_expert, dtype=np.int32)
     if te.size and (int(te.min()) < 0 or int(te.max()) >= w.shape[0]):
         raise ValueError(
             f"tile_expert names an expert outside [0, {w.shape[0]})"
         )
-    return run(x, w, te, bt=bt, out_dtype=out_dtype)
+    with kernel_call("grouped_gemm") as call:
+        y = run(x, w, te, bt=bt, out_dtype=out_dtype)
+        call.report(2.0 * t * x.shape[1] * w.shape[2], (x, w), (y,),
+                    extra_bytes=te.nbytes)
+    return y
 
 
 def ranksparse_matmul(
@@ -252,5 +306,10 @@ def flash_attention(
     past Dh read as zero; a wider head raises.
     """
     del bq, bk  # the kernel tiles itself
-    run = _route(q, flash_attention_cuda, flash_attention_plain)
-    return run(q, k, v, causal=causal, window=window, scale=scale)
+    run = _route(q, flash_attention_cuda, flash_attention_plain,
+                 _flash_attention_meta)
+    b, h, sq, dh = q.shape
+    with kernel_call("flash_attention") as call:
+        o = run(q, k, v, causal=causal, window=window, scale=scale)
+        call.report(4.0 * b * h * sq * k.shape[2] * dh, (q, k, v), (o,))
+    return o

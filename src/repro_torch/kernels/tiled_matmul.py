@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["tiled_matmul_cuda", "tiled_matmul_plain"]
+__all__ = ["check_kernel_operands", "tiled_matmul_cuda", "tiled_matmul_plain"]
 
 
 def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor,
@@ -46,6 +46,19 @@ def _check_row_major(x: torch.Tensor, name: str) -> None:
         )
 
 
+def check_kernel_operands(a: torch.Tensor, b: torch.Tensor) -> None:
+    """The kernel's checks of its operands but their device (the
+    shape-only route of ``kernels.ops`` runs them too)."""
+    _check_row_major(a, "a")
+    _check_row_major(b, "b")
+    if a.shape[1] != b.shape[0]:
+        raise ValueError(
+            f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}"
+        )
+    if a.dtype != b.dtype:
+        raise TypeError(f"operand dtypes differ: {a.dtype} vs {b.dtype}")
+
+
 def tiled_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``a @ b`` through the CUDA kernel; counts its launches.
@@ -55,14 +68,7 @@ def tiled_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     contiguous (M, N) tensor of ``out_dtype`` (default ``a.dtype``).
     """
     out_dtype = out_dtype or a.dtype
-    _check_row_major(a, "a")
-    _check_row_major(b, "b")
-    if a.shape[1] != b.shape[0]:
-        raise ValueError(
-            f"contraction mismatch: {tuple(a.shape)} @ {tuple(b.shape)}"
-        )
-    if a.dtype != b.dtype:
-        raise TypeError(f"operand dtypes differ: {a.dtype} vs {b.dtype}")
+    check_kernel_operands(a, b)
     if not (a.is_cuda and b.device == a.device):
         raise ValueError(
             f"tiled_matmul_cuda needs both operands on one CUDA device, got "

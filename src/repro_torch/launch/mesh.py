@@ -4,7 +4,8 @@ The port of ``repro.launch.mesh``: where the reference builds a
 ``jax.sharding.Mesh``, the port builds a ``core.grid.Grid``.  A grid of
 one rank is ``Grid.local``; a larger one runs one process per rank under
 an initialised ``torch.distributed`` (``init_process_group`` with the
-address, world size and rank given by the caller).
+address, world size and rank given by the caller).  The production grids
+(``make_production_grid``) are planning-only: they need no processes.
 """
 from __future__ import annotations
 
@@ -12,7 +13,17 @@ import math
 
 from repro_torch.core.grid import Grid
 
-__all__ = ["make_grid", "make_host_grid"]
+__all__ = ["make_grid", "make_host_grid", "make_production_grid"]
+
+
+def make_production_grid(*, multi_pod: bool = False) -> Grid:
+    """The planning-only 16x16 single-pod grid (256 cards) or the 2x16x16
+    two-pod one (512), the reference's ``make_production_mesh``: plans,
+    specs and per-rank sizes for them need no processes, and
+    ``Grid.check_world`` refuses to execute on them."""
+    if multi_pod:
+        return Grid(sizes=(2, 16, 16), axis_names=("pod", "data", "model"))
+    return Grid(sizes=(16, 16), axis_names=("data", "model"))
 
 
 def make_grid(shape: tuple[int, ...], axes: tuple[str, ...],

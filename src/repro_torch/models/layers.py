@@ -61,11 +61,12 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     output (``torch.mm(..., out_dtype=torch.float32)``).  A pair of mixed
     dtypes (an fp32 cotangent beside a bf16 weight) is widened to fp32
     first, so no operand is rounded; so is every pair on the CPU, which
-    has no such kernel.
+    has no such kernel.  A ``meta`` pair takes the card's route, so a
+    shape-only count (``analysis.cost``) counts the card's ops.
     """
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         return torch.mm(a, b)
-    if not a.is_cuda or a.dtype != b.dtype:
+    if a.device.type == "cpu" or a.dtype != b.dtype:
         return torch.mm(a.float(), b.float())
     return torch.mm(a, b, out_dtype=torch.float32)
 

@@ -115,9 +115,13 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx, *,
     topv, topi = torch.topk(logits, moe.top_k, dim=-1)
     gates = torch.softmax(topv, dim=-1)  # renormalised over the selected
 
-    # Switch-style load-balance aux loss.
-    density = torch.nn.functional.one_hot(
-        topi[..., 0], moe.num_experts).float().mean(dim=(0, 1))
+    # Switch-style load-balance aux loss.  The one-hot of each token's
+    # first expert is a scatter of ones (``F.one_hot`` checks its input
+    # and decomposes differently on each device, so a count on ``meta``
+    # would not be the card's; the values are the same)
+    density = torch.zeros(logits.shape, dtype=torch.float32,
+                          device=logits.device).scatter_(
+        -1, topi[..., :1], 1.0).mean(dim=(0, 1))
     mean_prob = probs.mean(dim=(0, 1))
     aux = moe.num_experts * (density * mean_prob).sum()
 

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.analysis import cost
 from repro_torch.dist.context import ParallelCtx
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -560,9 +561,11 @@ def slstm_block(
     r_gates = p.r_gates.float()  # cast once, not per step
     state = slstm_init_state(cfg, b, device=x.device)
     hs = []
-    for t in range(s):
+    steps = cost.loop_steps(s)  # s, unless a dry run samples the loop
+    for t in range(steps):
         state = _slstm_cell(r_gates, gx[:, :, t], state)
         hs.append(state["h"])
+    hs += hs[-1:] * (s - steps)
     out = _slstm_out(p, torch.stack(hs, dim=1), cfg, x.dtype)  # (B, S, D)
     out = ctx.wsc(out, ctx.dp, None, None)
     if return_state:

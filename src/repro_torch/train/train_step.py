@@ -8,8 +8,8 @@ paths), and ``state_tree`` gives the whole state in that layout, which
 checkpoints keep.  ``build_train_step`` returns a step that accumulates
 gradients in fp32 over ``microbatches`` slices of the global batch
 (each microbatch's ``.grad`` taken fresh and added into an fp32
-accumulator, so the result is the reference's ``lax.scan`` sum), then
-applies the optimizer once and updates the state in place.
+accumulator of zeros, so the result is the reference's ``lax.scan``
+sum), then applies the optimizer once and updates the state in place.
 
 Sharding is spec tuples only (``state_shardings``, ``batch_shardings``:
 the reference's NamedShardings' specs, its mirror rule included): every
@@ -35,8 +35,8 @@ from repro_torch.train.optimizer import Optimizer
 from repro_torch.train.tree import at, leaves, tree_map, unflatten
 
 __all__ = ["abstract_train_state", "batch_shardings", "build_train_step",
-           "load_state_tree", "make_train_state", "state_shardings",
-           "state_tree", "train_state"]
+           "load_state_tree", "make_train_state", "microbatch_of",
+           "state_shardings", "state_tree", "train_state", "zero_grads"]
 
 
 def train_state(model: LM, opt: Optimizer) -> dict:
@@ -161,6 +161,23 @@ def _accumulate(grads: dict, model: LM) -> None:
                 (acc[u] if path.startswith("units/") else acc).add_(p.grad)
 
 
+def zero_grads(model: LM) -> dict:
+    """The fp32 gradient accumulator of ``model``: zeros in the reference's
+    tree (units stacked)."""
+    device = next(model.parameters()).device
+    return unflatten({path: torch.zeros(shape, dtype=torch.float32,
+                                        device=device)
+                      for path, shape in _stacked_shapes(model).items()})
+
+
+def microbatch_of(batch: dict, i: int, microbatches: int) -> dict:
+    """The ``i``-th of ``microbatches`` equal slices of ``batch`` along its
+    batch axis (views)."""
+    return {k: x[i * (x.shape[0] // microbatches):
+                 (i + 1) * (x.shape[0] // microbatches)]
+            for k, x in batch.items()}
+
+
 def build_train_step(
     cfg: ModelConfig,
     ctx: ParallelCtx,
@@ -173,7 +190,16 @@ def build_train_step(
     step on ``batch`` (numpy arrays or tensors, sliced into
     ``microbatches`` along the batch); ``state`` is updated in place.
     The metrics are the last microbatch's (``ce``, ``z_loss``, ``aux``,
-    ``loss``, fp32 scalar tensors), as the reference's scan carries."""
+    ``loss``, fp32 scalar tensors), as the reference's scan carries.
+
+    As the reference, one microbatch takes its gradients in fp32; several
+    add theirs into an fp32 accumulator of zeros, one microbatch at a
+    time, each the same work.  The step's three parts are its attributes,
+    so a count can run one microbatch of several and weight it
+    (``launch.dryrun``): ``begin(state, batch) -> (batch on the device,
+    accumulator or None)``, ``accumulate(model, mb, grads) -> metrics``
+    (one microbatch of several) and ``finish(state, grads)`` (the mean,
+    the optimizer's update, the step count)."""
 
     def grad_fn(model, mb):
         model.zero_grad(set_to_none=True)
@@ -181,28 +207,42 @@ def build_train_step(
         loss.backward()
         return {k: v.detach() for k, v in metrics.items()}
 
-    def train_step(state, batch):
+    def begin(state, batch):
         model = state["params"]
         batch = _to_device(batch, cfg, state["step"].device)
-        grads = None
-        for i in range(microbatches):
-            mb = {k: x[i * (x.shape[0] // microbatches):
-                       (i + 1) * (x.shape[0] // microbatches)]
-                  for k, x in batch.items()}
-            metrics = grad_fn(model, mb)
-            if grads is None:
-                grads = params_tree(model, grads=True)
-            else:
-                _accumulate(grads, model)
+        return batch, zero_grads(model) if microbatches > 1 else None
+
+    def accumulate(model, mb, grads):
+        metrics = grad_fn(model, mb)
+        _accumulate(grads, model)
+        return metrics
+
+    def finish(state, grads):
+        model = state["params"]
         if microbatches > 1:
             for _, acc in leaves(grads):
                 acc.div_(microbatches)
         model.zero_grad(set_to_none=True)
         new_params, state["opt"] = opt.update(
             grads, state["opt"], params_tree(model), state["step"])
-        del grads
+        grads.clear()  # the accumulator goes before the new parameters land
         load_params_tree(model, new_params)
         state["step"] = state["step"] + 1
+
+    def train_step(state, batch):
+        model = state["params"]
+        batch, grads = begin(state, batch)
+        if grads is None:
+            metrics = grad_fn(model, batch)
+            grads = params_tree(model, grads=True)
+        else:
+            for i in range(microbatches):
+                metrics = accumulate(model, microbatch_of(batch, i,
+                                                          microbatches), grads)
+        finish(state, grads)
         return state, metrics
 
+    train_step.begin = begin
+    train_step.accumulate = accumulate
+    train_step.finish = finish
     return train_step

@@ -7,6 +7,8 @@ plain PyTorch version; they are held against the reference's
 themselves run only on a card: the tests marked ``gpu`` compare them with
 their plain versions there (``tests/test_torch_kernels_gpu.py``).
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -152,12 +154,15 @@ def test_plain_versions_on_views_and_sentinels():
 
 
 def test_wrappers_route_by_device():
+    # a meta tensor takes the shape-only route; no other device has one
     x = torch.zeros((8, 8), device="meta")
-    with pytest.raises(RuntimeError, match="no kernel"):
-        ops.tiled_matmul(x, x)
-    with pytest.raises(RuntimeError, match="no kernel"):
-        ops.bsmm_cols(x, x, torch.zeros((1, 1), dtype=torch.int32),
+    assert ops.tiled_matmul(x, x).device.type == "meta"
+    c = ops.bsmm_cols(x, x, torch.zeros((1, 1), dtype=torch.int32),
                       bm=8, bk=8, bn=8)
+    assert c.device.type == "meta" and c.shape == (8, 8)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops._route(types.SimpleNamespace(device=torch.device("xpu")),
+                   tiled_matmul_cuda, None, None)
     before = (tiled_matmul_cuda.launches, bsmm_cuda.launches)
     ops.tiled_matmul(torch.ones(8, 8), torch.ones(8, 8))
     ops.bsmm(torch.ones(8, 8), torch.ones(8, 8), np.ones((1, 1), bool))

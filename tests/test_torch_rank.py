@@ -205,8 +205,8 @@ def test_grouped_gemm_wrapper_checks_its_map():
         ops.grouped_gemm(x, w, np.array([0]), bt=12)
     with pytest.raises(ValueError, match="one entry per"):
         grouped_gemm_plain(x, w, torch.zeros(3, dtype=torch.int32), bt=8)
-    with pytest.raises(RuntimeError, match="no kernel"):
-        ops.grouped_gemm(x.to("meta"), w.to("meta"), np.array([0, 1]), bt=8)
+    y = ops.grouped_gemm(x.to("meta"), w.to("meta"), np.array([0, 1]), bt=8)
+    assert y.device.type == "meta" and y.shape == (16, 3)  # shape-only
     with pytest.raises(ValueError, match="CUDA"):
         grouped_gemm_cuda(x, w, torch.zeros(2, dtype=torch.int32), bt=8)
 
