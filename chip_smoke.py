@@ -235,7 +235,27 @@ raises, so the script exits non-zero:
    entry (stats reset before the call).  For (a) and (b) it prints the
    uncounted warm wall, the bound on the card and its dominant term,
    bound / wall and model FLOP / (wall x the bf16 peak).  The card's
-   peaks come from ``analysis.cost.DEFAULT_HW``.
+   peaks come from ``analysis.cost.DEFAULT_HW``.  (e) llama3.2-1b's
+   ``serve.engine.decode_step`` at [serve]'s shape (4 slots, 4096 + 64
+   context), held the same way, and: its bytes at least its weights plus
+   the K/V cache it reads, and at most 1.1 x that plus the cache's fp32
+   copy (``_partial_attn`` widens the bf16 cache, writing 2x its bytes
+   and reading them again); its cache writes charged twice the update
+   (``analyze_hlo``'s scatter rule); its temporaries the peak less the
+   arguments less the outputs that are not the cache it updates in place,
+   above 0.  And (b)'s FLOP fall from 3.51259605336064e14 by exactly the
+   units' last products, 16 x 2 x 32768 x 8192 x 2048, which the remat
+   backward no longer recomputes;
+
+   [examples] the four examples (``examples/torch_*.py``), each imported
+   and its ``main`` called on the card under the plain guard, every count
+   set to 0 just before and read just after: the quickstart and the
+   block-sparse contraction on the 1x1 grid (their products held against
+   their oracles by the examples themselves; ``tiled_matmul`` and
+   ``bsmm`` launched), the batched server on llama3.2-1b's smoke config
+   (one ``flash_attention`` launch per layer), the training example for
+   60 steps (the loss falls; resumed from step 50 it retraces the run;
+   no kernel).  Each one's wall and launches are printed.
 
 Every product runs on an empty autotune cache, so its launch counts do
 not depend on the cache, except the two that check the cache: the end of
@@ -251,6 +271,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib.util
 import io
 import json
 import math
@@ -3898,6 +3919,12 @@ def phase_train() -> dict:
 DRY_PREFILL_BATCH = 4
 DRY_MOE_LAYERS, DRY_MOE_BATCH = 1, 1
 DRY_PEAK_RTOL = 0.15
+#: [train]'s step as counted while remat still recomputed each unit's last
+#: product
+DRY_TRAIN_FLOP_BEFORE = 3.51259605336064e14
+#: (e): the decode step's bytes over its weights, the K/V cache it reads
+#: and the cache's fp32 copy
+DRY_DECODE_BYTES_RTOL = 1.1
 
 
 def meta_ctx(**kw) -> ParallelCtx:
@@ -4039,8 +4066,66 @@ def dry_train() -> dict:
         cfg, shape, meta_ctx(attention_impl="chunked"), TRAIN_MICRO,
         opt=train_opt(TRAIN_STEPS))
     out = hold_dry(what, card, meta, {})
+    # remat no longer recomputes each unit's last product, the FFN's down
+    # projection over the step's tokens
+    dead = cfg.units * 2 * TRAIN_BATCH * TRAIN_SEQ * cfg.d_ff * cfg.d_model
+    hold(DRY_TRAIN_FLOP_BEFORE - out["flops"] == dead,
+         f"{what}: FLOP {out['flops']:.17g} = the earlier count "
+         f"{DRY_TRAIN_FLOP_BEFORE:.17g} less the units' last products "
+         f"{dead:.17g}")
     out.update(dry_roofline(what, card[0], wall,
                             launch_dryrun.model_flops_per_step(cfg, shape)))
+    return out
+
+
+def dry_decode() -> dict:
+    cfg = get_config(LM_ARCH)
+    b, s = SERVE_BATCH, SERVE_PROMPT + SERVE_GEN
+    what = f"(e) decode step {cfg.name} {b} slots x {s} context"
+    shape = ShapeConfig("decode", s, b, "decode")
+    model = card_model(cfg)
+    ctx = ParallelCtx(Grid.local(DEVICE))
+    cache = serve_engine.init_cache(cfg, b, s, device=DEVICE)
+    tokens = torch.zeros((b,), dtype=torch.int32, device=DEVICE)
+
+    def fn(m, c, t):
+        return serve_engine.decode_step(m, c, t, cfg, ctx)
+
+    # not under inference_mode: there composite ops (einsum, matmul) reach
+    # the counter whole, where ``meta`` counts their products
+    fn(model, cache, tokens)
+    card = card_count(fn, model, cache, tokens, kernels={}, what=what)
+    wall = timed(fn, model, cache, tokens)
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    kv = sum(t.numel() * t.element_size()
+             for _, t in train_tree.leaves(cache) if t.is_floating_point())
+    del model, cache
+    torch.cuda.empty_cache()
+    meta = launch_dryrun.count_cell(cfg, shape, meta_ctx(), 1)
+    out = hold_dry(what, card, meta, {})
+    wc, mem, _ = card
+    reads, widened = weights + kv, weights + 5 * kv
+    log(f"  {what}: bytes {wc.hbm_bytes:.17g}; weights {weights} + K/V "
+        f"cache {kv} = {reads} ({wc.hbm_bytes / reads:.4f} x); with the "
+        f"cache's fp32 copy written and read, {widened} "
+        f"({wc.hbm_bytes / widened:.4f} x)")
+    hold(reads <= wc.hbm_bytes <= DRY_DECODE_BYTES_RTOL * widened,
+         f"{what}: weights + cache <= bytes <= {DRY_DECODE_BYTES_RTOL} x "
+         "(weights + cache + its fp32 copy written and read)")
+    update = b * cfg.num_kv_heads * cfg.resolved_head_dim * 2  # bf16 rows
+    writes = 2 * cfg.num_layers  # K and V of every layer
+    hold(wc.by_op.get("aten.index_put_") == [writes, 0.0, writes * 2 * update],
+         f"{what}: cache writes {wc.by_op.get('aten.index_put_')} = "
+         f"{writes} x twice the {update}-byte update")
+    temp = mem.peak_live_bytes - mem.argument_size_in_bytes - (
+        mem.output_size_in_bytes - mem.alias_size_in_bytes)
+    hold(mem.temp_size_in_bytes == temp > 0,
+         f"{what}: temporaries {mem.temp_size_in_bytes:.17g} = peak less "
+         f"arguments less the outputs not updated in place "
+         f"({mem.alias_size_in_bytes:.17g} aliased)")
+    out.update(dry_roofline(what, wc, wall,
+                            launch_dryrun.model_flops_per_step(cfg, shape)))
+    out.update(weights=weights, kv=kv, temp=mem.temp_size_in_bytes)
     return out
 
 
@@ -4120,9 +4205,77 @@ def phase_dryrun(a_mask, b_mask) -> dict:
         f"{DEFAULT_HW.peak_flops:.4g} FLOP/s bf16, {DEFAULT_HW.hbm_bw:.4g} "
         f"B/s)")
     out = {"bsmm": dry_bsmm(a_mask, b_mask), "prefill": dry_prefill(),
-           "moe": dry_moe(), "train": dry_train()}
+           "moe": dry_moe(), "train": dry_train(), "decode": dry_decode()}
     out["wall"] = time.perf_counter() - t_phase
     log(f"  [dryrun] took {out['wall']:.1f} s")
+    return out
+
+
+# -- [examples] ------------------------------------------------------------
+
+EXAMPLE_TRAIN_STEPS = 60
+
+
+def run_example(script: str, argv: list, versions, want: dict,
+                exact: bool) -> dict:
+    """``examples/<script>``'s ``main(argv)`` on the card inside the plain
+    guard, every count set to 0 just before and read just after; its
+    printed lines echoed.  Each kernel of ``want`` must have launched
+    that many times (``exact``) or at least once (not ``exact``: the
+    engine's schedules decide how many)."""
+    path = ROOT / "examples" / script
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with plain_guard(versions, "[examples]"), contextlib.redirect_stdout(buf):
+        result = module.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"  python examples/{script} {' '.join(argv)}")
+    for line in buf.getvalue().splitlines():
+        log(f"    | {line}")
+    log(f"    wall {wall:.3f} s (host clock ending in synchronize); "
+        f"launches {counts}")
+    if exact:
+        hold_counts(counts, want, script)
+    else:
+        hold(all(counts[k] > 0 for k in want),
+             f"{script}: launches {counts}, each of {sorted(want)} at least "
+             "once")
+    return dict(wall=wall, launches=counts, result=result)
+
+
+def phase_examples() -> dict:
+    """[examples] the four examples on the card; returns their walls and
+    launches."""
+    t_phase = time.perf_counter()
+    log(f"[examples] examples/torch_*.py on the card ({smi()})")
+    smoke = get_config(LM_ARCH, smoke=True)
+    dev = ["--device", DEVICE]
+    out = {
+        "quickstart": run_example("torch_quickstart.py", dev, PLAIN_VERSIONS,
+                                  {"tiled_matmul": 1}, exact=False),
+        "blocksparse": run_example("torch_blocksparse_contraction.py", dev,
+                                   PLAIN_VERSIONS, {"bsmm": 1}, exact=False),
+        "serve": run_example("torch_serve_batch.py",
+                             ["--arch", LM_ARCH, *dev], PLAIN_VERSIONS,
+                             {"flash_attention": smoke.num_layers},
+                             exact=True),
+        "train": run_example("torch_train_e2e.py",
+                             ["--steps", str(EXAMPLE_TRAIN_STEPS), *dev],
+                             CLI_PLAIN_VERSIONS, {}, exact=True),
+    }
+    losses = out["train"]["result"]["losses"]
+    hold(losses[-1] < losses[0], f"torch_train_e2e.py: loss {losses[0]:.4f}"
+         f" -> {losses[-1]:.4f} over {len(losses)} steps")
+    shutil.rmtree(ROOT / "build" / "torch_train_e2e", ignore_errors=True)
+    out["wall"] = time.perf_counter() - t_phase
+    log(f"  [examples] took {out['wall']:.1f} s")
     return out
 
 
@@ -4232,6 +4385,7 @@ def main() -> None:
     serve = phase_serve()
     train = phase_train()
     dry = phase_dryrun(a_mask, b_mask)
+    examples = phase_examples()
     fixed, cont, quant = serve["fixed"], serve["continuous"], serve["kv_quant"]
     for label in ("first", "warm"):
         pre, dec = fixed[label]["walls"]
@@ -4262,7 +4416,7 @@ def main() -> None:
         f"{train['tokens_per_s']:,.0f} tokens/s, peak "
         f"{train['peak'] / 2**30:.2f} GiB, launches {train['counts']}; "
         f"[train] {train['wall']:.1f} s")
-    for key in ("prefill", "train"):
+    for key in ("prefill", "train", "decode"):
         d = dry[key]
         log(f"  [dryrun] {LM_ARCH} {key}: warm {d['wall']:.4f} s, bound "
             f"{d['bound_s']:.4f} s ({d['dominant']}), bound/wall "
@@ -4270,6 +4424,10 @@ def main() -> None:
             f"{d['mfu']:.4f}; counted peak {d['peak'] / 2**30:.2f} GiB "
             f"(peak above the arguments at {d['ratio']:.4f} of the "
             f"allocator's); [dryrun] {dry['wall']:.1f} s")
+    for name, e in examples.items():
+        if name != "wall":
+            log(f"  [examples] {name}: {e['wall']:.3f} s, launches "
+                f"{e['launches']}")
     log(f"  {XL_ARCH} chunkwise mLSTM forward: warm "
         f"{recurrent['xl_chunked']['wall']:.3f} s, peak "
         f"{recurrent['xl_chunked']['peak'] / 2**30:.2f} GiB")

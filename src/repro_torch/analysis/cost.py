@@ -6,12 +6,20 @@ has no HLO, so it counts the call itself as it runs:
 
 * ``CostCounter``, a ``TorchDispatchMode``, sees every aten op the call
   dispatches (autograd's backward included).  For each op that is not a
-  view or a metadata op it counts the bytes of the op's tensor inputs
-  and outputs (the port runs eager and unfused, so each op is a kernel
-  over HBM; there is no on-chip threshold), and for every matrix
+  view or a metadata op it counts the bytes the op moves (the port runs
+  eager and unfused, so each op is a kernel over HBM; there is no
+  on-chip threshold): its tensor inputs read and its outputs written,
+  except that a destination an op only overwrites (``copy_``,
+  ``fill_``, ``zero_``, an ``out=`` tensor) is not read, and that
+  indexed ops are charged as ``analyze_hlo`` charges them: a gather or
+  slice copy (``index``, ``gather``, ``index_select``, ``embedding``,
+  ...) twice its result, an indexed write (``index_put_``, the
+  ``scatter`` family, ``index_add_``, ``slice_scatter``, ...) twice the
+  values it writes, at most twice its result.  And for every matrix
   product (``mm``, ``addmm``, ``bmm``, ``baddbmm``, which ``matmul`` and
-  ``einsum`` lower to, and ``addmm_``, ``baddbmm_``) 2·M·N·K FLOP — the reference's ``dot`` rule,
-  with the formulas of ``torch.utils.flop_counter``.
+  ``einsum`` lower to, and ``addmm_``, ``baddbmm_``) 2·M·N·K FLOP — the
+  reference's ``dot`` rule, with the formulas of
+  ``torch.utils.flop_counter``.
 * The four hand-written kernels are not torch ops: each wrapper of
   ``kernels/ops.py`` reports its function's work through
   ``kernel_call`` and suspends the counter inside, so the CUDA kernel,
@@ -46,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import weakref
 from typing import Any
 
@@ -110,6 +119,29 @@ _PRODUCTS[_aten.baddbmm_] = _PRODUCTS[_aten.baddbmm]
 _ALIASING = {_aten._unsafe_view, _aten._reshape_alias, _aten.alias,
              _aten.lift_fresh}
 
+#: gathers and slice copies: they read what they return and write it, the
+#: reference's ``gather`` and ``dynamic-slice`` (twice the result)
+_GATHERS = {_aten.index, _aten.gather, _aten.index_select, _aten.embedding,
+            _aten.take, _aten.narrow_copy, _aten.slice_copy,
+            _aten.select_copy}
+
+#: indexed writes, the reference's ``scatter`` and ``dynamic-update-slice``
+#: (twice the values written, at most twice the result), by the argument
+#: that says how many elements they write
+_INDEX_PUTS = {_aten.index_put_, _aten.index_put, _aten._index_put_impl_}
+_SCATTERS = {
+    **dict.fromkeys((_aten.scatter, _aten.scatter_, _aten.scatter_add,
+                     _aten.scatter_add_, _aten.scatter_reduce,
+                     _aten.scatter_reduce_), "index"),
+    **dict.fromkeys((_aten.index_add, _aten.index_add_, _aten.index_copy,
+                     _aten.index_copy_), "source"),
+    **dict.fromkeys((_aten.slice_scatter, _aten.select_scatter,
+                     _aten.diagonal_scatter), "src"),
+}
+
+#: ops that overwrite their first argument without reading it
+_OVERWRITES = {_aten.copy_, _aten.fill_, _aten.zero_}
+
 #: ops that move no data: allocation and metadata (their new storages are
 #: still tracked)
 _NO_TRAFFIC = {_aten.empty, _aten.empty_like, _aten.empty_strided,
@@ -121,6 +153,49 @@ _NO_TRAFFIC = {_aten.empty, _aten.empty_like, _aten.empty_strided,
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
+
+
+def _arg(func, args, kwargs, name: str):
+    """The argument ``name`` of a call of the aten op ``func``."""
+    if name in kwargs:
+        return kwargs[name]
+    for i, a in enumerate(func._schema.arguments):
+        if a.name == name:
+            return args[i] if i < len(args) else a.default_value
+    raise KeyError(name)
+
+
+def _written_elements(func, args, kwargs) -> int:
+    """How many elements an indexed write stores: an ``index_put``'s
+    indexed positions (its long indices broadcast, times the dimensions
+    they leave whole; a boolean index counts its values), a scatter's
+    index, an ``index_add``'s source, a ``slice_scatter``'s source."""
+    packet = func.overloadpacket
+    if packet not in _INDEX_PUTS:
+        return _arg(func, args, kwargs, _SCATTERS[packet]).numel()
+    shape = _arg(func, args, kwargs, "self").shape
+    indices = list(_arg(func, args, kwargs, "indices"))
+    live = [i for i in indices if i is not None]
+    if any(i.dtype == torch.bool for i in live):
+        return _arg(func, args, kwargs, "values").numel()
+    whole = [shape[d] for d, i in enumerate(indices) if i is None]
+    return (math.prod(torch.broadcast_shapes(*(i.shape for i in live)))
+            * math.prod(whole) * math.prod(shape[len(indices):]))
+
+
+def _traffic(func, args, kwargs, outs) -> int:
+    """The bytes an op moves (see the module's docstring)."""
+    packet = func.overloadpacket
+    written = sum(_nbytes(t) for t in outs)
+    if packet in _GATHERS:
+        return 2 * written
+    if packet in _INDEX_PUTS or packet in _SCATTERS:
+        item = _arg(func, args, kwargs, "self").element_size()
+        return min(2 * _written_elements(func, args, kwargs) * item,
+                   2 * written)
+    reads = _tensors(args[1:] if packet in _OVERWRITES else args, [])
+    reads = _tensors({k: v for k, v in kwargs.items() if k != "out"}, reads)
+    return sum(_nbytes(t) for t in reads) + written
 
 
 def _tensors(tree, out: list) -> list:
@@ -140,13 +215,13 @@ def _tensors(tree, out: list) -> list:
     return out
 
 
-def _storage_bytes(tensors) -> int:
-    """Bytes of the distinct storages behind ``tensors``."""
+def _storages(tensors) -> dict[int, int]:
+    """The distinct storages behind ``tensors``: key -> bytes."""
     seen = {}
     for t in tensors:
         st = t.untyped_storage()
         seen[st._cdata] = st.nbytes()
-    return sum(seen.values())
+    return seen
 
 
 @dataclasses.dataclass
@@ -189,19 +264,22 @@ class WeightedCost:
 @dataclasses.dataclass
 class MemoryCost:
     """The counterpart of ``compiled.memory_analysis()``: the bytes of the
-    call's arguments and outputs (distinct storages), and the most bytes
-    live at once — the arguments (until freed) and what the call created
-    (until freed).  ``temp_size_in_bytes`` is that peak less the
-    arguments and the outputs, at least 0."""
+    call's arguments and outputs (distinct storages), of the outputs that
+    are argument storages (``alias_size_in_bytes``: updated in place, as
+    a decode step's cache), and the most bytes live at once — the
+    arguments (until freed) and what the call created (until freed).
+    ``temp_size_in_bytes`` is that peak less the arguments and the
+    outputs that are not among them, at least 0."""
 
     argument_size_in_bytes: float
     output_size_in_bytes: float
     peak_live_bytes: float
+    alias_size_in_bytes: float = 0.0
 
     @property
     def temp_size_in_bytes(self) -> float:
         return max(0.0, self.peak_live_bytes - self.argument_size_in_bytes
-                   - self.output_size_in_bytes)
+                   - (self.output_size_in_bytes - self.alias_size_in_bytes))
 
 
 def extrapolate(one, two, n: int):
@@ -437,8 +515,7 @@ class CostCounter(TorchDispatchMode):
             return out
         product = _PRODUCTS.get(packet)
         flops = product(*args, **kwargs, out_val=out) if product else 0
-        self._add(str(packet), flops,
-                  sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs))
+        self._add(str(packet), flops, _traffic(func, args, kwargs, outs))
         return out
 
 
@@ -453,14 +530,18 @@ def analyze_step(fn, *args, device=None, counter=None, **kw):
         device = arg_tensors[0].device
     counter = counter if counter is not None else CostCounter(device)
     dev = [t for t in arg_tensors if counter._on_device((t,))]
-    argument = _storage_bytes(dev)
+    arg_storages = _storages(dev)
+    argument = sum(arg_storages.values())
     with counter:
         counter.track(dev, created=False)
         out = fn(*args, **kw)
-    outs = [t for t in _tensors(out, []) if counter._on_device((t,))]
-    mem = MemoryCost(argument_size_in_bytes=float(argument),
-                     output_size_in_bytes=float(_storage_bytes(outs)),
-                     peak_live_bytes=float(argument + counter.peak_delta))
+    outs = _storages(t for t in _tensors(out, []) if counter._on_device((t,)))
+    mem = MemoryCost(
+        argument_size_in_bytes=float(argument),
+        output_size_in_bytes=float(sum(outs.values())),
+        peak_live_bytes=float(argument + counter.peak_delta),
+        alias_size_in_bytes=float(sum(b for k, b in outs.items()
+                                      if k in arg_storages)))
     return out, counter.cost(), mem
 
 

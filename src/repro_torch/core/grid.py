@@ -36,9 +36,24 @@ Every grid is on ``cuda`` unless its caller names another device: a grid
 built without one never runs on the CPU.
 
 Each collective over an axis with peers reports its result bytes on this
-rank to the active ``analysis.cost.CostCounter`` (``exchange`` as a
-``collective-permute`` per buffer received); the identity on an axis of
-one rank reports nothing.
+rank to the active ``analysis.cost.CostCounter`` (``exchange`` and
+``ring_shift`` as a ``collective-permute`` per buffer received); the
+identity on an axis of one rank reports nothing.
+
+The collectives are not autograd-aware.  Four that are, for per-rank
+programs over operands every rank holds whole (the port keeps
+activations whole until the sharding rules come, ROADMAP A8b), each the
+other's transpose in the backward, where the cotangent of a whole result
+is the same on every rank (each computes the same loss):
+
+* ``shard(x, axis, dim)`` — this rank's chunk of ``dim``; its gradient
+  is gathered over ``axis``;
+* ``gather(x, axis, dim)`` — ``all_gather``; its gradient is this rank's
+  chunk of the whole one;
+* ``sum(x, axis)`` — ``all_reduce`` (the reference's ``psum``); its
+  gradient is the whole one, on every rank;
+* ``replicate(x, axis)`` — the identity; its gradient is summed over
+  ``axis``: an input whose uses the ranks split among themselves.
 """
 from __future__ import annotations
 
@@ -311,6 +326,67 @@ class Grid:
         report_collective("all-reduce", out)
         return out
 
+    def ring_shift(self, x: torch.Tensor, axis, *, async_op: bool = False):
+        """The ``x`` of the previous rank along ``axis`` (index - 1, mod
+        its size): every rank sends its ``x`` to the next one, the
+        reference's ``ppermute`` with the permutation i -> i + 1.  Returns
+        ``(buffer, work)``; with ``async_op`` the buffer is valid once
+        ``work.wait()`` returned (``work`` is None when nothing was sent:
+        on an axis of one rank the buffer is ``x``)."""
+        size = self.axis_size(axis)
+        if size == 1:
+            return x, None
+        self.check_world()
+        me = self.axis_index(axis)
+        send = x.contiguous()
+        buf = torch.empty_like(send)
+        work = _Works([
+            dist.irecv(buf, src=self.rank_at({axis: (me - 1) % size})),
+            dist.isend(send, dst=self.rank_at({axis: (me + 1) % size})),
+        ], send)
+        report_collective("collective-permute", buf)
+        if async_op:
+            return buf, work
+        work.wait()
+        return buf, None
+
+    # -- collectives that autograd sees (see the module's docstring) ----------
+
+    def shard(self, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        """This rank's chunk of ``x`` along ``dim``, in axis order; its
+        gradient is gathered over ``axis``."""
+        return _Transposed.apply(x, self, axis, dim, ("slice", "gather"))
+
+    def gather(self, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        """``all_gather(x, axis, dim)``; its gradient is this rank's
+        chunk of the whole one."""
+        return _Transposed.apply(x, self, axis, dim, ("gather", "slice"))
+
+    def sum(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """``all_reduce(x, axis)``; its gradient is the whole one."""
+        return _Transposed.apply(x, self, axis, 0, ("sum", "identity"))
+
+    def replicate(self, x: torch.Tensor, axis) -> torch.Tensor:
+        """``x``; its gradient is summed over ``axis``."""
+        return _Transposed.apply(x, self, axis, 0, ("identity", "sum"))
+
+    def _collective(self, kind: str, x: torch.Tensor, axis, dim: int
+                    ) -> torch.Tensor:
+        if kind == "identity":
+            return x
+        if kind == "sum":
+            return self.all_reduce(x, axis)
+        if kind == "gather":
+            return self.all_gather(x, axis, dim)
+        size = self.axis_size(axis)
+        if x.shape[dim] % size:
+            raise ValueError(
+                f"dim {dim} of {tuple(x.shape)} does not divide by the "
+                f"{size} ranks of axis {axis!r}"
+            )
+        n = x.shape[dim] // size
+        return x.narrow(dim, self.axis_index(axis) * n, n).contiguous()
+
     def exchange(self, sends, recvs) -> int:
         """Point-to-point transfers between world ranks: every ``(rank,
         tensor)`` of ``sends`` goes to that rank, and every ``(rank,
@@ -326,6 +402,34 @@ class Grid:
         for _, buf in recvs:
             report_collective("collective-permute", buf)
         return sum(buf.numel() * buf.element_size() for _, buf in recvs)
+
+
+class _Works:
+    """Point-to-point works waited on together; keeps the sent tensor
+    alive until then."""
+
+    def __init__(self, works, keep):
+        self.works, self.keep = works, keep
+
+    def wait(self) -> None:
+        for work in self.works:
+            work.wait()
+        self.keep = None
+
+
+class _Transposed(torch.autograd.Function):
+    """A collective of ``kinds[0]`` whose backward is ``kinds[1]``."""
+
+    @staticmethod
+    def forward(ctx, x, grid, axis, dim, kinds):
+        ctx.grid, ctx.axis, ctx.dim, ctx.kind = grid, axis, dim, kinds[1]
+        out = grid._collective(kinds[0], x, axis, dim)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.grid._collective(ctx.kind, g, ctx.axis, ctx.dim),
+                None, None, None, None)
 
 
 def _ravel(coords, sizes) -> int:

@@ -10,16 +10,23 @@ It routes by ``ctx.matmul_strategy``:
   (core.summa, paper §3.2) over the (dp x tp) grid, via the
   ``DistributedMatmul`` built by ``ctx.matmul()``.
 * ``"allgather"`` — the engine's all-gather strategy (the ``I = K``
-  endpoint of Eq. (1)).  The reference runs a ring collective matmul
-  over the TP axis instead when tp > 1 and no mask is given
-  (``allgather_matmul``); that ring is not ported (ROADMAP A8) and
-  raises.
+  endpoint of Eq. (1)); when tp > 1, the shapes divide and no mask is
+  given, the ring collective matmul over the TP axis instead
+  (``allgather_matmul``), as in the reference.
 * ``"auto"`` — per-shape pick by *simulated time*: the schedule tuner
   (``sched.tuner``) searches lookahead x k_blocks x strategy over the
   discrete-event simulator and the engine executes the winner.  Where
   the ring is eligible (tp > 1) and its pipeline estimate
-  (``ring_makespan``) beats the tuned makespan, the reference runs the
-  ring; here that raises (ROADMAP A8).
+  (``ring_makespan``) beats the tuned makespan, the ring runs instead.
+
+``allgather_matmul`` is the reference's ``shard_map`` program as a
+per-rank program on a ``Grid``: each rank holds its M-chunk of the
+activations and its N-columns of the weight, and the chunks travel the
+TP ring (``Grid.ring_shift``) while each rank multiplies the one in
+hand.  Every rank holds whole activations until the sharding rules are
+ported (ROADMAP A8b), so ``project``'s ring route slices the rank's
+shards from the whole operands and gathers the tiles back to whole
+(``Grid.shard`` / ``Grid.gather``, which autograd sees).
 
 ``project`` also accepts an optional block mask over the weight
 (``w_mask``, or one registered in ``ctx.weight_block_masks``): the
@@ -28,15 +35,18 @@ blocks so every strategy computes the same masked product.  All
 strategies accumulate in fp32 and return the activation dtype, so
 swapping them changes only the schedule, not the arithmetic contract.
 
-Gradients.  The xla route differentiates through ``matmul_f32``.  The
-engine routes run as ``_EngineMatmul``, an autograd Function whose
-backward runs two more engine products with the same schedule: dX =
-dY·Wᵀ (under Wᵀ's block mask) and dW = Xᵀ·dY (the weight's masked
-blocks zeroed), so the paper's algorithm runs in the backward too, as the
-reference's autodiff of its ``shard_map`` program does.  Autograd never
-traces the executors (their in-place accumulation and the ``Grid``
-collectives are not autograd-aware): every rank holds whole operands,
-runs the same products and so gets the whole gradient.
+Gradients.  The xla route differentiates through ``matmul_f32``; the
+ring through ``_RingMatmul``, whose backward is the reference's
+transpose: dW by the same ring over the activation chunks, dX by a ring
+reduce-scatter of dY·Wᵀ.  The engine routes run as ``_EngineMatmul``,
+an autograd Function whose backward runs two more engine products with
+the same schedule: dX = dY·Wᵀ (under Wᵀ's block mask) and dW = Xᵀ·dY
+(the weight's masked blocks zeroed), so the paper's algorithm runs in
+the backward too, as the reference's autodiff of its ``shard_map``
+program does.  Autograd never traces the executors (their in-place
+accumulation and the ``Grid``'s plain collectives are not
+autograd-aware): every rank holds whole operands, runs the same
+products and so gets the whole gradient.
 """
 from __future__ import annotations
 
@@ -44,9 +54,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.summa import _apply_block_mask
-from repro_torch.models.layers import matmul_f32
+from repro_torch.models.layers import fill_after_node, matmul_f32
 
-__all__ = ["project"]
+__all__ = ["allgather_matmul", "project"]
 
 
 def _mask_weight(w: torch.Tensor, w_mask: np.ndarray) -> torch.Tensor:
@@ -63,13 +73,16 @@ def _ring_eligible(ctx, x2: torch.Tensor, w: torch.Tensor) -> bool:
 
 
 class _EngineMatmul(torch.autograd.Function):
-    """``mm(x2, w)`` on the engine, with an engine backward."""
+    """The node of ``mm(x2, w)`` on the engine, with an engine backward.
+    Its forward only saves the operands and allocates the result (in
+    ``x2``'s dtype, the engine's); ``project`` fills it
+    (``layers.fill_after_node``)."""
 
     @staticmethod
     def forward(ctx, x2, w, mm, w_mask, strategy, tune):
         ctx.save_for_backward(x2, w)
         ctx.route = (mm, w_mask, strategy, tune)
-        return mm(x2, w, b_mask=w_mask, strategy=strategy, tune=tune)
+        return x2.new_empty((x2.shape[0], w.shape[1]))
 
     @staticmethod
     def backward(ctx, dy):
@@ -87,6 +100,126 @@ class _EngineMatmul(torch.autograd.Function):
                 dw = _mask_weight(dw, w_mask)
             dw = dw.to(w.dtype)
         return dx, dw, None, None, None, None
+
+
+def _ring(grid, axis, chunk, lookahead: int, consume) -> None:
+    """Send ``chunk`` around the ring of ``axis``: ``consume(src, c)``
+    for each of the ring's chunks ``c`` (``src`` its owner's index along
+    the axis) in the order they arrive.  ``lookahead`` = I hops are in
+    flight, clamped to the ring's size: hop g + I is posted before chunk
+    g is consumed."""
+    p, me = grid.axis_size(axis), grid.axis_index(axis)
+    la = max(1, min(lookahead, p))
+    bufs = [chunk.contiguous()]
+    for _ in range(la - 1):  # prologue: I hops in flight
+        bufs.append(grid.ring_shift(bufs[-1], axis)[0])
+    steady = p - la
+    for g in range(steady):
+        nxt, work = grid.ring_shift(bufs[-1], axis, async_op=True)
+        consume((me - g) % p, bufs[0])
+        if work is not None:
+            work.wait()
+        bufs = bufs[1:] + [nxt]
+    for i in range(la):  # epilogue: drain the I chunks in hand
+        consume((me - steady - i) % p, bufs[i])
+
+
+class _RingMatmul(torch.autograd.Function):
+    """``allgather_matmul``'s rank program, with the reference's
+    transpose as its backward: dW_loc by the same ring over the chunks of
+    x (summed over the batch axes, over which W_loc is replicated), dX_loc
+    by a ring reduce-scatter of dY·W_locᵀ, each hop overlapping the next
+    chunk's product."""
+
+    @staticmethod
+    def forward(ctx, x, w, grid, axis, batch_axes, lookahead, accum_dtype):
+        ctx.save_for_backward(x, w)
+        ctx.route = (grid, axis, batch_axes, lookahead)
+        m = x.shape[0]
+        acc = torch.zeros((grid.axis_size(axis) * m, w.shape[1]),
+                          dtype=accum_dtype, device=x.device)
+
+        def tile(src, c):
+            acc[src * m:(src + 1) * m] = matmul_f32(c, w,
+                                                    out_dtype=accum_dtype)
+
+        _ring(grid, axis, x, lookahead, tile)
+        return acc.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        grid, axis, batch_axes, lookahead = ctx.route
+        p, me = grid.axis_size(axis), grid.axis_index(axis)
+        m = x.shape[0]
+        rows = [dy[src * m:(src + 1) * m] for src in range(p)]
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            acc = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+
+            def add(src, c):
+                acc.add_(matmul_f32(c.t(), rows[src]))
+
+            _ring(grid, axis, x, lookahead, add)
+            if batch_axes:
+                acc = grid.all_reduce(acc, batch_axes)
+            dw = acc.to(w.dtype)
+        if ctx.needs_input_grad[0]:
+            # the partial sum for chunk t travels t+1 -> ... -> t
+            wt = w.t()
+            part = matmul_f32(rows[(me - 1) % p], wt)
+            for s in range(1, p):
+                recv, work = grid.ring_shift(part, axis, async_op=True)
+                mine = matmul_f32(rows[(me - 1 - s) % p], wt)
+                work.wait()
+                part = recv + mine
+            dx = part.to(x.dtype)
+        return dx, dw, None, None, None, None, None
+
+
+def allgather_matmul(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    grid,
+    axis: str,
+    batch_axes: tuple[str, ...] = (),
+    lookahead: int = 2,
+    accum_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Ring all-gather matmul with multiple-issue lookahead, one rank's
+    program (the reference's ``shard_map`` body).
+
+    ``x`` is this rank's (m_loc, K) chunk of the (M, K) activations,
+    whose M is sharded over ``(*batch_axes, axis)``; ``w`` its (K, N/P)
+    columns of the weight, sharded over ``axis`` (P ranks) and replicated
+    over ``batch_axes``.  The chunks travel the ring one hop a step while
+    each rank multiplies the one in hand against its columns, accumulating
+    in ``accum_dtype``; ``lookahead`` is the pipeline depth I of paper Eq.
+    (1), clamped to P.  Each product's tile goes to rows ``src·m_loc`` of
+    its owner.  Global FLOP are exactly 2·M·K·N.
+
+    Returns the rank's (M / |batch_axes|, N / P) tile in ``x.dtype``.
+    Differentiable (``_RingMatmul``).
+    """
+    (_, k), (k2, _) = x.shape, w.shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)}")
+    return _RingMatmul.apply(x, w, grid, axis, tuple(batch_axes), lookahead,
+                             accum_dtype)
+
+
+def _ring_project(x2: torch.Tensor, w: torch.Tensor, ctx) -> torch.Tensor:
+    """``x2 @ w`` through the ring on ``ctx``'s grid, from and to whole
+    operands: each rank's shards are sliced out, and the tiles gathered
+    back over the TP axis, then the DP axes."""
+    grid, axis = ctx.grid, ctx.tp_axis
+    x_loc = grid.shard(x2, (*ctx.dp_axes, axis), dim=0)
+    w_loc = grid.shard(w, axis, dim=1)
+    tile = allgather_matmul(x_loc, w_loc, grid=grid, axis=axis,
+                            batch_axes=ctx.dp_axes)
+    return grid.gather(grid.gather(tile, axis, dim=1), ctx.dp, dim=0)
 
 
 def project(
@@ -137,11 +270,16 @@ def project(
                 strategy = "summa"
                 tune = True
     if strategy in ("allgather", "ring") and ring_ok and w_mask is None:
-        raise NotImplementedError(
-            "the tp > 1 ring collective matmul (allgather_matmul) is not "
-            "ported yet (ROADMAP A8)"
-        )
-    summa_strategy = None if strategy == "summa" else strategy
-    out = _EngineMatmul.apply(x2, w, ctx.matmul(), w_mask, summa_strategy,
-                              tune)
+        return _ring_project(x2, w, ctx).reshape(*lead, w.shape[-1])
+    summa_strategy = {"summa": None, "ring": None}.get(strategy, strategy)
+    mm = ctx.matmul()
+
+    def run(_out=None):  # the engine allocates its own result
+        return mm(x2, w, b_mask=w_mask, strategy=summa_strategy, tune=tune)
+
+    if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+        out = fill_after_node(_EngineMatmul.apply(
+            x2, w, mm, w_mask, summa_strategy, tune), run)
+    else:
+        out = run()
     return out.reshape(*lead, w.shape[-1])

@@ -14,7 +14,7 @@ through ``ctx.wsc`` and ``repro_torch.dist.collective_matmul.project``.
 The port holds a ``core.grid.Grid`` (or ``None``) where the reference
 holds a ``Mesh``.  Activations are whole on every rank, so ``wsc`` (the
 reference's sharding constraint) is the identity; the port's sharding
-rules wait for ROADMAP A8.  ``matmul()`` wires the paper's engine into
+rules wait for ROADMAP A8b.  ``matmul()`` wires the paper's engine into
 the LM stack: with ``matmul_strategy="summa"`` it builds a
 ``core.api.DistributedMatmul`` over the (dp x tp) grid running the
 task-based multiple-issue schedule, and the FFN projections route
@@ -117,7 +117,7 @@ class ParallelCtx:
 
     def wsc(self, x, *entries):
         """The reference's sharding constraint: the identity, since every
-        rank holds whole activations (sharding rules: ROADMAP A8)."""
+        rank holds whole activations (sharding rules: ROADMAP A8b)."""
         del entries
         return x
 

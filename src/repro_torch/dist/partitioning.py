@@ -27,7 +27,7 @@ parameters, ``train.train_step.state_shardings`` with the reference's
 stacked tree.
 
 The port keeps every weight whole on every rank until the sharding
-rules of ROADMAP A8 land: ``launch.serve`` computes these specs on its
+rules of ROADMAP A8b land: ``launch.serve`` computes these specs on its
 grid and reports the bytes a rank would hold under them, and slices
 nothing.
 """

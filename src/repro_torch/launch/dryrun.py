@@ -26,9 +26,9 @@ chips and reads its HLO, the port builds the cell on the ``meta`` device
   simulated schedules, the model FLOPs, and the bytes of the arguments a
   rank would hold under the spec tuples of ``param_shardings``,
   ``state_shardings``, ``batch_shardings`` and ``cache_shardings``.
-  Activations are whole on every rank until ROADMAP A8, so nothing
+  Activations are whole on every rank until ROADMAP A8b, so nothing
   stands in for a rank's compute there: the cell says ``"per_device":
-  "not ported: ROADMAP A8"``.
+  "not ported: ROADMAP A8b"``.
 
 Each cell is one JSON with the reference's keys, less
 ``xla_cost_analysis``: ``lower_s`` is the seconds spent building the
@@ -70,7 +70,7 @@ DEFAULT_MICROBATCHES = 16
 MESHES = ("1", "16x16", "2x16x16")
 _MESH_TAGS = {"1": "1card", "16x16": "1pod", "2x16x16": "2pod"}
 #: what a production-grid cell records in place of per-device counts
-PER_DEVICE_STATUS = "not ported: ROADMAP A8"
+PER_DEVICE_STATUS = "not ported: ROADMAP A8b"
 
 
 def make_ctx(
@@ -498,6 +498,7 @@ def _mem_dict(mem) -> dict:
     for attr in (
         "argument_size_in_bytes",
         "output_size_in_bytes",
+        "alias_size_in_bytes",
         "temp_size_in_bytes",
         "peak_live_bytes",
     ):

@@ -74,7 +74,7 @@ def _run_continuous(params, cfg, ctx, args):
 def param_bytes(params, grid) -> tuple[int, int]:
     """(bytes of the weights, bytes a rank would hold under
     ``param_shardings`` on ``grid``).  The port keeps the weights whole
-    on every rank until the sharding rules land (ROADMAP A8) and slices
+    on every rank until the sharding rules land (ROADMAP A8b) and slices
     nothing."""
     named = dict(params.named_parameters())
     specs = param_shardings({n: p.shape for n, p in named.items()}, grid)

@@ -24,7 +24,7 @@ from torch import nn
 __all__ = [
     "ACTIVATIONS", "Dense", "Embedding", "LayerNorm", "MROPE_SECTIONS",
     "RMSNorm", "apply_mrope", "apply_rope", "dense", "embed", "gelu", "init_params", "layernorm",
-    "matmul_f32", "rmsnorm", "rope_frequencies", "silu", "torch_dtype",
+    "fill_after_node", "matmul_f32", "rmsnorm", "rope_frequencies", "silu", "torch_dtype",
     "unembed",
 ]
 
@@ -54,8 +54,10 @@ def _param(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` (2-D) as exact products summed in fp32, returned in fp32.
+def _mm_f32(a: torch.Tensor, b: torch.Tensor,
+            out: torch.Tensor | None = None) -> torch.Tensor:
+    """``a @ b`` (2-D) as exact products summed in fp32, returned in fp32
+    (written into ``out``, an fp32 tensor, when given).
 
     On the card a pair of one narrower dtype goes to one GEMM with an fp32
     output (``torch.mm(..., out_dtype=torch.float32)``).  A pair of mixed
@@ -65,24 +67,49 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     shape-only count (``analysis.cost``) counts the card's ops.
     """
     if a.dtype == torch.float32 and b.dtype == torch.float32:
-        return torch.mm(a, b)
+        return torch.mm(a, b, out=out)
     if a.device.type == "cpu" or a.dtype != b.dtype:
-        return torch.mm(a.float(), b.float())
-    return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.mm(a.float(), b.float(), out=out)
+    return torch.mm(a, b, out_dtype=torch.float32, out=out)
+
+
+def fill_after_node(y: torch.Tensor, compute) -> torch.Tensor:
+    """Write ``compute()`` into ``y``, the unfilled result of an autograd
+    node that has already saved its operands, outside autograd; returns
+    ``y``.  ``compute`` may take ``y`` to write an fp32 result in place.
+
+    Why the split: a custom ``autograd.Function`` saves its operands only
+    after its forward returns, where an aten op saves them before it
+    computes.  ``torch.utils.checkpoint``'s recompute stops once the last
+    saved operand is back, so a product computed inside its node's
+    forward is recomputed even when it is a unit's last product, whose
+    result nothing in the backward reads; computed after the node, it is
+    not, which is what XLA's remat leaves after removing dead code."""
+    with torch.no_grad():
+        out = compute(y if y.dtype == torch.float32 else None)
+        if out is not y:
+            y.copy_(out)
+    return y
+
+
+def _records(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 class _MatmulF32(torch.autograd.Function):
-    """``_mm_f32`` cast to ``out_dtype``, with a derivative
+    """The node of ``_mm_f32`` cast to ``out_dtype``, with a derivative
     (``torch.mm(..., out_dtype=...)`` has none): the gradient of each
     operand is again a product summed in fp32 of the cotangent, in the
     output's dtype, and the other operand, returned in that operand's
     dtype, as the reference's transpose of a
-    ``preferred_element_type=float32`` product is."""
+    ``preferred_element_type=float32`` product is.  Its forward only saves
+    the operands and allocates the result; ``matmul_f32`` fills it
+    (``fill_after_node``)."""
 
     @staticmethod
     def forward(ctx, x2, w, out_dtype):
         ctx.save_for_backward(x2, w)
-        return _mm_f32(x2, w).to(out_dtype)
+        return x2.new_empty((x2.shape[0], w.shape[1]), dtype=out_dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -111,7 +138,12 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor, *,
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w).to(out_dtype)
     lead = x.shape[:-1]
-    y = _MatmulF32.apply(x.reshape(-1, x.shape[-1]), w, out_dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    if _records(x2, w):
+        y = fill_after_node(_MatmulF32.apply(x2, w, out_dtype),
+                            lambda out: _mm_f32(x2, w, out))
+    else:
+        y = _mm_f32(x2, w).to(out_dtype)
     return y.reshape(*lead, w.shape[-1])
 
 

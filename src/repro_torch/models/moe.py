@@ -17,14 +17,19 @@ of a block-diagonal matmul, the irregular structure the paper targets.
      the tile -> expert map is a function of the shapes alone, built on
      the host.
   4. Each rank scatters its partial outputs back to token order and one
-     ``Grid.all_reduce`` over the tp axis combines the ranks.
+     ``Grid.sum`` over the tp axis combines the ranks.
 
 Where the reference runs step 2-4 as a ``shard_map`` over the mesh,
 each rank here runs ``_dispatch_compute_combine`` on its own experts,
 ``[ep·E_loc, (ep+1)·E_loc)``, and on the whole activations (the
-sharding rules of ``ParallelCtx.wsc`` wait for ROADMAP A8); a context
+sharding rules of ``ParallelCtx.wsc`` wait for ROADMAP A8b); a context
 without a grid runs ``_dispatch_compute_combine_local``, one rank
-holding every expert.  Experts are zero-padded to a multiple of the
+holding every expert.  Gradients flow through expert parallelism as
+through the reference's ``psum`` under ``shard_map``: the collectives
+are the Grid's autograd-aware ones, so every rank gets the whole
+gradient — the activations' and router gates' summed over the tp axis
+(``Grid.replicate``), each expert weight's gathered from the rank that
+holds it (``Grid.shard``).  Experts are zero-padded to a multiple of the
 expert-parallel degree (``MoE(..., ep=...)``), so one grid axis serves
 any expert count.
 """
@@ -182,21 +187,16 @@ def _dispatch_compute_combine(h, topi, gates, w_gate, w_up, w_down, *,
     (ep+1)·E_loc)`` of the stacked weights (views), dispatch -> expert
     GEMMs -> combine, then the sum over ``tp_axis`` (the reference's
     ``psum``).  A context without a tp axis is one rank."""
-    ranks = grid.axis_size(tp_axis) if tp_axis is not None else 1
-    if ranks > 1 and torch.is_grad_enabled() and (
-            h.requires_grad or w_gate.requires_grad):
-        # the partial outputs' sum is not autograd-aware, and each rank
-        # would need the whole dh: a gradient here would be silently wrong
-        raise NotImplementedError(
-            "gradients through expert parallelism (Grid.all_reduce over "
-            f"{ranks} ranks) are not ported (ROADMAP A10)")
-    ep = grid.axis_index(tp_axis) if tp_axis is not None else 0
-    e_loc = e_pad // ranks
-    mine = slice(ep * e_loc, (ep + 1) * e_loc)
+    kw = dict(e_pad=e_pad, top_k=top_k, cap=cap, use_kernel=use_kernel)
+    if tp_axis is None:
+        return _dispatch_compute_combine_local(h, topi, gates, w_gate, w_up,
+                                               w_down, **kw)
+    ep = grid.axis_index(tp_axis)
     y = _dispatch_compute_combine_local(
-        h, topi, gates, w_gate[mine], w_up[mine], w_down[mine], ep=ep,
-        e_pad=e_pad, top_k=top_k, cap=cap, use_kernel=use_kernel)
-    return y if tp_axis is None else grid.all_reduce(y, tp_axis)
+        grid.replicate(h, tp_axis), topi, grid.replicate(gates, tp_axis),
+        *(grid.shard(w, tp_axis, dim=0) for w in (w_gate, w_up, w_down)),
+        ep=ep, **kw)
+    return grid.sum(y, tp_axis)
 
 
 def _dispatch_compute_combine_local(h, topi, gates, w_gate, w_up, w_down, *,

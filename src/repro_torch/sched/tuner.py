@@ -18,10 +18,10 @@ Entry points:
   the winning strategy / ``k_blocks`` and whose ``lookahead`` field holds
   the winning window (``core.summa._exec_taskbased`` honors it).  The
   search record is attached as ``plan.tuned``.
-* :func:`ring_makespan` — closed-form pipeline estimate for the
-  reference's ring collective matmul (``allgather_matmul``, not ported:
-  ROADMAP A8), so ``project(strategy="auto")`` can route between the ring
-  and the tuned SUMMA schedule on simulated time instead of bytes.
+* :func:`ring_makespan` — closed-form pipeline estimate for the ring
+  collective matmul (``dist.collective_matmul.allgather_matmul``), so
+  ``project(strategy="auto")`` can route between the ring and the tuned
+  SUMMA schedule on simulated time instead of bytes.
 """
 from __future__ import annotations
 

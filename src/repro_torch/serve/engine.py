@@ -35,7 +35,7 @@ tensor runs its plain version, which computes the reference's function
 and the MoE blocks are torch ops, as the reference's einsums are.
 
 On a grid of more than one rank, activations and weights are whole on
-every rank (ROADMAP A8); ``prefill`` keeps each KV leaf's block of
+every rank (ROADMAP A8b); ``prefill`` keeps each KV leaf's block of
 ``cache_shardings`` (batch over DP, S over TP) and the recurrent states
 and ``pos`` whole.
 

@@ -24,7 +24,7 @@ reshaping of live state.  Each step brings the argmax tokens back to the
 host once; on the card a step's latency ends in a synchronize, so p50
 and p99 time the work, not the launch queue.  The pool lives on the
 model's device; grids of more than one DP rank are not served here
-(their batch-sharded pools wait for ROADMAP A8's sharding rules).
+(their batch-sharded pools wait for ROADMAP A8b's sharding rules).
 """
 from __future__ import annotations
 
@@ -108,7 +108,7 @@ class Scheduler:
         if ctx.dp_size > 1:
             raise NotImplementedError(
                 "a slot pool sharded over DP ranks needs the sharding rules "
-                "of ROADMAP A8")
+                "of ROADMAP A8b")
         self.params = params
         self.cfg = cfg
         self.ctx = ctx

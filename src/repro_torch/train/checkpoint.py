@@ -16,7 +16,7 @@ checkpoint written by either package is read by the other.  The train
 state is saved in the reference's tree (``train.train_step.state_tree``:
 the units' parameters stacked on a leading axis).
 
-The port keeps every tensor whole (ROADMAP A8), so restore takes a
+The port keeps every tensor whole (ROADMAP A8b), so restore takes a
 device where the reference takes shardings: leaves are loaded on the
 host and moved there.
 """

@@ -14,7 +14,7 @@ sum), then applies the optimizer once and updates the state in place.
 Sharding is spec tuples only (``state_shardings``, ``batch_shardings``:
 the reference's NamedShardings' specs, its mirror rule included): every
 rank holds whole tensors and runs the same step on the whole batch
-(ROADMAP A8), so ``ctx.zero1`` changes no number.
+(ROADMAP A8b), so ``ctx.zero1`` changes no number.
 """
 from __future__ import annotations
 

@@ -413,12 +413,14 @@ def test_context_matches_reference_fields_and_validation():
 
 
 def test_unported_projection_routes_raise():
-    """The ring (A8) still raises: under "allgather", and under "auto"
-    where its pipeline estimate beats the tuned schedule, as the
-    reference's tuner also finds.  "auto" (A1), which raised here until
-    the tuner was ported, now equals the reference's projection, masked
-    or not, and ``plan_projection(tune=True)`` the reference's tuned
-    plan."""
+    """The ring runs only on a grid with a ``torch.distributed`` world
+    behind it (``tests/test_torch_ring.py``, ``tests/test_torch_grid8.py``):
+    on a planning-only grid it is refused, under "allgather" and under
+    "auto" where its pipeline estimate beats the tuned schedule, as the
+    reference's tuner also finds, as every execution is refused there.
+    "auto" (A1), which raised here until the tuner was ported, equals the
+    reference's projection, masked or not, and
+    ``plan_projection(tune=True)`` the reference's tuned plan."""
     from repro.core.plan import plan_matmul as ref_plan_matmul
     from repro.sched import abstract_summa_config, ring_makespan, tune_plan
 
@@ -437,12 +439,12 @@ def test_unported_projection_routes_raise():
     assert len(tuned) == 2 and all(p.tuned is not None for p in tuned)
     ring = ParallelCtx(Grid(sizes=(1, 2), device=torch.device("cpu")),
                        matmul_strategy="allgather")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="planning-only grid"):
         project(torch.from_numpy(x), torch.from_numpy(w), ring)
     ring_auto = ParallelCtx(Grid(sizes=(1, 2), device=torch.device("cpu")),
                             matmul_strategy="auto")
     xr, wr = torch.ones((16, 64)), torch.ones((64, 4096))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="planning-only grid"):
         project(xr, wr, ring_auto)
     ref_plan = tune_plan(ref_plan_matmul(
         16, 64, 4096, abstract_summa_config(1, 2, strategy="taskbased")))
