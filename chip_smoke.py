@@ -257,6 +257,29 @@ raises, so the script exits non-zero:
    60 steps (the loss falls; resumed from step 50 it retraces the run;
    no kernel).  Each one's wall and launches are printed.
 
+   [shard] the sharding rules (``dist.partitioning.shard_params``) as
+   per-rank programs: two gloo processes on the one card (the same spawn
+   as ``launch.mesh.spawn_gloo_ranks``; NCCL refuses two ranks on one
+   device, so every collective goes through host memory and none across
+   cards is measured), each holding only its blocks.  llama3.2-1b at full
+   width and depth, bf16, a forward of 4 x 4096 on 1x2 (tp: 16 q / 4 kv
+   heads per rank) and on 2x1 (dp: 2 rows per rank), each against the
+   1x1 forward at the bf16 pair hold, 16 ``flash_attention`` launches per
+   rank, the rank's parameter bytes equal to its spec's share, and on 1x2
+   block 0 held layer by layer at the output's scale (its attention block
+   against the 1x1 block, ``flash_attention`` at the rank's 16 q / 4 kv
+   heads against its plain version); one AdamW
+   step on 2x1 (FSDP + DP), 4 x 4096 in 2 microbatches, against the 1x1
+   step at [train]'s holds (loss, every parameter block, every first
+   moment), peak memory per process printed; mixtral-8x7b cut to 2 layers
+   on 1 x 4096 at 1x2 (4 experts per rank, 3 ``grouped_gemm`` per layer on
+   each rank) against the 1x1 forward, and block 0 layer by layer (its
+   attention block and its MoE layer on the rank's experts against the
+   1x1 ones, ``flash_attention`` and ``grouped_gemm`` on 4 experts against
+   their plain versions, at the output's scale); the scheduler on 2x1, 8
+   ragged requests on 4 slots (2 per rank) on an fp32 twin at full width
+   cut to 2 layers, every request's greedy tokens equal to the 1x1 run's.
+
 Every product runs on an empty autotune cache, so its launch counts do
 not depend on the cache, except the two that check the cache: the end of
 [autotune] and the ``tile="auto"`` product of [nonuniform] install the
@@ -2134,12 +2157,14 @@ def stream_shape(inputs: dict, cfg) -> tuple[int, int]:
     return parts[0].shape[0], sum(x.shape[1] for x in parts)
 
 
-def run_forward(model, inputs, cfg, ctx, *, use_kernel, what, experts=None):
+def run_forward(model, inputs, cfg, ctx, *, use_kernel, what, experts=None,
+                shape=None):
     """One forward of ``inputs`` (a dict, or the tokens alone) with every
     launch count set to 0 just before and read just after; returns
     (logits, wall seconds, counts, peak bytes).  ``experts`` (default
     ``use_kernel``) sets the MoE blocks' expert GEMMs apart from attention
-    (``expert_route``)."""
+    (``expert_route``).  ``shape`` is the logits' (a rank's, on a sharded
+    model), by default the whole batch's."""
     if isinstance(inputs, torch.Tensor):
         inputs = {"tokens": inputs}
     experts = use_kernel if experts is None else experts
@@ -2166,8 +2191,8 @@ def run_forward(model, inputs, cfg, ctx, *, use_kernel, what, experts=None):
         raise AssertionError(
             f"{what}: expected launches {want} and no other kernel, got "
             f"{counts}")
-    b, s = stream_shape(inputs, cfg)
-    if logits.shape != (b, s, cfg.vocab_size) or logits.dtype != torch.float32:
+    shape = shape or (*stream_shape(inputs, cfg), cfg.vocab_size)
+    if logits.shape != shape or logits.dtype != torch.float32:
         raise AssertionError(f"{what}: logits {tuple(logits.shape)} "
                              f"{logits.dtype}")
     return logits, wall, counts, peak
@@ -2875,7 +2900,7 @@ def walk_blocks(model, inputs, cfg, ctx, other, kinds, what: str) -> float:
     compound each rounding that differs); returns the worst share."""
     worst = 0.0
     with torch.inference_mode():
-        x = lm_model.embed_inputs(model, inputs, cfg)
+        x = lm_model.embed_inputs(model, inputs, cfg, ctx)
         b, s = x.shape[:2]
         pos = torch.arange(s, device=x.device)[None].expand(b, s)
         blocks = [(kind, unit[f"b{j}"]) for unit in model.units
@@ -4279,6 +4304,361 @@ def phase_examples() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# [shard]: per-rank programs on sharded parameters
+# ---------------------------------------------------------------------------
+
+#: [shard]: two gloo processes on the one card (NCCL refuses two ranks on
+#: one device), each holding only its blocks of the parameters
+#: (``dist.partitioning.shard_params``) and running its rows, heads,
+#: hidden columns, experts and vocab; every collective goes through host
+#: memory (gloo), so the phase shows the per-rank programs and their
+#: kernels right at shard shapes and measures no collective across cards.
+#: llama3.2-1b at full width and depth, a bf16 forward of LM_BATCH x
+#: LM_SEQ on 1x2 (tp: 16 q / 4 kv heads per rank) and 2x1 (dp: 2 rows per
+#: rank) against the 1x1 forward at the bf16 pair hold; one AdamW step on
+#: 2x1 (FSDP + DP) of SHARD_TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO
+#: microbatches against the 1x1 step at [train]'s holds; mixtral-8x7b cut
+#: to SHARD_MOE_LAYERS layers on 1 x MOE_SEQ at 1x2 (4 experts per rank);
+#: and the scheduler on 2x1, SHARD_REQUESTS ragged requests on
+#: SHARD_SLOTS slots (2 per rank), on an fp32 twin at full width cut to
+#: SHARD_SERVE_LAYERS layers, its greedy tokens equal to the 1x1 run's
+SHARD_WORLD = 2
+SHARD_TRAIN_BATCH = 4
+SHARD_MOE_LAYERS = 2
+SHARD_SERVE_LAYERS, SHARD_SLOTS, SHARD_REQUESTS = 2, 4, 8
+SHARD_PROMPTS, SHARD_GENS = (128, 256), (2, 8)
+
+
+def shard_forward(model, tokens, cfg, grid, ref, what: str) -> dict:
+    """``model`` cut to this rank's blocks on ``grid``; its forward
+    through the kernels (counts read per rank) against this rank's part
+    of the 1x1 logits ``ref`` at the bf16 pair hold (a MoE pair by its
+    argmax agreement alone: a token whose router logits tie within the
+    rounding goes to another expert, see LM_BF16_PAIR_AGREE); its held
+    bytes equal to the spec's share.  On a tensor-parallel grid, block 0
+    and the kernels at the rank's shapes are held layer by layer
+    (``hold_shard_layers``)."""
+    from repro_torch.dist.partitioning import shard_params
+
+    ctx = ParallelCtx(grid)
+    part = shard_params(copy.deepcopy(model), grid)
+    whole, held = launch_serve.param_bytes(part, grid)
+    _, share = launch_serve.param_bytes(model, grid)
+    hold(held == share, f"{what}: the rank holds {held:,} of {whole:,} bytes "
+         f"of parameters, the spec's share {share:,}")
+    rows = ctx.block(torch.arange(tokens.shape[0]), ctx.dp)
+    v0, n = ctx.tp_part(cfg.vocab_size)
+    shape = (len(rows), tokens.shape[1], n)
+    logits, wall, counts, peak = run_forward(
+        part, tokens, cfg, ctx, use_kernel=True, what=what, shape=shape)
+    rel, share_ok = logit_distance(
+        logits, ref[rows.tolist()][..., v0:v0 + n], f"{what} vs 1x1")
+    if cfg.moe is None:
+        hold(rel <= LM_BF16_PAIR_REL and share_ok >= LM_BF16_PAIR_AGREE,
+             f"{what} vs the 1x1 forward within {LM_BF16_PAIR_REL} and at "
+             f"least {LM_BF16_PAIR_AGREE}")
+    else:
+        hold(share_ok >= LM_BF16_PAIR_AGREE, f"{what} vs the 1x1 forward: "
+             f"argmax agreement at least {LM_BF16_PAIR_AGREE}")
+    del logits
+    torch.cuda.empty_cache()
+    layers = (hold_shard_layers(model, part, tokens, cfg, ctx, what)
+              if ctx.tp_size > 1 else {})
+    del part
+    torch.cuda.empty_cache()
+    return dict(rel=rel, agree=share_ok, wall=wall, peak=peak,
+                launches=counts, held=held, layers=layers)
+
+
+def hold_shard_layers(model, part, tokens, cfg, ctx, what: str) -> dict:
+    """Block 0 of the rank's sharded ``part`` against block 0 of the 1x1
+    ``model`` on the same embedded ``tokens`` (this rank's rows), each at
+    the output's scale (``hold_at_scale``): the attention block (the
+    rank's heads, their partial outputs summed over tp) and, for a MoE
+    config, the MoE layer on the rank's experts (routed alike: its router
+    weight is gathered whole), aux losses equal within 1e-6.  And each
+    kernel at the rank's shapes against its plain version on the same
+    operands, at ``hold_at_scale``: ``flash_attention`` on the q, k, v of
+    the rank's heads (the first row), ``grouped_gemm`` on a capacity
+    buffer of the rank's experts.  These launches are not the main path's (its counts were
+    read before).  Returns each worst share of its limit."""
+    rows = ctx.block(torch.arange(tokens.shape[0]), ctx.dp).tolist()
+    blk, one = part.units[0]["b0"], model.units[0]["b0"]
+    xla = ParallelCtx(None)
+    out = {}
+    with torch.inference_mode():
+        x = model_layers.embed(model.embed, tokens[rows])
+        b, s = x.shape[:2]
+        pos = torch.arange(s, device=x.device)[None].expand(b, s)
+        got = attention_layer.attention(blk.attn, x, pos, cfg, ctx,
+                                        window=cfg.window, use_kernel=True)
+        want = attention_layer.attention(one.attn, x, pos, cfg, xla,
+                                         window=cfg.window, use_kernel=True)
+        out["attention"] = hold_at_scale(
+            got, want, f"{what}: attention block 0 on the rank's heads vs "
+            "the 1x1 block")
+        h = model_layers.rmsnorm(blk.attn.norm, x, cfg.norm_eps)
+        # the first row: the plain version holds its fp32 scores
+        q, k, v = (t[:1].transpose(1, 2) for t in
+                   attention_layer._project_qkv(blk.attn, h, pos, cfg, ctx))
+        got = flash_attention_cuda(q, k, v, causal=cfg.causal,
+                                   window=cfg.window)
+        out["flash_attention"] = hold_at_scale(
+            got, flash_attention_plain(q, k, v, causal=cfg.causal,
+                                       window=cfg.window),
+            f"{what}: flash_attention at the rank's {q.shape[1]} q / "
+            f"{k.shape[1]} kv heads (B=1, S={s}) vs its plain version")
+        del got, want, h, q, k, v
+        if blk.moe is not None:
+            got, aux = moe_layer.moe_ffn(blk.moe, x, cfg, ctx,
+                                         use_kernel=True)
+            want, want_aux = moe_layer.moe_ffn(one.moe, x, cfg, xla,
+                                               use_kernel=True)
+            out["moe"] = hold_at_scale(
+                got, want, f"{what}: MoE layer 0 on the rank's experts vs "
+                "the 1x1 layer")
+            hold(abs(float(aux) - float(want_aux))
+                 <= 1e-6 * abs(float(want_aux)),
+                 f"{what}: MoE aux loss {float(aux):.8g} vs the 1x1 layer's "
+                 f"{float(want_aux):.8g}")
+            w = ctx.weight(blk.moe.w_gate, tp_dim=0)  # the rank's experts
+            e_loc = w.shape[0]
+            cap = moe_layer.capacity(cfg.moe, s, moe_layer.padded_experts(
+                cfg.moe, ctx.tp_size))
+            buf = torch.randn((b * e_loc * cap, cfg.d_model),
+                              generator=torch.Generator(
+                                  device=DEVICE).manual_seed(SEED + 11),
+                              device=DEVICE).to(w.dtype)
+            te = torch.from_numpy(np.tile(np.arange(e_loc, dtype=np.int32),
+                                          b))
+            got = grouped_gemm_cuda(buf, w, te, bt=cap)
+            out["grouped_gemm"] = hold_at_scale(
+                got, grouped_gemm_plain(buf, w, te, bt=cap),
+                f"{what}: grouped_gemm on the rank's {e_loc} experts "
+                f"(T={buf.shape[0]}, D={cfg.d_model}, F={w.shape[2]}, "
+                f"bt={cap}) vs its plain version")
+            del got, want, w, buf
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_forwards(tp, dp) -> dict:
+    cfg = get_config(LM_ARCH)
+    model = card_model(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                           generator=torch.Generator(
+                               device=DEVICE).manual_seed(SEED + 6),
+                           device=DEVICE)
+    ref, _, _, _ = run_forward(model, tokens, cfg, ParallelCtx(None),
+                               use_kernel=True,
+                               what=f"1x1 forward B={LM_BATCH} S={LM_SEQ}")
+    out = {}
+    for name, grid in (("1x2", tp), ("2x1", dp)):
+        out[name] = shard_forward(model, tokens, cfg, grid, ref,
+                                  f"{name} forward B={LM_BATCH} S={LM_SEQ}")
+    del ref, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_train(dp, rank: int) -> dict:
+    """One AdamW step on 2x1 (FSDP + DP) against the 1x1 step on the same
+    batch: the loss within TRAIN_SUMMA_RTOL, the rank's block of every
+    parameter within TRAIN_MB_HOLD, of every first moment within
+    TRAIN_MB_M_HOLD of its leaf's max |m|.  The 1x1 step runs on one rank
+    at a time."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.partitioning import block_of
+    from repro_torch.models.convert import params_tree
+    from repro_torch.train import train_step as ts
+
+    cfg = get_config(LM_ARCH)
+    opt = train_opt(TRAIN_STEPS)
+    batch = SyntheticData(cfg, SHARD_TRAIN_BATCH, TRAIN_SEQ,
+                          seed=SEED + 1).batch_at(0)
+    ctx = ParallelCtx(dp, attention_impl="chunked")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = new_train_state(cfg, ctx, opt)
+    with plain_guard(PLAIN_VERSIONS, "[shard]"):
+        zero_counts()
+        t0 = time.perf_counter()
+        state, metrics = build_train_step(
+            cfg, ctx, opt, microbatches=TRAIN_MICRO)(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hold_counts(read_counts(), {}, "[shard] 2x1 train step")
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(metrics["loss"])
+    specs = ts.state_shardings(state, ctx)
+    mine = {"p": params_tree(state["params"]), "m": state["opt"]["m"]}
+    log(f"  2x1 train step, {SHARD_TRAIN_BATCH} x {TRAIN_SEQ} in "
+        f"{TRAIN_MICRO} microbatches: loss {loss:.6f}, wall {wall:.3f} s, "
+        f"peak {peak / 2**30:.2f} GiB in this process")
+    del state, metrics
+    torch.cuda.empty_cache()
+
+    def blocks(tree, spec_tree):
+        return train_tree.tree_map(
+            lambda x, spec: block_of(x, spec, dp) if spec else x, tree,
+            spec_tree)
+
+    ref = {}
+    for turn in range(SHARD_WORLD):  # the 1x1 step, one rank at a time
+        if turn == rank:
+            one = train_ctx()
+            st = new_train_state(cfg, one, opt)
+            with plain_guard(PLAIN_VERSIONS, "[shard]"):
+                st, met = build_train_step(
+                    cfg, one, opt, microbatches=TRAIN_MICRO)(st, batch)
+            ref = {"p": blocks(params_tree(st["params"]), specs["params"]),
+                   "m": blocks(st["opt"]["m"], specs["opt"]["m"]),
+                   "loss": float(met["loss"])}
+            del st, met
+            torch.cuda.empty_cache()
+        dist.barrier()
+    gap_p = max(float((x.float() - train_tree.at(ref["p"], path).float())
+                      .abs().max())
+                for path, x in train_tree.leaves(mine["p"]))
+    gap_m = first_moment_gap(mine["m"], ref["m"])
+    what = f"2x1 train step vs 1x1 ({cfg.num_layers} layers)"
+    hold(abs(loss - ref["loss"]) <= TRAIN_SUMMA_RTOL * abs(ref["loss"]),
+         f"{what}: loss {loss:.6f} against {ref['loss']:.6f} within rtol "
+         f"{TRAIN_SUMMA_RTOL}")
+    hold(gap_p < TRAIN_MB_HOLD, f"{what}: the rank's parameter blocks differ "
+         f"by at most {gap_p:.3e} (< {TRAIN_MB_HOLD})")
+    hold(gap_m <= TRAIN_MB_M_HOLD, f"{what}: first moments differ by at most "
+         f"{gap_m:.3e} of the leaf's max |m| (<= {TRAIN_MB_M_HOLD})")
+    del mine, ref
+    torch.cuda.empty_cache()
+    return dict(loss=loss, gap_p=gap_p, gap_m=gap_m, wall=wall, peak=peak)
+
+
+def shard_moe(tp) -> dict:
+    """mixtral-8x7b cut to SHARD_MOE_LAYERS layers at full width on 1x2:
+    4 of its 8 experts per rank, 3 grouped_gemm launches per layer on the
+    rank, the logits against the 1x1 forward at the bf16 pair hold."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              num_layers=SHARD_MOE_LAYERS)
+    model = init_model(cfg, generator=torch.Generator(
+        device=DEVICE).manual_seed(SEED), device=DEVICE, ep=2)
+    tokens = prompt_tokens(cfg, 1, SEED + 9)
+    ref, _, _, _ = run_forward(model, tokens, cfg, ParallelCtx(None),
+                               use_kernel=True,
+                               what=f"{MOE_ARCH} ({SHARD_MOE_LAYERS} layers) "
+                                    f"1x1 forward 1 x {MOE_SEQ}")
+    from repro_torch.dist.partitioning import shard_params
+
+    part = shard_params(copy.deepcopy(model), tp)
+    experts = part.units[0]["b0"].moe.w_gate.shape[0]
+    hold(experts == cfg.moe.num_experts // 2,
+         f"{MOE_ARCH} on 1x2: {experts} experts per rank")
+    del part
+    out = shard_forward(model, tokens, cfg, tp, ref,
+                        f"{MOE_ARCH} ({SHARD_MOE_LAYERS} layers) 1x2 forward "
+                        f"1 x {MOE_SEQ}")
+    out["experts"] = experts
+    del model, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_serve(dp) -> dict:
+    """The scheduler on 2x1 (a slot pool of SHARD_SLOTS split over dp)
+    against the 1x1 scheduler on the same trace: every request's greedy
+    tokens equal.  fp32 twin at full width cut to SHARD_SERVE_LAYERS."""
+    from repro_torch.dist.partitioning import shard_params
+
+    cfg = get_config(LM_ARCH)
+    model = card_model(cfg)
+    twin, cut = cut_twin(model, cfg, SHARD_SERVE_LAYERS)
+    del model
+    torch.cuda.empty_cache()
+
+    def trace():
+        return ragged_trace(SHARD_REQUESTS, prompt_lens=SHARD_PROMPTS,
+                            gen_lens=SHARD_GENS, vocab=cut.vocab_size,
+                            seed=SEED)
+
+    max_len = SHARD_PROMPTS[-1] + SHARD_GENS[-1]
+    out = {}
+    for name, ctx, m in (("1x1", ParallelCtx(None), twin),
+                         ("2x1", ParallelCtx(dp), shard_params(
+                             copy.deepcopy(twin), dp))):
+        with torch.inference_mode(), plain_guard(PLAIN_VERSIONS, "[shard]"):
+            zero_counts()
+            t0 = time.perf_counter()
+            res = Scheduler(m, cut, ctx, n_slots=SHARD_SLOTS,
+                            max_len=max_len).run(trace())
+            torch.cuda.synchronize()
+            counts = read_counts()
+        out[name] = dict(outputs=res["outputs"], steps=res["steps"],
+                         wall=time.perf_counter() - t0, launches=counts)
+        hold_counts(counts, {"flash_attention": SHARD_REQUESTS
+                             * attention_blocks(cut)},
+                    f"[shard] {name} scheduler ({SHARD_REQUESTS} prefills)")
+    hold(out["2x1"]["outputs"] == out["1x1"]["outputs"],
+         f"2x1 scheduler ({SHARD_SLOTS} slots, {SHARD_SLOTS // 2} per rank, "
+         f"{out['2x1']['steps']} steps): every request's greedy tokens equal "
+         "the 1x1 run's")
+    return {k: dict(v, outputs=None) for k, v in out.items()}
+
+
+def shard_child(argv: list) -> None:
+    """One rank of [shard]: joins the gloo world of SHARD_WORLD processes
+    (``launch.mesh.spawn_gloo_ranks``' arguments), runs the cases, prints
+    its result as ``SHARD-RESULT {json}``."""
+    import torch.distributed as dist
+
+    rank = int(argv[argv.index("--rank") + 1])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=argv[
+        argv.index("--init-method") + 1], rank=rank, world_size=SHARD_WORLD)
+    tp = Grid.from_process_group(1, SHARD_WORLD, device=DEVICE)
+    dp = Grid.from_process_group(SHARD_WORLD, 1, device=DEVICE)
+    out = {"rank": rank}
+    out["forward"] = shard_forwards(tp, dp)
+    out["train"] = shard_train(dp, rank)
+    out["moe"] = shard_moe(tp)
+    out["serve"] = shard_serve(dp)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    print("SHARD-RESULT " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+
+
+def phase_shard() -> dict:
+    """[shard] (see SHARD_WORLD): spawns the ranks, echoes their lines,
+    and returns rank 0's result with each rank's peak memory."""
+    from repro_torch.launch.mesh import spawn_gloo_ranks
+
+    log(f"[shard] {SHARD_WORLD} gloo processes on the one card: "
+        f"per-rank programs on sharded parameters (collectives through "
+        f"host memory; no collective across cards is measured)")
+    t0 = time.perf_counter()
+    outs = spawn_gloo_ranks(str(Path(__file__).resolve()), ["--shard"],
+                            SHARD_WORLD, timeout=900)
+    results = []
+    for rank, text in enumerate(outs):
+        for line in text.splitlines():
+            if line.startswith("SHARD-RESULT "):
+                results.append(json.loads(line[len("SHARD-RESULT "):]))
+            else:
+                log(f"  [rank {rank}] {line}")
+    if len(results) != SHARD_WORLD:
+        raise AssertionError(f"[shard]: {len(results)} of {SHARD_WORLD} "
+                             "ranks reported")
+    out = results[0]
+    out["peaks"] = [r["peak"] for r in results]
+    out["wall"] = time.perf_counter() - t0
+    log(f"  [shard] took {out['wall']:.1f} s; peak device memory per process "
+        f"{[f'{p / 2**30:.2f} GiB' for p in out['peaks']]}")
+    return out
+
+
 def main() -> None:
     kind, count = phase_device()
     phase_build()
@@ -4386,6 +4766,7 @@ def main() -> None:
     train = phase_train()
     dry = phase_dryrun(a_mask, b_mask)
     examples = phase_examples()
+    shard = phase_shard()
     fixed, cont, quant = serve["fixed"], serve["continuous"], serve["kv_quant"]
     for label in ("first", "warm"):
         pre, dec = fixed[label]["walls"]
@@ -4435,6 +4816,27 @@ def main() -> None:
         f"{summa_25d['wall_tuple']:.3f} s against the 2-D route's "
         f"{summa_25d['wall_2d']:.3f} s, {summa_25d['launches_25d']} "
         f"tiled_matmul launches each")
+    for name in ("1x2", "2x1"):
+        f = shard["forward"][name]
+        log(f"  [shard] {LM_ARCH} forward on {name} (rank 0, {LM_BATCH} x "
+            f"{LM_SEQ}): {f['rel']:.4g} of max |logit| from the 1x1 forward, "
+            f"argmax agrees at {f['agree']:.4f}; wall {f['wall']:.3f} s, peak "
+            f"{f['peak'] / 2**30:.2f} GiB, holds {f['held'] / 2**30:.2f} GiB "
+            f"of parameters, launches {f['launches']}; block 0 at its "
+            f"limits' shares {f['layers']}")
+    t, m = shard["train"], shard["moe"]
+    log(f"  [shard] {LM_ARCH} train step on 2x1 (rank 0): loss "
+        f"{t['loss']:.6f}, parameter gap {t['gap_p']:.3e}, first-moment gap "
+        f"{t['gap_m']:.3e}; wall {t['wall']:.3f} s, peak "
+        f"{t['peak'] / 2**30:.2f} GiB")
+    log(f"  [shard] {MOE_ARCH} ({SHARD_MOE_LAYERS} layers) on 1x2 (rank 0): "
+        f"{m['experts']} experts, launches {m['launches']}, "
+        f"{m['rel']:.4g} of max |logit|, agreement {m['agree']:.4f}; block "
+        f"0 at its limits' shares {m['layers']}")
+    log(f"  [shard] scheduler on 2x1: {shard['serve']['2x1']['steps']} steps "
+        f"in {shard['serve']['2x1']['wall']:.3f} s (1x1: "
+        f"{shard['serve']['1x1']['wall']:.3f} s); [shard] "
+        f"{shard['wall']:.1f} s")
     launches = {"tiled_matmul": dense_launches, "bsmm": sparse_launches,
                 "grouped_gemm": rank["pallas"]["launches"],
                 "flash_attention": lm["launches"]}
@@ -4463,4 +4865,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--shard" in sys.argv:
+        shard_child(sys.argv)
+    else:
+        main()

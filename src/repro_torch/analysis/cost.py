@@ -363,6 +363,21 @@ def kernel_call(name: str):
         counter._add_kernel(name, *call.work)
 
 
+@contextlib.contextmanager
+def paused():
+    """Count nothing inside (a collective's transfer: its bytes are
+    reported as the collective's, by ``report_collective``)."""
+    counter = active_counter()
+    if counter is None:
+        yield
+        return
+    counter._paused += 1
+    try:
+        yield
+    finally:
+        counter._paused -= 1
+
+
 def loop_steps(trips: int) -> int:
     """How many of a loop's ``trips`` identical steps to run: all, unless
     the active counter samples loops (then its ``sample_loops``, and the

@@ -35,21 +35,36 @@ Three ways to build one:
 Every grid is on ``cuda`` unless its caller names another device: a grid
 built without one never runs on the CPU.
 
+A planning-only grid on ``meta`` is a *counting* grid: it stands for the
+rank at its ``coords`` (the origin unless given) in a count of that
+rank's program (``launch.dryrun``), so its collectives over an axis with
+peers return ``meta`` results of the right shape (values do not exist on
+``meta``) and report their bytes like any other.  A grid with processes
+never counts.
+
+A gloo group runs the collectives on ``cuda`` tensors too (two ranks on
+one card, where NCCL refuses): gloo implements few of them for device
+memory, so on a gloo group every collective copies its ``cuda`` buffers
+to the host, runs there and copies the result back.  An NCCL group never
+copies through the host.
+
 Each collective over an axis with peers reports its result bytes on this
 rank to the active ``analysis.cost.CostCounter`` (``exchange`` and
 ``ring_shift`` as a ``collective-permute`` per buffer received); the
 identity on an axis of one rank reports nothing.
 
-The collectives are not autograd-aware.  Four that are, for per-rank
-programs over operands every rank holds whole (the port keeps
-activations whole until the sharding rules come, ROADMAP A8b), each the
-other's transpose in the backward, where the cotangent of a whole result
-is the same on every rank (each computes the same loss):
+The collectives are not autograd-aware.  Five that are, each the
+other's transpose in the backward:
 
 * ``shard(x, axis, dim)`` — this rank's chunk of ``dim``; its gradient
   is gathered over ``axis``;
 * ``gather(x, axis, dim)`` — ``all_gather``; its gradient is this rank's
-  chunk of the whole one;
+  chunk of the whole one, which holds where every rank of ``axis`` sees
+  the same cotangent (a computation the ranks repeat);
+* ``fsdp_gather(x, axis, dim)`` — ``all_gather``; its gradient is the
+  ``reduce_scatter`` of the cotangents, the sum over ``axis`` of each
+  rank's part: a weight gathered for rows or heads that differ between
+  the ranks (FSDP over the data axis);
 * ``sum(x, axis)`` — ``all_reduce`` (the reference's ``psum``); its
   gradient is the whole one, on every rank;
 * ``replicate(x, axis)`` — the identity; its gradient is summed over
@@ -64,7 +79,7 @@ import math
 import torch
 import torch.distributed as dist
 
-from repro_torch.analysis.cost import report_collective
+from repro_torch.analysis.cost import paused, report_collective
 
 __all__ = ["Grid"]
 
@@ -92,6 +107,7 @@ class Grid:
         if len(coords) != len(sizes) or not all(
                 0 <= c < s for c, s in zip(coords, sizes)):
             raise ValueError(f"coordinates {coords} outside grid {sizes}")
+        object.__setattr__(self, "device", torch.device(self.device))
         object.__setattr__(self, "sizes", sizes)
         object.__setattr__(self, "axis_names", names)
         object.__setattr__(self, "coords", coords)
@@ -194,9 +210,9 @@ class Grid:
         must span the initialised ``torch.distributed`` world exactly.  A
         planning-only grid (``Grid(sizes=...)`` with no world behind it)
         plans any grid but never runs a plan; a grid of one rank always
-        runs."""
+        runs; a counting grid counts one rank's program."""
         size = math.prod(self.sizes)
-        if size == 1:
+        if size == 1 or self.counting:
             return
         world = dist.get_world_size() if dist.is_initialized() else 1
         if world != size:
@@ -242,39 +258,77 @@ class Grid:
 
     # -- collectives ----------------------------------------------------------
 
+    @property
+    def counting(self) -> bool:
+        """Whether this is a counting grid (see the module's docstring): a
+        planning-only grid on ``meta``."""
+        return self.device.type == "meta" and not self.groups
+
+    def _host(self, group, x: torch.Tensor) -> bool:
+        """Whether a collective of ``group`` on ``x`` runs through host
+        memory: a ``cuda`` tensor on a gloo group."""
+        return x.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+    def _transfer(self, axis, call, out: torch.Tensor, *ins) -> None:
+        """``call(out, *ins, group=...)``, a ``torch.distributed``
+        collective writing ``out``, on ``axis``'s group, counted as
+        nothing (the collective reports its bytes itself): on a gloo group
+        through host copies of ``cuda`` buffers, on a counting grid not at
+        all (its ``out`` stays as allocated)."""
+        if self.counting:
+            return
+        group = self._group(axis)
+        with paused():
+            if not self._host(group, out):
+                call(out, *ins, group=group)
+                return
+            host = out.cpu()
+            call(host, *(t.cpu() for t in ins), group=group)
+            out.copy_(host)
+
     def broadcast(self, x: torch.Tensor, owner: int, axis, *,
                   async_op: bool = False):
         """``x`` as held by rank ``owner`` along ``axis``, on every rank of
         that axis.  Returns ``(tensor, work)``; with ``async_op`` the
         tensor is valid once ``work.wait()`` returned (``work`` is None
         when nothing was sent).  The owner's tensor is sent in place when
-        it is contiguous."""
+        it is contiguous (on a gloo group, a ``cuda`` buffer goes through
+        a host copy)."""
         if self.axis_size(axis) == 1:
             return x, None
-        group = self._group(axis)
         if self.axis_index(axis) == owner:
             buf = x.contiguous()
         else:
             buf = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        work = dist.broadcast(
-            buf, src=self.rank_at({axis: owner}), group=group,
-            async_op=async_op,
-        )
         report_collective("broadcast", buf)
-        return buf, work
+        if self.counting:
+            return buf, None
+        group = self._group(axis)
+        with paused():
+            host = buf.cpu() if self._host(group, buf) else buf
+            work = dist.broadcast(
+                host, src=self.rank_at({axis: owner}), group=group,
+                async_op=async_op,
+            )
+        work = _Works([work] if work is not None else [], None,
+                      (host, buf) if host is not buf else None)
+        if async_op:
+            return buf, work
+        work.wait()
+        return buf, None
 
     def all_gather(self, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
         """Concatenate every rank's ``x`` along ``dim``, in axis order (the
-        reference's ``all_gather(..., tiled=True)``)."""
+        reference's ``all_gather(..., tiled=True)``); on a gloo group a
+        ``cuda`` ``x`` goes through host copies (``_transfer``)."""
         size = self.axis_size(axis)
         if size == 1:
             return x
-        group = self._group(axis)
         x0 = x.movedim(dim, 0).contiguous()
         out = torch.empty(
             (size * x0.shape[0], *x0.shape[1:]), dtype=x.dtype, device=x.device
         )
-        dist.all_gather_into_tensor(out, x0, group=group)
+        self._transfer(axis, dist.all_gather_into_tensor, out, x0)
         order = self._group_order(axis)
         if order is not None:  # chunk g holds axis index order[g]
             chunks = out.view(size, *x0.shape)
@@ -288,11 +342,11 @@ class Grid:
         """Sum every rank's ``x`` and keep this rank's slice of ``dim``, in
         axis order (the reference's ``psum_scatter(..., tiled=True)``);
         ``x.shape[dim]`` must divide by the axis size.  The identity on an
-        axis of one rank."""
+        axis of one rank; on a gloo group a ``cuda`` ``x`` goes through
+        host copies (``_transfer``)."""
         size = self.axis_size(axis)
         if size == 1:
             return x
-        group = self._group(axis)
         x0 = x.movedim(dim, 0).contiguous()
         if x0.shape[0] % size:
             raise ValueError(
@@ -306,7 +360,7 @@ class Grid:
             (x0.shape[0] // size, *x0.shape[1:]), dtype=x.dtype,
             device=x.device,
         )
-        dist.reduce_scatter_tensor(out, x0, group=group)
+        self._transfer(axis, dist.reduce_scatter_tensor, out, x0)
         report_collective("reduce-scatter", out)
         return out.movedim(0, dim).contiguous()
 
@@ -315,14 +369,16 @@ class Grid:
         """The sum (``op="sum"``, the reference's ``psum``) or the
         elementwise maximum (``op="max"``, its ``pmax``) of every rank's
         ``x`` along ``axis``, as a new tensor; the identity on an axis of
-        one rank."""
+        one rank.  On a gloo group a ``cuda`` ``x`` goes through a host
+        copy (``_transfer``)."""
         ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
         if op not in ops:
             raise ValueError(f"op={op!r}; known: {sorted(ops)}")
         if self.axis_size(axis) == 1:
             return x
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, op=ops[op], group=self._group(axis))
+        self._transfer(axis, lambda t, group: dist.all_reduce(
+            t, op=ops[op], group=group), out)
         report_collective("all-reduce", out)
         return out
 
@@ -332,19 +388,26 @@ class Grid:
         reference's ``ppermute`` with the permutation i -> i + 1.  Returns
         ``(buffer, work)``; with ``async_op`` the buffer is valid once
         ``work.wait()`` returned (``work`` is None when nothing was sent:
-        on an axis of one rank the buffer is ``x``)."""
+        on an axis of one rank the buffer is ``x``).  On a gloo group a
+        ``cuda`` ``x`` travels through host copies."""
         size = self.axis_size(axis)
         if size == 1:
             return x, None
-        self.check_world()
-        me = self.axis_index(axis)
         send = x.contiguous()
         buf = torch.empty_like(send)
-        work = _Works([
-            dist.irecv(buf, src=self.rank_at({axis: (me - 1) % size})),
-            dist.isend(send, dst=self.rank_at({axis: (me + 1) % size})),
-        ], send)
         report_collective("collective-permute", buf)
+        if self.counting:
+            return buf, None
+        self.check_world()
+        me = self.axis_index(axis)
+        with paused():
+            host = self._host(self._group(axis), send)
+            h_send, h_buf = (send.cpu(), torch.empty(
+                send.shape, dtype=send.dtype)) if host else (send, buf)
+            work = _Works([
+                dist.irecv(h_buf, src=self.rank_at({axis: (me - 1) % size})),
+                dist.isend(h_send, dst=self.rank_at({axis: (me + 1) % size})),
+            ], h_send, (h_buf, buf) if host else None)
         if async_op:
             return buf, work
         work.wait()
@@ -362,6 +425,12 @@ class Grid:
         chunk of the whole one."""
         return _Transposed.apply(x, self, axis, dim, ("gather", "slice"))
 
+    def fsdp_gather(self, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
+        """``all_gather(x, axis, dim)``; its gradient is the
+        ``reduce_scatter`` of the cotangents over ``axis`` (every rank's
+        contribution summed, this rank's chunk kept)."""
+        return _Transposed.apply(x, self, axis, dim, ("gather", "scatter"))
+
     def sum(self, x: torch.Tensor, axis) -> torch.Tensor:
         """``all_reduce(x, axis)``; its gradient is the whole one."""
         return _Transposed.apply(x, self, axis, 0, ("sum", "identity"))
@@ -378,43 +447,66 @@ class Grid:
             return self.all_reduce(x, axis)
         if kind == "gather":
             return self.all_gather(x, axis, dim)
+        if kind == "scatter":
+            return self.reduce_scatter(x, axis, dim)
         size = self.axis_size(axis)
+        if size == 1:
+            return x
         if x.shape[dim] % size:
             raise ValueError(
                 f"dim {dim} of {tuple(x.shape)} does not divide by the "
                 f"{size} ranks of axis {axis!r}"
             )
         n = x.shape[dim] // size
-        return x.narrow(dim, self.axis_index(axis) * n, n).contiguous()
+        # a copy of its own: a view would keep the whole tensor alive
+        return x.narrow(dim, self.axis_index(axis) * n, n).clone(
+            memory_format=torch.contiguous_format)
 
     def exchange(self, sends, recvs) -> int:
         """Point-to-point transfers between world ranks: every ``(rank,
         tensor)`` of ``sends`` goes to that rank, and every ``(rank,
         buffer)`` of ``recvs`` (contiguous) is filled from that rank; each
         pair of ranks exchanges at most one tensor each way.  All are
-        posted before any is waited on.  Returns the bytes received."""
+        posted before any is waited on (on a gloo world, ``cuda`` buffers
+        travel through host copies).  Returns the bytes received."""
         self.check_world()
-        sends = [(peer, t.contiguous()) for peer, t in sends]  # kept alive
-        works = [dist.irecv(buf, src=peer) for peer, buf in recvs]
-        works += [dist.isend(t, dst=peer) for peer, t in sends]
-        for work in works:
-            work.wait()
+
+        def staged(t):
+            return (t.cpu() if t.device.type == "cuda"
+                    and dist.get_backend() == "gloo" else t)
+
+        sends = [(peer, t.contiguous()) for peer, t in sends]
+        with paused():
+            sends = [(peer, staged(t)) for peer, t in sends]
+            h_recvs = [(peer, staged(buf)) for peer, buf in recvs]
+            works = [dist.irecv(buf, src=peer) for peer, buf in h_recvs]
+            works += [dist.isend(t, dst=peer) for peer, t in sends]
+            for work in works:
+                work.wait()
+            for (_, buf), (_, h_buf) in zip(recvs, h_recvs):
+                if h_buf is not buf:
+                    buf.copy_(h_buf)
         for _, buf in recvs:
             report_collective("collective-permute", buf)
         return sum(buf.numel() * buf.element_size() for _, buf in recvs)
 
 
 class _Works:
-    """Point-to-point works waited on together; keeps the sent tensor
-    alive until then."""
+    """Works waited on together; keeps the sent tensor alive until then
+    and, for a collective through host memory, copies the host buffer
+    into the device one (``copy``: ``(host, device)``) once they are
+    done."""
 
-    def __init__(self, works, keep):
-        self.works, self.keep = works, keep
+    def __init__(self, works, keep, copy=None):
+        self.works, self.keep, self.copy = works, keep, copy
 
     def wait(self) -> None:
         for work in self.works:
             work.wait()
-        self.keep = None
+        if self.copy is not None:
+            with paused():
+                self.copy[1].copy_(self.copy[0])
+        self.keep = self.copy = None
 
 
 class _Transposed(torch.autograd.Function):

@@ -23,10 +23,36 @@ It routes by ``ctx.matmul_strategy``:
 per-rank program on a ``Grid``: each rank holds its M-chunk of the
 activations and its N-columns of the weight, and the chunks travel the
 TP ring (``Grid.ring_shift``) while each rank multiplies the one in
-hand.  Every rank holds whole activations until the sharding rules are
-ported (ROADMAP A8b), so ``project``'s ring route slices the rank's
-shards from the whole operands and gathers the tiles back to whole
-(``Grid.shard`` / ``Grid.gather``, which autograd sees).
+hand.
+
+On a grid ``project`` takes the rank's operands as the FFN holds them
+(``dist.partitioning.shard_params``): ``x`` its batch rows, whole over
+tp (``split_in=False``, the up and gate projections) or its part of the
+hidden (``split_in=True``, the down projection), and ``w`` the stored
+block (a weight without a spec is whole on every rank).  It returns the
+layout the reference's next constraint names: the rank's hidden columns
+where ``w``'s stored columns split them over tp, the whole output
+(summed over tp) after the down projection.  Each route takes the
+rank's shards as they come:
+
+* ``"xla"`` multiplies the rank's shards (``ParallelCtx.weight``: the
+  weight gathered over the FSDP axis), the down projection's partial
+  products summed over tp in fp32;
+* the ring (``"allgather"``/``"ring"``, or ``"auto"`` where it wins)
+  sends the rank's rows over tp round the TP ring against its columns
+  of the weight and returns its tile, the rank's hidden columns (the
+  down projection gathers the hidden first, and an output whole over tp
+  is gathered from the tiles);
+* the engine (``"summa"``, ``"auto"``) runs SUMMA on the rank's tiles
+  (``core.summa.execute_plan``): A its rows and its K-part over tp, B
+  the stored block itself (K over ``data``, N over ``model``, the
+  engine's own layout), C its tile — where the plan pads nothing and the
+  weight's spec is exactly that layout.
+
+A block-masked weight, and a plan or spec the tiles do not fit, gather
+the operands whole (autograd-aware collectives whose transposes cut the
+gradient back), run the engine's product on them, and cut the result to
+the rank's layout.
 
 ``project`` also accepts an optional block mask over the weight
 (``w_mask``, or one registered in ``ctx.weight_block_masks``): the
@@ -46,13 +72,16 @@ the backward too, as the reference's autodiff of its ``shard_map``
 program does.  Autograd never traces the executors (their in-place
 accumulation and the ``Grid``'s plain collectives are not
 autograd-aware): every rank holds whole operands, runs the same
-products and so gets the whole gradient.
+products and so gets the whole gradient; on the rank's tiles
+(``_SummaTiles``) the backward runs the same two products on the
+operands gathered whole and keeps the rank's tile of each.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core import summa as sm
 from repro_torch.core.summa import _apply_block_mask
 from repro_torch.models.layers import fill_after_node, matmul_f32
 
@@ -62,14 +91,6 @@ __all__ = ["allgather_matmul", "project"]
 def _mask_weight(w: torch.Tensor, w_mask: np.ndarray) -> torch.Tensor:
     """Zero masked blocks of a (d_in, d_out) weight (einsum-path parity)."""
     return _apply_block_mask(w, np.asarray(w_mask, dtype=bool))
-
-
-def _ring_eligible(ctx, x2: torch.Tensor, w: torch.Tensor) -> bool:
-    return (
-        ctx.tp_size > 1
-        and x2.shape[0] % (ctx.dp_size * ctx.tp_size) == 0
-        and w.shape[-1] % ctx.tp_size == 0
-    )
 
 
 class _EngineMatmul(torch.autograd.Function):
@@ -210,76 +231,173 @@ def allgather_matmul(
                              accum_dtype)
 
 
-def _ring_project(x2: torch.Tensor, w: torch.Tensor, ctx) -> torch.Tensor:
-    """``x2 @ w`` through the ring on ``ctx``'s grid, from and to whole
-    operands: each rank's shards are sliced out, and the tiles gathered
-    back over the TP axis, then the DP axes."""
-    grid, axis = ctx.grid, ctx.tp_axis
-    x_loc = grid.shard(x2, (*ctx.dp_axes, axis), dim=0)
-    w_loc = grid.shard(w, axis, dim=1)
-    tile = allgather_matmul(x_loc, w_loc, grid=grid, axis=axis,
-                            batch_axes=ctx.dp_axes)
-    return grid.gather(grid.gather(tile, axis, dim=1), ctx.dp, dim=0)
-
-
 def project(
     x: torch.Tensor,
     w: torch.Tensor,
     ctx,
     *,
     w_mask: np.ndarray | None = None,
+    split_in: bool = False,
 ) -> torch.Tensor:
     """``x @ w`` with the context's matmul strategy.
 
-    ``x``: (..., d_in) activations; ``w``: (d_in, d_out) kernel.  Leading
-    dims are flattened into SUMMA's M dimension and restored afterwards.
-    ``w_mask`` is an optional (Kblk, Nblk) block mask over the weight;
-    when omitted, ``ctx.weight_block_masks`` is consulted for the weight
-    shape.  Contexts without a grid always take the matmul path.
+    ``x``: (..., d_in) activations; ``w``: (d_in, d_out) kernel, or this
+    rank's stored block of it (see the module's docstring for the
+    layouts, and ``split_in``).  Leading dims are flattened into SUMMA's M
+    dimension and restored afterwards.  ``w_mask`` is an optional (Kblk,
+    Nblk) block mask over the whole weight; when omitted,
+    ``ctx.weight_block_masks`` is consulted for the weight's whole shape.
+    Contexts without a grid always take the matmul path.
     """
+    full = tuple(getattr(w, "full_shape", w.shape))
     if w_mask is None:
-        w_mask = ctx.weight_mask(w.shape)
-    if ctx.matmul_strategy == "xla" or not ctx.has_grid or ctx.pure_dp:
-        if w_mask is not None:
-            w = _mask_weight(w, w_mask)
-        return matmul_f32(x, w, out_dtype=x.dtype)
-    lead = x.shape[:-1]
+        w_mask = ctx.weight_mask(full)
+    split_out = not split_in and ctx.tp_sharded(w, 1)
+    plain = (not ctx.has_grid or ctx.matmul_strategy == "xla"
+             or ctx.pure_dp)
+    if plain and w_mask is None:
+        if split_in:  # the partial products summed over tp in fp32
+            y = matmul_f32(x, ctx.weight(w, tp_dim=0))
+            return ctx.tp_exit(y, True).to(x.dtype)
+        return matmul_f32(ctx.tp_enter(x, split_out),
+                          ctx.weight(w, tp_dim=1 if split_out else None),
+                          out_dtype=x.dtype)
+    grid, lead = ctx.grid, x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    strategy = ctx.matmul_strategy
-    ring_ok = _ring_eligible(ctx, x2, w)
-    tune = False
+    strategy, tune = ("xla", False) if plain else _route(
+        ctx, x2.shape[0] * ctx.dp_size, full, x2.element_size(), w_mask,
+        x2.shape[0] % ctx.tp_size == 0)
+    if strategy == "ring":
+        # the rank's rows over tp into the ring, its columns out of it
+        if split_in:
+            x2 = grid.gather(x2, ctx.tp_axis, 1)
+        tile = allgather_matmul(grid.shard(x2, ctx.tp_axis, 0),
+                                ctx.weight(w, tp_dim=1), grid=grid,
+                                axis=ctx.tp_axis)
+        if not split_out:
+            tile = grid.gather(tile, ctx.tp_axis, 1)
+        return tile.reshape(*lead, tile.shape[-1])
+    summa = None if strategy == "summa" else strategy
+    m = x2.shape[0] * ctx.dp_size  # the rows of the global product
+    if (not plain and w_mask is None and (split_in or split_out)
+            and getattr(w, "spec", None) == (ctx.dp, ctx.tp_axis)):
+        mm = ctx.matmul()
+        plan = mm.plan(m, full[0], full[1], itemsize=x2.element_size(),
+                       strategy=summa, tune=tune)
+        if plan.padded_shapes == ((m, full[0]), full):
+            # SUMMA on the rank's tiles: A its rows and K-part, B the
+            # stored block, C its rows and N-part
+            a = x2 if split_in else grid.shard(x2, ctx.tp_axis, 1)
+            c = _summa_tiles(a, w, mm, plan, summa, tune)
+            if split_in:
+                c = grid.gather(c, ctx.tp_axis, 1)
+            return c.reshape(*lead, c.shape[-1])
+    # the operands gathered whole, the product every rank repeats, and
+    # the rank's part of the result
+    if split_in and ctx.tp_size > 1:
+        x2 = grid.gather(x2, ctx.tp_axis, 1)
+    if ctx.dp_size > 1:
+        x2 = grid.gather(x2, ctx.dp, 0)
+    y = _project_whole(x2, ctx.weight(w, repeat=True), ctx, w_mask, summa,
+                       tune)
+    if ctx.dp_size > 1:
+        y = grid.shard(y, ctx.dp, 0)
+    if split_out:
+        y = grid.shard(y, ctx.tp_axis, 1)
+    return y.reshape(*lead, y.shape[-1])
+
+
+def _route(ctx, m: int, shape, itemsize: int, w_mask, rows_ok: bool):
+    """``(strategy, tune)`` of an engine product of ``m`` rows by a
+    weight of ``shape``: ``"ring"`` where the strategy asks for it (or
+    ``"auto"`` finds its pipeline estimate faster) and it is eligible
+    (tp > 1, the rows and columns divide, no mask), else the engine's."""
+    strategy, tune = ctx.matmul_strategy, False
+    ring_ok = (ctx.tp_size > 1 and rows_ok and m % ctx.dp_size == 0
+               and shape[1] % ctx.tp_size == 0 and w_mask is None)
     if strategy == "auto":
         if w_mask is not None:
             # Masked plans always execute the planned broadcast schedule
             # (DAG or BSMM); the tuner still picks the lookahead window.
-            strategy = "summa"
-            tune = True
-        else:
-            # One cached tuned plan per shape: the simulator-searched
-            # schedule, vs. the ring's pipeline estimate where the ring
-            # is eligible.
-            from repro_torch.sched.tuner import ring_makespan
+            return "summa", True
+        # One cached tuned plan per shape: the simulator-searched
+        # schedule, vs. the ring's pipeline estimate where it is eligible.
+        from repro_torch.sched.tuner import ring_makespan
 
-            plan = ctx.matmul().plan(
-                x2.shape[0], x2.shape[1], w.shape[1],
-                itemsize=x2.element_size(), tune=True,
-            )
-            if ring_ok and ring_makespan(plan) < plan.tuned["makespan_s"]:
-                strategy = "ring"
-            else:
-                strategy = "summa"
-                tune = True
-    if strategy in ("allgather", "ring") and ring_ok and w_mask is None:
-        return _ring_project(x2, w, ctx).reshape(*lead, w.shape[-1])
-    summa_strategy = {"summa": None, "ring": None}.get(strategy, strategy)
+        plan = ctx.matmul().plan(m, shape[0], shape[1], itemsize=itemsize,
+                                 tune=True)
+        if ring_ok and ring_makespan(plan) < plan.tuned["makespan_s"]:
+            return "ring", False
+        return "summa", True
+    if strategy in ("allgather", "ring") and ring_ok:
+        return "ring", False
+    return strategy, tune
+
+
+class _SummaTiles(torch.autograd.Function):
+    """The engine's ``plan`` on this rank's tiles (``core.summa.
+    execute_plan``), returning its tile of C.  The backward runs the
+    engine's two products, dA = dC·Bᵀ and dB = Aᵀ·dC, on the operands
+    gathered whole (every rank the same products, as the engine's
+    whole-operand route) and keeps this rank's tile of each.  Its forward
+    only saves the operands and allocates the tile; ``_summa_tiles``
+    fills it (``layers.fill_after_node``)."""
+
+    @staticmethod
+    def forward(ctx, a_loc, b_loc, mm, plan, strategy, tune):
+        ctx.save_for_backward(a_loc, b_loc)
+        ctx.route = (mm, plan, strategy, tune)
+        (mp, _), (_, np_) = plan.padded_shapes
+        return a_loc.new_empty((mp // plan.p_row, np_ // plan.p_col))
+
+    @staticmethod
+    def backward(ctx, dc):
+        a_loc, b_loc = ctx.saved_tensors
+        mm, plan, strategy, tune = ctx.route
+        g, rows, cols = mm.grid, mm.row_axis, mm.col_axis
+
+        def whole(t):
+            return g.all_gather(g.all_gather(t.contiguous(), cols, 1), rows, 0)
+
+        dc = whole(dc.to(a_loc.dtype))
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = sm.local_tile(mm(dc, whole(b_loc).t().contiguous(),
+                                  strategy=strategy, tune=tune), plan.cfg)
+        if ctx.needs_input_grad[1]:
+            db = sm.local_tile(mm(whole(a_loc).t().contiguous(), dc,
+                                  strategy=strategy, tune=tune),
+                               plan.cfg).to(b_loc.dtype)
+        return da, db, None, None, None, None
+
+
+def _summa_tiles(a_loc, b_loc, mm, plan, strategy, tune) -> torch.Tensor:
+    a_loc = a_loc.contiguous()
+
+    def run(_out=None):
+        return sm.execute_plan(a_loc, b_loc, plan)
+
+    if torch.is_grad_enabled() and (a_loc.requires_grad
+                                    or b_loc.requires_grad):
+        return fill_after_node(_SummaTiles.apply(
+            a_loc, b_loc, mm, plan, strategy, tune), run)
+    return run()
+
+
+def _project_whole(x2, w, ctx, w_mask, strategy, tune) -> torch.Tensor:
+    """``x2 @ w`` on whole operands, the product every rank repeats: one
+    ``matmul_f32`` of the masked weight without a grid or under
+    ``"xla"``/``pure_dp``, else the engine's ``strategy``."""
+    if not ctx.has_grid or ctx.matmul_strategy == "xla" or ctx.pure_dp:
+        if w_mask is not None:
+            w = _mask_weight(w, w_mask)
+        return matmul_f32(x2, w, out_dtype=x2.dtype)
     mm = ctx.matmul()
 
     def run(_out=None):  # the engine allocates its own result
-        return mm(x2, w, b_mask=w_mask, strategy=summa_strategy, tune=tune)
+        return mm(x2, w, b_mask=w_mask, strategy=strategy, tune=tune)
 
     if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
-        out = fill_after_node(_EngineMatmul.apply(
-            x2, w, mm, w_mask, summa_strategy, tune), run)
-    else:
-        out = run()
-    return out.reshape(*lead, w.shape[-1])
+        return fill_after_node(_EngineMatmul.apply(
+            x2, w, mm, w_mask, strategy, tune), run)
+    return run()

@@ -22,23 +22,29 @@ a concrete grid (a dim that does not divide its axis-group size falls
 back to replicated); ``param_shardings`` composes both over a mapping of
 names to shapes, with ``fsdp=False`` (ZeRO-1 parameters) and
 ``tp=False`` (pure data parallelism) dropping the respective axes
-(``_filter_spec``).  ``launch.serve`` calls it with the model's
-parameters, ``train.train_step.state_shardings`` with the reference's
-stacked tree.
+(``_filter_spec``).  ``train.train_step.state_shardings`` calls it with
+the reference's stacked tree.
 
-The port keeps every weight whole on every rank until the sharding
-rules of ROADMAP A8b land: ``launch.serve`` computes these specs on its
-grid and reports the bytes a rank would hold under them, and slices
-nothing.
+``shard_params(model, grid, fsdp=..., tp=...)`` stores each parameter as
+this rank's block under its validated spec (``block_of``), a
+``ShardedParameter`` under the same name carrying that ``spec`` and its
+whole ``full_shape``; the model code reads the mark
+(``ParallelCtx.weight``) and gathers what its compute needs.  A
+parameter without a mark is whole on every rank.
+``gather_params`` is the inverse (every rank of the grid calls it), and
+``gather_block`` / ``block_of`` do the same for one tensor of a given
+spec (optimizer state, checkpoints).
 """
 from __future__ import annotations
 
 import math
 
+import torch
 from torch import nn
 
-__all__ = ["param_specs", "param_shardings", "_filter_spec",
-           "_leaf_spec", "_validate_spec"]
+__all__ = ["ShardedParameter", "block_of", "gather_block", "gather_params",
+           "param_specs", "param_shardings", "reshard", "shard_params",
+           "spec_of", "_filter_spec", "_leaf_spec", "_validate_spec"]
 
 _FSDP_AXIS = "data"
 _TP_AXIS = "model"
@@ -150,3 +156,112 @@ def param_shardings(shapes, grid, *, fsdp: bool = True,
                 _filter_spec(_leaf_spec(name, shape), fsdp=fsdp, tp=tp),
                 tuple(shape), grid)
             for name, shape in shapes.items()}
+
+
+def spec_of(p: torch.Tensor):
+    """The validated spec ``shard_params`` stored ``p`` under, or None for
+    a parameter every rank holds whole."""
+    return getattr(p, "spec", None)
+
+
+def block_of(x: torch.Tensor, spec, grid) -> torch.Tensor:
+    """This rank's block of the whole ``x`` under ``spec`` (one entry per
+    dim; a dim must divide its axis group: validate the spec first): a
+    new tensor of its own storage (a view would keep the whole one
+    alive), or ``x`` where the spec cuts nothing."""
+    out = x
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        size = grid.axis_size(entry)
+        if x.shape[dim] % size:
+            raise ValueError(
+                f"dim {dim} of {tuple(x.shape)} does not divide by the "
+                f"{size} ranks of axis {entry!r}")
+        n = out.shape[dim] // size
+        out = out.narrow(dim, grid.axis_index(entry) * n, n)
+    return x if out is x else out.clone(memory_format=torch.contiguous_format)
+
+
+def gather_block(x: torch.Tensor, spec, grid) -> torch.Tensor:
+    """The whole tensor from every rank's block ``x`` under ``spec``, on
+    every rank (the inverse of :func:`block_of`; every rank of the spec's
+    axes calls it)."""
+    for dim, entry in enumerate(spec):
+        if entry is not None:
+            x = grid.all_gather(x, entry, dim)
+    return x
+
+
+def reshard(x: torch.Tensor, src, dst, grid) -> torch.Tensor:
+    """``x``, this rank's block under spec ``src``, as its block under
+    ``dst`` (a dim sharded in ``src`` and not in ``dst`` is gathered, one
+    sharded in ``dst`` and not in ``src`` is cut); no collective where
+    they agree.  Not autograd-aware."""
+    src, dst = tuple(src), tuple(dst)
+    for dim, (a, b) in enumerate(zip(src, dst)):
+        if a is not None and a != b:
+            x = grid.all_gather(x, a, dim)
+    for dim, (a, b) in enumerate(zip(src, dst)):
+        if b is not None and a != b:
+            n = x.shape[dim] // grid.axis_size(b)
+            x = x.narrow(dim, grid.axis_index(b) * n, n).clone(
+                memory_format=torch.contiguous_format)
+    return x
+
+
+class ShardedParameter(nn.Parameter):
+    """A parameter holding this rank's block of a whole one: ``spec``, its
+    validated spec, and ``full_shape``, the whole one's shape (kept by a
+    deep copy)."""
+
+    def __deepcopy__(self, memo):
+        out = super().__deepcopy__(memo)
+        out.spec, out.full_shape = self.spec, self.full_shape
+        return out
+
+
+def _replace(model: nn.Module, fn) -> nn.Module:
+    """Each parameter replaced by ``fn(name, p)`` under its name."""
+    for prefix, module in model.named_modules():
+        for name, p in list(module.named_parameters(recurse=False)):
+            setattr(module, name,
+                    fn(f"{prefix}.{name}" if prefix else name, p))
+    return model
+
+
+def shard_params(model: nn.Module, grid, *, fsdp: bool = True,
+                 tp: bool = True) -> nn.Module:
+    """Replace each parameter by a ``ShardedParameter`` holding this
+    rank's block under its validated spec (``param_shardings``' rule for
+    the parameter's name and whole shape), under the same name; returns
+    ``model``.  A dim that does not divide its axis group stays whole.
+    ``fsdp=False`` (ZeRO-1) keeps every parameter whole over the FSDP
+    axis, ``tp=False`` (pure data parallelism) over the TP axis."""
+    def cut(name, p):
+        if spec_of(p) is not None:
+            raise ValueError(f"parameter {name} is sharded already")
+        full = tuple(p.shape)
+        spec = _validate_spec(
+            _filter_spec(_leaf_spec(name, full), fsdp=fsdp, tp=tp), full,
+            grid)
+        spec = spec + (None,) * (len(full) - len(spec))
+        out = ShardedParameter(block_of(p.data, spec, grid),
+                               requires_grad=p.requires_grad)
+        out.spec, out.full_shape = spec, full
+        return out
+
+    return _replace(model, cut)
+
+
+def gather_params(model: nn.Module, grid) -> nn.Module:
+    """The inverse of :func:`shard_params`: every parameter whole again
+    on every rank (each rank of ``grid`` calls it), a plain
+    ``nn.Parameter``; returns ``model``."""
+    def whole(name, p):
+        if spec_of(p) is None:
+            return p
+        return nn.Parameter(gather_block(p.data, p.spec, grid),
+                            requires_grad=p.requires_grad)
+
+    return _replace(model, whole)

@@ -9,26 +9,25 @@ The port of ``repro.launch.dryrun``::
 Where the reference lowers and compiles each cell for 256 or 512 TPU
 chips and reads its HLO, the port builds the cell on the ``meta`` device
 (shapes and dtypes, nothing allocated) and counts one step of it with
-``analysis.cost``.  A cell runs on one of three meshes:
-
-* ``1``, the card's 1x1 grid on ``meta``: the step is run and counted —
-  FLOPs, bytes and collectives per device, the roofline on
-  ``cost.DEFAULT_HW``, ``memory_analysis`` (arguments, outputs, peak live
-  bytes) and, under ``summa``/``auto``, the simulated schedules.  Repeated
+``analysis.cost``.  A cell runs on one of three meshes: ``1``, the
+card's 1x1 grid, or ``16x16`` and ``2x16x16``, the production grids.
+On each, one rank's step is run and counted on ``meta`` — rank (0, ...,
+0)'s program on a production grid's counting grid (``core.grid``): its
+shards of the parameters, optimizer state, batch and caches, its
+collectives' bytes — giving the FLOPs, bytes and collectives per device,
+the roofline on ``cost.DEFAULT_HW``, ``memory_analysis`` (arguments,
+outputs, peak live bytes per device) and, under ``summa``/``auto``, the
+simulated schedules.  Repeated
   work is weighted, as the reference's HLO analysis weights a while body
   by its trip count: one of several identical microbatches is run and
   counted ``microbatches`` times (the optimizer's update once), a model
   of L identical units is counted as count(1) + (L - 1) · (count(2) -
   count(1)) from models of one and two units (its memory linearly), and
   the sLSTM's loop over the sequence likewise from runs of one and two of
-  its steps (``cost.loop_steps``).
-* ``16x16`` and ``2x16x16``, the planning-only production grids: the
-  simulated schedules, the model FLOPs, and the bytes of the arguments a
-  rank would hold under the spec tuples of ``param_shardings``,
+  its steps (``cost.loop_steps``).  A production cell also records the
+  model FLOPs and ``argument_bytes_per_rank``, the bytes of the arguments
+  a rank holds under the spec tuples of ``param_shardings``,
   ``state_shardings``, ``batch_shardings`` and ``cache_shardings``.
-  Activations are whole on every rank until ROADMAP A8b, so nothing
-  stands in for a rank's compute there: the cell says ``"per_device":
-  "not ported: ROADMAP A8b"``.
 
 Each cell is one JSON with the reference's keys, less
 ``xla_cost_analysis``: ``lower_s`` is the seconds spent building the
@@ -69,8 +68,6 @@ DEFAULT_MICROBATCHES = 16
 #: the card's grid, and the reference's single- and two-pod grids
 MESHES = ("1", "16x16", "2x16x16")
 _MESH_TAGS = {"1": "1card", "16x16": "1pod", "2x16x16": "2pod"}
-#: what a production-grid cell records in place of per-device counts
-PER_DEVICE_STATUS = "not ported: ROADMAP A8b"
 
 
 def make_ctx(
@@ -165,7 +162,7 @@ def build_train_cell(cfg, shape, ctx, microbatches, opt=None, remat=True):
 
 
 def build_prefill_cell(cfg, shape, ctx):
-    params = LM(cfg, device="meta", ep=ctx.tp_size)
+    params = ts.shard_model(LM(cfg, device="meta", ep=ctx.tp_size), ctx)
     batch = input_specs(cfg, shape)
     batch.pop("labels", None)
 
@@ -177,9 +174,13 @@ def build_prefill_cell(cfg, shape, ctx):
 
 def build_decode_cell(cfg, shape, ctx):
     b = shape.global_batch
-    params = LM(cfg, device="meta", ep=ctx.tp_size)
-    cache = engine.init_cache(cfg, b, shape.seq_len, kv_quant=ctx.kv_quant,
-                              device="meta")
+    params = ts.shard_model(LM(cfg, device="meta", ep=ctx.tp_size), ctx)
+    # the rank's rows of the cache (where the batch divides dp), its
+    # S-shard of each KV leaf
+    rows = b // ctx.dp_size if ctx.splits_batch(b) else b
+    cache = engine._local_kv(engine.init_cache(
+        cfg, rows, shape.seq_len, kv_quant=ctx.kv_quant, device="meta"),
+        ctx, rows)
     tokens = torch.empty((b,), dtype=torch.int32, device="meta")
 
     def fn(p, c, t):
@@ -306,9 +307,16 @@ def argument_bytes_per_rank(cfg: ModelConfig, shape: ShapeConfig,
     grid_shape = ctx.grid.shape
     batch = input_specs(cfg, shape)
     if shape.kind == "train":
-        state = ts.abstract_train_state(cfg, ctx, _optimizer(cfg))
-        return (_tree_rank_bytes(ts.state_tree(state),
-                                 ts.state_shardings(state, ctx), grid_shape)
+        # the abstract state holds the rank's blocks already (built on a
+        # counting grid: moving a leaf into its slot's layout gathers)
+        grid = ctx.grid
+        meta = dataclasses.replace(
+            ctx, grid=Grid(sizes=grid.sizes, axis_names=grid.axis_names,
+                           coords=grid.coords, device=torch.device("meta")),
+            tp_axis=ctx._tp_axis_raw)
+        state = ts.abstract_train_state(cfg, meta, _optimizer(cfg))
+        return (sum(x.numel() * x.element_size()
+                    for _, x in leaves(ts.state_tree(state)))
                 + _tree_rank_bytes(batch, ts.batch_shardings(batch, ctx),
                                    grid_shape))
     model = LM(cfg, device="meta", ep=ctx.tp_size)
@@ -380,7 +388,7 @@ def run_cell(
     cfg = get_config(arch, smoke=smoke)
     multi_pod = mesh == "2x16x16"
     grid = (Grid.local("meta") if mesh == "1"
-            else make_production_grid(multi_pod=multi_pod))
+            else make_production_grid(multi_pod=multi_pod, device="meta"))
     ctx = make_ctx(grid, multi_pod, matmul_strategy, attention_impl,
                    mlstm_chunk, zero1, kv_quant, slstm_replicated, pure_dp)
     # per-microbatch batch must divide the DP degree, or sharding degrades
@@ -398,17 +406,9 @@ def run_cell(
     chips = math.prod(grid.sizes)
     mf = model_flops_per_step(cfg, shape)
     if mesh != "1":
-        t0 = time.perf_counter()
-        arg = argument_bytes_per_rank(cfg, shape, ctx)
-        result.update(
-            status="ok",
-            lower_s=round(time.perf_counter() - t0, 1),
-            chips=chips,
-            model_flops=mf,
-            per_device=PER_DEVICE_STATUS,
-            memory_analysis={"argument_size_in_bytes": arg},
-        )
-        return result
+        result.update(model_flops=mf,
+                      argument_bytes_per_rank=argument_bytes_per_rank(
+                          cfg, shape, ctx))
     times = {}
     wc, mem = count_cell(cfg, shape, ctx, microbatches, times)
     rep = cost.roofline(

@@ -19,20 +19,27 @@ import socket
 import subprocess
 import sys
 
+import torch
+
 from repro_torch.core.grid import Grid
 
 __all__ = ["make_grid", "make_host_grid", "make_production_grid",
            "spawn_gloo_ranks"]
 
 
-def make_production_grid(*, multi_pod: bool = False) -> Grid:
+def make_production_grid(*, multi_pod: bool = False,
+                         device="cuda") -> Grid:
     """The planning-only 16x16 single-pod grid (256 cards) or the 2x16x16
     two-pod one (512), the reference's ``make_production_mesh``: plans,
     specs and per-rank sizes for them need no processes, and
-    ``Grid.check_world`` refuses to execute on them."""
+    ``Grid.check_world`` refuses to execute on them.  On ``meta`` it is a
+    counting grid: rank (0, ..., 0)'s program runs on it with shapes
+    only."""
     if multi_pod:
-        return Grid(sizes=(2, 16, 16), axis_names=("pod", "data", "model"))
-    return Grid(sizes=(16, 16), axis_names=("data", "model"))
+        return Grid(sizes=(2, 16, 16), axis_names=("pod", "data", "model"),
+                    device=torch.device(device))
+    return Grid(sizes=(16, 16), axis_names=("data", "model"),
+                device=torch.device(device))
 
 
 def make_grid(shape: tuple[int, ...], axes: tuple[str, ...],

@@ -10,9 +10,12 @@ The port of ``repro.launch.serve``::
 Runs greedy decoding over synthetic prompts (a seeded
 ``torch.Generator``) on random weights and reports prefill/decode
 throughput; ``--device`` names the device (``cuda`` unless told
-otherwise).  With ``--tp > 1`` (one process per rank under an
-initialised ``torch.distributed``) the KV cache is sequence-sharded and
-decode attention uses the LSE-combined partial-softmax path.
+otherwise).  With ``--dp``/``--tp`` over one rank (one process per rank
+under an initialised ``torch.distributed``) the parameters are sharded
+after init (``dist.partitioning.shard_params``, as the reference's
+``param_shardings`` places them), each DP rank holds its rows of the
+caches, the KV cache is sequence-sharded over tp and decode attention
+uses the LSE-combined partial-softmax path.
 
 ``--continuous`` switches from the fixed-shape batch loop to the
 continuous-batching scheduler (``serve.scheduler``) over a ragged
@@ -28,6 +31,7 @@ scheduler's result dict.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
@@ -35,7 +39,8 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.dist.context import ParallelCtx
-from repro_torch.dist.partitioning import param_shardings
+from repro_torch.dist.partitioning import (param_shardings, shard_params,
+                                            spec_of)
 from repro_torch.launch.mesh import make_host_grid
 from repro_torch.models import layers as L
 from repro_torch.models.model import init_model
@@ -72,17 +77,23 @@ def _run_continuous(params, cfg, ctx, args):
 
 
 def param_bytes(params, grid) -> tuple[int, int]:
-    """(bytes of the weights, bytes a rank would hold under
-    ``param_shardings`` on ``grid``).  The port keeps the weights whole
-    on every rank until the sharding rules land (ROADMAP A8b) and slices
-    nothing."""
+    """(bytes of the whole weights, bytes this rank holds): on a sharded
+    model (``dist.partitioning.shard_params``) the bytes of its blocks,
+    on a whole one the bytes it would hold under ``param_shardings`` on
+    ``grid``."""
     named = dict(params.named_parameters())
-    specs = param_shardings({n: p.shape for n, p in named.items()}, grid)
+    shapes = {n: tuple(getattr(p, "full_shape", p.shape))
+              for n, p in named.items()}
+    whole = sum(math.prod(s) * named[n].element_size()
+                for n, s in shapes.items())
+    if any(spec_of(p) is not None for p in named.values()):
+        return whole, sum(p.numel() * p.element_size()
+                          for p in named.values())
+    specs = param_shardings(shapes, grid)
     shape = dict(grid.shape)
-    whole = shard = 0
+    shard = 0
     for name, p in named.items():
         n = p.numel() * p.element_size()
-        whole += n
         for entry in specs[name]:
             for axis in (entry if isinstance(entry, tuple) else (entry,)):
                 if axis is not None:
@@ -167,9 +178,10 @@ def main(argv=None):
         )
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_model(cfg, generator=gen, device=device, ep=ctx.tp_size)
+    if grid.axis_size(grid.axis_names) > 1:
+        shard_params(params, grid)
     whole, shard = param_bytes(params, grid)
-    print(f"params: {whole:,} bytes whole on every rank; {shard:,} a rank "
-          "under the sharding specs")
+    print(f"params: {whole:,} bytes whole; {shard:,} held by a rank")
     if args.continuous or args.paged:
         with torch.inference_mode():
             return _run_continuous(params, cfg, ctx, args)

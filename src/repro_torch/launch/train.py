@@ -17,6 +17,12 @@ Features exercised here (the fault-tolerance story):
 * optional task-based-SUMMA matmul strategy (the paper's algorithm in the
   training loop, forward and backward).
 
+With ``--dp`` times ``--tp`` more than one (under an initialised
+``torch.distributed`` world of dp·tp processes) the state is sharded
+(``train.train_step.make_train_state``): every rank draws the same
+global batch and trains on its rows; checkpoints hold whole leaves,
+written by rank 0, and restore onto any grid.
+
 Initial weights come from a ``torch.Generator`` seeded with ``--seed`` on
 the device; the run is on ``cuda`` unless ``--device`` names another.
 Checkpoints are in the reference's format (``train.checkpoint``).
@@ -82,8 +88,10 @@ def main(argv=None):
     if args.resume and args.ckpt_dir:
         last = ckpt.latest_step(args.ckpt_dir)
         if last is not None:
-            tree = ckpt.restore_checkpoint(args.ckpt_dir, last,
-                                           ts.state_tree(state))
+            tree = ckpt.restore_checkpoint(
+                args.ckpt_dir, last, ts.state_target(state), device=device,
+                shardings=ts.state_shardings(state, ctx)
+                if grid.axis_size(grid.axis_names) > 1 else None, grid=grid)
             ts.load_state_tree(state, tree)
             start_step = last
             print(f"[resume] restored step {last} from {args.ckpt_dir}")
@@ -93,10 +101,11 @@ def main(argv=None):
                                   microbatches=args.microbatches)
 
     def tree():
-        return ts.state_tree(state)
+        return ts.state_tree(state, ctx)
 
     manager = (
-        ckpt.CheckpointManager(args.ckpt_dir, every=args.ckpt_every)
+        ckpt.CheckpointManager(args.ckpt_dir, every=args.ckpt_every,
+                               write=grid.rank == 0)
         if args.ckpt_dir
         else None
     )
@@ -130,7 +139,9 @@ def main(argv=None):
     finally:
         pre.stop()
     if manager:
-        ckpt.save_checkpoint(args.ckpt_dir, args.steps, tree())
+        final = tree()
+        if manager.write:
+            ckpt.save_checkpoint(args.ckpt_dir, args.steps, final)
     print(
         f"[done] steps {start_step}->{args.steps}  "
         f"first loss {losses[0]:.4f}  last loss {losses[-1]:.4f}"

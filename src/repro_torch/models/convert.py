@@ -216,22 +216,34 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def train_state_from_reference(np_state: dict, cfg: ModelConfig,
-                               device="cuda", *, ep: int = 1) -> dict:
+                               device="cuda", *, ep: int = 1,
+                               ctx=None) -> dict:
     """The port's train state holding the reference's (given as numpy
     arrays, ``jax.tree.map(np.asarray, state)``): ``params`` an ``LM``
     whose parameters require grad, ``opt`` the same tree of tensors (every
-    value exactly), ``step`` an int32 scalar tensor."""
+    value exactly), ``step`` an int32 scalar tensor.  With the ``ctx`` of
+    a grid of more than one rank, this rank's blocks of it
+    (``train.train_step.shard_model`` and ``load_state_tree``)."""
     model = params_from_reference(np_state["params"], cfg, device, ep=ep)
-    return {
+    state = {
         "params": model.requires_grad_(True),
         "opt": tree_map(lambda a: _tensor(a, device), np_state["opt"]),
         "step": _tensor(np.asarray(np_state["step"], np.int32), device),
     }
+    if ctx is None:
+        return state
+    from repro_torch.train import train_step as ts
+
+    whole = {"params": params_tree(model), "opt": state["opt"],
+             "step": state["step"]}
+    ts.shard_model(model, ctx)
+    return ts.load_state_tree(state, whole, ctx)
 
 
-def train_state_to_numpy(state: dict) -> dict:
+def train_state_to_numpy(state: dict, ctx=None) -> dict:
     """A train state in the reference's tree as numpy arrays (bf16 as
-    float32, which holds it exactly)."""
-    tree = {"params": params_tree(state["params"]), "opt": state["opt"],
-            "step": state["step"]}
-    return cache_to_numpy(tree)
+    float32, which holds it exactly); with the ``ctx`` of a sharded state,
+    whole (each rank of its grid calls it)."""
+    from repro_torch.train.train_step import state_tree
+
+    return cache_to_numpy(state_tree(state, ctx))

@@ -5,6 +5,12 @@ The port of ``repro.models.ffn``.  The big matmuls go through
 they run on the task-based SUMMA engine — the paper's algorithm embedded
 in the LM.  Block masks registered in ``ctx.weight_block_masks`` flow
 through each projection.
+
+On a sharded model the hidden dim is split over tp where ``w_up``'s
+stored columns are (the reference's constraint on ``up``/``gate``):
+each rank runs its hidden columns, ``w_down`` is gathered to the rows
+of those columns, and the partial outputs are summed over tp
+(``project(..., split_in=True)``).
 """
 from __future__ import annotations
 
@@ -51,4 +57,7 @@ def ffn(p: FFN, x: torch.Tensor, cfg: ModelConfig,
     else:
         hidden = act(up)
     del up
-    return project(hidden, p.w_down.w, ctx)
+    hidden = ctx.wsc(hidden, ctx.dp, None, ctx.tp_axis)
+    out = project(hidden, p.w_down.w, ctx,
+                  split_in=ctx.tp_sharded(p.w_up.w, 1))
+    return ctx.wsc(out, ctx.dp, None, None)

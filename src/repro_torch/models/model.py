@@ -21,10 +21,24 @@ Inputs are a dict: ``tokens`` (B, S) int64 and/or ``embeds`` (B, S, D)
 (the audio and VLM frontends are the reference's stubs: precomputed
 frame or patch embeddings, placed before the tokens), and optionally
 ``positions`` (B, S), or (B, S, 3) for M-RoPE.
+
+On a grid every rank is given the global batch and runs its rows (over
+dp; a batch that does not divide dp runs whole on every rank), the
+reference's constraint at the forward's entry, on its blocks of the
+parameters (``dist.partitioning.shard_params``).  The embedding's
+vocab is split over tp where its stored rows are: a rank looks up the
+tokens of its rows (zeros elsewhere) and ``Grid.sum`` adds the ranks'
+lookups.  The head's logits keep the same split, so ``forward`` returns
+the rank's rows and vocab columns, and ``loss_fn`` takes the
+cross-entropy over the split vocab (the max and the sum of exponentials
+reduced over tp, the label's logit from the rank that holds it) and the
+mean over the global batch (local sums over the global count, summed
+over dp).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -45,7 +59,8 @@ from repro_torch.models.recurrent import (
 
 __all__ = [
     "AUX_LOSS_COEF", "Block", "LM", "Z_LOSS_COEF", "apply_block",
-    "embed_inputs", "forward", "init_model", "loss_fn",
+    "embed_inputs", "forward", "head_logits", "init_model",
+    "local_batch", "loss_fn", "vocab_part", "whole_logits",
 ]
 
 _RECURRENT = {"rglru": RGLRUBlock, "mlstm": MLSTMBlock, "slstm": SLSTMBlock}
@@ -154,15 +169,74 @@ def apply_block(
     return x, aux
 
 
-def embed_inputs(model: LM, inputs: dict, cfg: ModelConfig) -> torch.Tensor:
+def local_batch(batch: dict, ctx: ParallelCtx) -> dict:
+    """This rank's rows of a global ``batch`` (every leaf's first dim over
+    dp) where it divides dp > 1; else ``batch`` (a batch that does not
+    divide dp stays whole on every rank, the reference's fallback to
+    replicated)."""
+    if ctx.dp_size == 1:
+        return batch
+    return {k: ctx.block(v, ctx.dp)
+            if isinstance(v, torch.Tensor) and v.ndim else v
+            for k, v in batch.items()}
+
+
+def vocab_part(model: LM, cfg: ModelConfig, ctx: ParallelCtx):
+    """``(start, count)`` of the vocab this rank's logits hold, or None
+    where they hold it whole."""
+    w = model.embed.embedding if model.head is None else model.head.w
+    if not ctx.tp_sharded(w, 0 if model.head is None else 1):
+        return None
+    return ctx.tp_part(cfg.vocab_size)
+
+
+def whole_logits(model: LM, logits: torch.Tensor, cfg: ModelConfig,
+                 ctx: ParallelCtx, rows: bool) -> torch.Tensor:
+    """The logits of every row and the whole vocab, on every rank, from
+    this rank's (its vocab part, ``vocab_part``; its rows where ``rows``,
+    the batch being split over dp)."""
+    if vocab_part(model, cfg, ctx) is not None:
+        logits = ctx.grid.all_gather(logits, ctx.tp_axis, logits.ndim - 1)
+    if rows:
+        logits = ctx.grid.all_gather(logits, ctx.dp, 0)
+    return logits
+
+
+def _embed(p: L.Embedding, tokens, cfg: ModelConfig, ctx: ParallelCtx):
+    if not ctx.tp_sharded(p.embedding, 0):
+        return F.embedding(tokens, ctx.weight(p.embedding))
+    v0, n = ctx.tp_part(cfg.vocab_size)
+    local = tokens - v0
+    own = (local >= 0) & (local < n)
+    x = F.embedding(local.clamp(0, n - 1), ctx.weight(p.embedding, tp_dim=0))
+    x = torch.where(own[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+    return ctx.tp_exit(x, True)
+
+
+def embed_inputs(model: LM, inputs: dict, cfg: ModelConfig,
+                 ctx: ParallelCtx) -> torch.Tensor:
     parts = []
     if inputs.get("embeds") is not None:
         parts.append(inputs["embeds"])
     if cfg.embed_inputs and inputs.get("tokens") is not None:
-        parts.append(L.embed(model.embed, inputs["tokens"]))
+        parts.append(_embed(model.embed, inputs["tokens"], cfg, ctx))
     if not parts:
         raise ValueError("inputs must contain 'tokens' and/or 'embeds'")
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def head_logits(model: LM, x: torch.Tensor, cfg: ModelConfig,
+                ctx: ParallelCtx) -> torch.Tensor:
+    """The fp32 logits of the normed ``x`` on this rank's vocab
+    (``vocab_part``)."""
+    split = vocab_part(model, cfg, ctx) is not None
+    x = ctx.tp_enter(x, split)
+    if model.head is not None:
+        w = ctx.weight(model.head.w, tp_dim=1 if split else None)
+        return torch.matmul(x, w).float()
+    e = ctx.weight(model.embed.embedding, tp_dim=0 if split else None)
+    return L.matmul_f32(x, e.t())
 
 
 def _records(model: LM, x: torch.Tensor) -> bool:
@@ -188,8 +262,16 @@ def forward(
     model) and every MoE block's expert GEMMs through the grouped-GEMM
     kernel (three launches per layer); recurrent blocks have no kernel
     of their own.  ``remat=True`` recomputes each unit in the backward
-    instead of keeping its activations, when autograd records."""
-    x = embed_inputs(model, inputs, cfg)
+    instead of keeping its activations, when autograd records.  On a
+    grid, ``inputs`` is the global batch and the logits are this rank's
+    rows and vocab (``local_batch``, ``vocab_part``)."""
+    return _forward(model, local_batch(inputs, ctx), cfg, ctx,
+                    use_kernel=use_kernel, remat=remat)
+
+
+def _forward(model, inputs, cfg, ctx, *, use_kernel, remat):
+    x = embed_inputs(model, inputs, cfg, ctx)
+    x = ctx.wsc(x, ctx.dp, None, None)
     positions = inputs.get("positions")
     if positions is None:
         b, s = x.shape[:2]
@@ -216,11 +298,8 @@ def forward(
                            use_kernel=use_kernel)
         aux = aux + a
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
-    if model.head is not None:
-        logits = L.dense(model.head, x).float()
-    else:
-        logits = L.unembed(model.embed, x)
-    return logits, aux
+    logits = head_logits(model, x, cfg, ctx)
+    return ctx.wsc(logits, ctx.dp, None, ctx.tp_axis), aux
 
 
 # --------------------------------------------------------------------------
@@ -240,17 +319,46 @@ def loss_fn(
     remat: bool = True,
 ) -> tuple[torch.Tensor, dict]:
     """Cross-entropy (+ MoE aux + z-loss).  ``batch`` must contain
-    ``labels``; a negative label masks its position."""
-    logits, aux = forward(model, batch, cfg, ctx, remat=remat)
+    ``labels``; a negative label masks its position.  On a grid
+    ``batch`` is the global batch, and every rank returns the loss of the
+    whole of it."""
+    rows = batch["labels"].shape[0]
+    batch = local_batch(batch, ctx)
+    logits, aux = _forward(model, batch, cfg, ctx, use_kernel=False,
+                           remat=remat)
     labels = batch["labels"]
     # labels may cover the token tail only (a prefix without labels)
     logits = logits[:, -labels.shape[1]:, :]
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    part = vocab_part(model, cfg, ctx)
+    if part is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    else:  # the vocab split over tp
+        v0, n = part
+        grid, tp = ctx.grid, ctx.tp_axis
+        m = grid.all_reduce(logits.detach().amax(dim=-1), tp, op="max")
+        logz = m + torch.log(ctx.tp_exit(
+            torch.exp(logits - m[..., None]).sum(dim=-1), True))
+        local = labels - v0
+        own = (local >= 0) & (local < n)
+        ll = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        ll = ctx.tp_exit(torch.where(own, ll, torch.zeros_like(ll)), True)
     mask = (labels >= 0).float()
-    denom = mask.sum().clamp(min=1.0)
-    ce = ((logz - ll) * mask).sum() / denom
-    z_loss = Z_LOSS_COEF * ((logz * mask) ** 2).sum() / denom
+    dp = ctx.dp_size
+    split = dp > 1 and rows % dp == 0  # each dp rank holds its rows
+    count = ctx.grid.all_reduce(mask.sum(), ctx.dp) if split else mask.sum()
+    denom = count.clamp(min=1.0)
+
+    def total(x):  # over the global batch
+        x = x.sum()
+        if dp == 1:
+            return x
+        # rows split: the ranks' sums; else every rank holds every row,
+        # and its share of the gradient summed over dp is 1/dp
+        return ctx.grid.sum(x if split else x / dp, ctx.dp)
+
+    ce = total((logz - ll) * mask) / denom
+    z_loss = Z_LOSS_COEF * total((logz * mask) ** 2) / denom
     total = ce + z_loss + AUX_LOSS_COEF * aux
     metrics = {"ce": ce, "z_loss": z_loss, "aux": aux, "loss": total}
     return total, metrics

@@ -20,16 +20,17 @@ of a block-diagonal matmul, the irregular structure the paper targets.
      ``Grid.sum`` over the tp axis combines the ranks.
 
 Where the reference runs step 2-4 as a ``shard_map`` over the mesh,
-each rank here runs ``_dispatch_compute_combine`` on its own experts,
-``[ep·E_loc, (ep+1)·E_loc)``, and on the whole activations (the
-sharding rules of ``ParallelCtx.wsc`` wait for ROADMAP A8b); a context
-without a grid runs ``_dispatch_compute_combine_local``, one rank
-holding every expert.  Gradients flow through expert parallelism as
-through the reference's ``psum`` under ``shard_map``: the collectives
-are the Grid's autograd-aware ones, so every rank gets the whole
-gradient — the activations' and router gates' summed over the tp axis
-(``Grid.replicate``), each expert weight's gathered from the rank that
-holds it (``Grid.shard``).  Experts are zero-padded to a multiple of the
+each rank here runs ``_dispatch_compute_combine_local`` on its own
+experts, ``[ep·E_loc, (ep+1)·E_loc)``, and its batch rows; one rank (no
+grid, or tp 1) holds every expert.  The expert weights are stored as
+the rank's experts over tp and ``d_model`` over the FSDP axis
+(``dist.partitioning.shard_params``), gathered over the FSDP axis only.
+Gradients flow
+through expert parallelism as through the reference's ``psum`` under
+``shard_map``: the activations' and router gates' summed over the tp
+axis (``Grid.replicate``), the output summed by ``Grid.sum``.  The
+load-balance loss reads means over the global batch (summed over dp
+where the rows are split).  Experts are zero-padded to a multiple of the
 expert-parallel degree (``MoE(..., ep=...)``), so one grid axis serves
 any expert count.
 """
@@ -115,7 +116,7 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx, *,
     h = L.rmsnorm(p.norm, x, cfg.norm_eps)
     b, s, d = h.shape
 
-    logits = torch.matmul(h.float(), p.router.w)  # fp32 router
+    logits = torch.matmul(h.float(), ctx.weight(p.router.w))  # fp32 router
     probs = torch.softmax(logits, dim=-1)
     topv, topi = torch.topk(logits, moe.top_k, dim=-1)
     gates = torch.softmax(topv, dim=-1)  # renormalised over the selected
@@ -124,25 +125,37 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx, *,
     # first expert is a scatter of ones (``F.one_hot`` checks its input
     # and decomposes differently on each device, so a count on ``meta``
     # would not be the card's; the values are the same)
-    density = torch.zeros(logits.shape, dtype=torch.float32,
-                          device=logits.device).scatter_(
-        -1, topi[..., :1], 1.0).mean(dim=(0, 1))
-    mean_prob = probs.mean(dim=(0, 1))
+    ones = torch.zeros(logits.shape, dtype=torch.float32,
+                       device=logits.device).scatter_(-1, topi[..., :1], 1.0)
+    if ctx.dp_size > 1:
+        # the means over the global batch: the ranks' rows, or every
+        # rank's whole batch where it does not divide dp (a mean all the
+        # same)
+        n = b * s * ctx.dp_size
+        density = ctx.grid.all_reduce(ones.sum(dim=(0, 1)), ctx.dp) / n
+        mean_prob = ctx.grid.sum(probs.sum(dim=(0, 1)), ctx.dp) / n
+    else:
+        density = ones.mean(dim=(0, 1))
+        mean_prob = probs.mean(dim=(0, 1))
+    del ones
     aux = moe.num_experts * (density * mean_prob).sum()
 
     e_pad = padded_experts(moe, ctx.tp_size)
-    if p.w_gate.shape[0] != e_pad:
+    e_held = getattr(p.w_gate, "full_shape", p.w_gate.shape)[0]
+    if e_held != e_pad:
         raise ValueError(
-            f"the experts are padded to {p.w_gate.shape[0]}, but a tp "
+            f"the experts are padded to {e_held}, but a tp "
             f"size of {ctx.tp_size} needs {e_pad}: build the MoE with "
             f"ep={ctx.tp_size}"
         )
     cap = capacity(moe, s, e_pad)
 
+    # this rank's experts, whole over d_model and d_ff
+    w_gate, w_up, w_down = (ctx.weight(w, tp_dim=0)
+                            for w in (p.w_gate, p.w_up, p.w_down))
     # Registered block masks over the (d, f) expert weight shapes zero the
     # masked blocks, so every expert computes the block-sparse product the
     # planned FFN path would.
-    w_gate, w_up, w_down = p.w_gate, p.w_up, p.w_down
     m_in = ctx.weight_mask(tuple(w_gate.shape[1:]))
     m_out = ctx.weight_mask(tuple(w_down.shape[1:]))
     if m_in is not None:
@@ -152,13 +165,13 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig, ctx: ParallelCtx, *,
         w_down = _mask_expert_weight(w_down, m_out)
 
     kw = dict(e_pad=e_pad, top_k=moe.top_k, cap=cap, use_kernel=use_kernel)
-    if not ctx.has_grid:
+    if ctx.tp_size == 1:
         y = _dispatch_compute_combine_local(h, topi, gates, w_gate, w_up,
                                             w_down, **kw)
     else:
-        y = _dispatch_compute_combine(h, topi, gates, w_gate, w_up, w_down,
-                                      grid=ctx.grid, tp_axis=ctx.tp_axis,
-                                      **kw)
+        y = ctx.tp_exit(_dispatch_compute_combine_local(
+            ctx.tp_enter(h, True), topi, ctx.tp_enter(gates, True), w_gate,
+            w_up, w_down, ep=ctx.grid.axis_index(ctx.tp_axis), **kw), True)
     if p.shared is not None:
         # the shared expert norms x itself (its own ``norm``)
         y = y + ffn(p.shared, x, _shared_view(cfg), ctx)
@@ -180,33 +193,15 @@ def _mask_expert_weight(w: torch.Tensor, mask) -> torch.Tensor:
                                                   device=w.device))
 
 
-def _dispatch_compute_combine(h, topi, gates, w_gate, w_up, w_down, *,
-                              e_pad, top_k, cap, grid, tp_axis,
-                              use_kernel=False):
-    """One rank's expert-parallel program: its experts ``[ep·E_loc,
-    (ep+1)·E_loc)`` of the stacked weights (views), dispatch -> expert
-    GEMMs -> combine, then the sum over ``tp_axis`` (the reference's
-    ``psum``).  A context without a tp axis is one rank."""
-    kw = dict(e_pad=e_pad, top_k=top_k, cap=cap, use_kernel=use_kernel)
-    if tp_axis is None:
-        return _dispatch_compute_combine_local(h, topi, gates, w_gate, w_up,
-                                               w_down, **kw)
-    ep = grid.axis_index(tp_axis)
-    y = _dispatch_compute_combine_local(
-        grid.replicate(h, tp_axis), topi, grid.replicate(gates, tp_axis),
-        *(grid.shard(w, tp_axis, dim=0) for w in (w_gate, w_up, w_down)),
-        ep=ep, **kw)
-    return grid.sum(y, tp_axis)
-
-
 def _dispatch_compute_combine_local(h, topi, gates, w_gate, w_up, w_down, *,
                                     e_pad, top_k, cap, ep=0,
                                     use_kernel=False):
-    """The grid-free version, one rank holding every expert (``ep`` = 0,
-    ``E_loc`` = ``E_pad``); with ``ep`` and a slice of ``E_loc`` experts
-    (``w_gate.shape[0]``), the partial output of experts ``[ep·E_loc,
-    (ep+1)·E_loc)``.  A token's output is zero where its copies went
-    elsewhere or overflowed their expert's capacity."""
+    """One rank's dispatch -> expert GEMMs -> combine: with every expert
+    (``ep`` = 0, ``E_loc`` = ``E_pad``), the layer's output; with ``ep``
+    and a slice of ``E_loc`` experts (``w_gate.shape[0]``), the partial
+    output of experts ``[ep·E_loc, (ep+1)·E_loc)``.  A token's output is
+    zero where its copies went elsewhere or overflowed their expert's
+    capacity."""
     b, s, d = h.shape
     tk = s * top_k
     e_loc = w_gate.shape[0]

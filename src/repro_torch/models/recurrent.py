@@ -22,6 +22,10 @@ Precision follows the reference op by op: projections in the model's
 dtype, gates, scans and memories in fp32, the depthwise convolution of
 the sequence path summed tap by tap in the input's dtype (its ``*_step``
 path sums in fp32, as the reference's does).
+
+On a sharded model every tp rank runs the whole block on its batch rows
+(the reference constrains only the batch, over dp): a block reads its
+weights through ``ParallelCtx.whole``, gathered whole.
 """
 from __future__ import annotations
 
@@ -199,6 +203,7 @@ def rglru_block(
     return_state: bool = False,
 ):
     """(B, S, D) -> (B, S, D) recurrent sublayer (residual by caller)."""
+    p = ctx.whole(p)  # the tp ranks repeat the block
     h = L.rmsnorm(p.norm, x, cfg.norm_eps)
     u_pre = L.dense(p.w_x, h)
     u = _causal_conv(u_pre, p.conv_w, p.conv_b)
@@ -370,6 +375,7 @@ def mlstm_block(
     *,
     return_state: bool = False,
 ):
+    p = ctx.whole(p)  # the tp ranks repeat the block
     b, s, _ = x.shape
     nh = cfg.num_heads
     h_in = L.rmsnorm(p.norm, x, cfg.norm_eps)
@@ -549,6 +555,7 @@ def slstm_block(
     *,
     return_state: bool = False,
 ):
+    p = ctx.whole(p)  # the tp ranks repeat the block
     b, s, _ = x.shape
     h_in = L.rmsnorm(p.norm, x, cfg.norm_eps)
     gates_x = L.dense(p.w_gates, h_in)  # (B, S, 4D)

@@ -34,10 +34,15 @@ tensor runs its plain version, which computes the reference's function
 (the reference's prefill calls its plain attention).  Decode attention
 and the MoE blocks are torch ops, as the reference's einsums are.
 
-On a grid of more than one rank, activations and weights are whole on
-every rank (ROADMAP A8b); ``prefill`` keeps each KV leaf's block of
-``cache_shardings`` (batch over DP, S over TP) and the recurrent states
-and ``pos`` whole.
+On a grid of more than one rank, where the model holds its blocks
+(``dist.partitioning.shard_params``), ``prefill`` and ``decode_step``
+take the global batch and run this rank's rows (where the batch divides
+dp; else every row, ``decode_rows``), so every leaf of the cache holds
+the rank's rows and a KV leaf its S-shard (``cache_shardings``);
+prefill runs the sharded attention and FFN, decode gathers the
+attention and recurrent weights whole (its attention is
+sequence-sharded over tp), and both return the logits of every row and
+the whole vocab, so every rank picks the same tokens.
 
 Capacity contract (non-windowed archs): decoding a token at position
 ``>= S_cache`` never corrupts the cache — the ring write is dropped — but
@@ -55,11 +60,19 @@ import numpy as np
 import torch
 
 from repro_torch.dist.context import ParallelCtx
+from repro_torch.dist.partitioning import block_of
 from repro_torch.models import layers as L
 from repro_torch.models.attention import _project_qkv, attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ffn import ffn
-from repro_torch.models.model import LM, embed_inputs
+from repro_torch.models.model import (
+    LM,
+    _embed,
+    embed_inputs,
+    head_logits,
+    local_batch,
+    whole_logits,
+)
 from repro_torch.models.moe import moe_ffn
 from repro_torch.models.recurrent import (
     mlstm_block,
@@ -75,6 +88,7 @@ __all__ = [
     "init_cache",
     "cache_shardings",
     "prefill",
+    "decode_rows",
     "decode_step",
     "cache_len",
     "map_cache",
@@ -227,7 +241,7 @@ def cache_shardings(cache, ctx: ParallelCtx, batch: int):
       per-slot ``pos`` vector: batch over DP only.  Classification is by
       leaf *name and tree path*, never by shape.
     * batch not divisible by the DP degree: the batch axis is replicated
-      (the same explicit fallback ``_decode_attention`` warns about).
+      (the same explicit fallback ``decode_rows`` warns about).
     """
     if not ctx.has_grid:
         raise ValueError("cache_shardings needs a grid; got grid=None")
@@ -251,24 +265,13 @@ def _sharded(ctx: ParallelCtx) -> bool:
     return ctx.has_grid and math.prod(ctx.grid.sizes) > 1
 
 
-def _block_of(x: torch.Tensor, spec, grid) -> torch.Tensor:
-    """This rank's block of ``x`` under ``spec`` (one entry per dim)."""
-    for dim, entry in enumerate(spec):
-        if entry is None:
-            continue
-        size = grid.axis_size(entry)
-        if x.shape[dim] % size:
-            raise ValueError(
-                f"dim {dim} of {tuple(x.shape)} does not divide by the "
-                f"{size} ranks of axis {entry!r}")
-        n = x.shape[dim] // size
-        x = x.narrow(dim, grid.axis_index(entry) * n, n)
-    return x.contiguous()
+_block_of = block_of
 
 
 def _local_kv(cache, ctx: ParallelCtx, batch: int):
-    """The cache with each KV leaf cut to this rank's block of
-    :func:`cache_shardings`; every other leaf stays whole."""
+    """The cache of this rank's ``batch`` rows with each KV leaf cut to
+    its S-shard of :func:`cache_shardings` (the rows are the rank's
+    already); every other leaf as it is."""
     if not _sharded(ctx):
         return cache
     specs = cache_shardings(cache, ctx, batch)
@@ -276,6 +279,8 @@ def _local_kv(cache, ctx: ParallelCtx, batch: int):
     def cut(path, leaf, spec):
         if path[-1] not in _KV_LEAF_KEYS:
             return leaf
+        spec = tuple(None if d == leaf.ndim - 4 else e
+                     for d, e in enumerate(spec))
         return _block_of(leaf, spec, ctx.grid)
 
     return map_cache(cut, cache, specs)
@@ -429,7 +434,10 @@ def prefill(model: LM, inputs: dict, cfg: ModelConfig, ctx: ParallelCtx,
     """Returns (last-token logits (B, V) fp32, a new cache).  Every
     attention block launches the flash-attention kernel once on a CUDA
     model."""
-    x = embed_inputs(model, inputs, cfg)
+    rows = ctx.splits_batch(
+        next(v for v in inputs.values() if v is not None).shape[0])
+    inputs = local_batch(inputs, ctx)
+    x = embed_inputs(model, inputs, cfg, ctx)
     b, s = x.shape[:2]
     positions = inputs.get("positions")
     if positions is None:
@@ -445,10 +453,8 @@ def prefill(model: LM, inputs: dict, cfg: ModelConfig, ctx: ParallelCtx,
         x = _prefill_block(kind, model.tail[j], x, positions, cfg, ctx,
                            max_len, cache["tail"][j])
     last = L.rmsnorm(model.final_norm, x[:, -1, :], cfg.norm_eps)
-    if model.head is not None:
-        logits = L.dense(model.head, last).float()
-    else:
-        logits = L.unembed(model.embed, last)
+    logits = whole_logits(model, head_logits(model, last, cfg, ctx), cfg,
+                          ctx, rows)
     cache["pos"].fill_(s)
     return logits, _local_kv(cache, ctx, b)
 
@@ -508,19 +514,36 @@ def _partial_attn(q, k, v, n_valid, offset, ks=None, vs=None):
     return m, l, o
 
 
+def decode_rows(b: int, ctx: ParallelCtx) -> bool:
+    """Whether a decode batch of ``b`` rows runs split over dp (each rank
+    its rows: ``b`` divides dp > 1).  A batch that does not divide a dp of
+    more than one keeps every row's cache on every dp rank for the step,
+    correct but costly: on a tensor-parallel grid that warns (callers size
+    their slot pools to a dp multiple, as ``serve.scheduler`` does, or
+    pad)."""
+    if ctx.dp_size > 1 and b % ctx.dp_size and ctx.tp_size > 1:
+        warnings.warn(
+            f"decode batch {b} is not divisible by dp={ctx.dp_size}: "
+            "KV cache DP sharding is dropped (replicated) for this step; "
+            "pad the batch or use a slot count divisible by dp",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+    return ctx.splits_batch(b)
+
+
 def _decode_attention(q, k_new, v_new, k_cache, v_cache, slot, n_valid,
                       ctx: ParallelCtx, k_scale=None, v_scale=None):
     """One fused decode-attention step: write the new token's K/V into the
     ring caches (in place; on a grid, this rank's block only) and attend.
 
     q (B, H, Dh); k_new/v_new (B, Hkv, 1, Dh); caches (B, Hkv, S_c, Dh) —
-    on a grid of more than one rank, this rank's block of
-    :func:`cache_shardings` (rows of its DP shard, unless B does not
-    divide the DP degree, and its S-shard), while q, k_new, v_new,
-    ``slot`` and ``n_valid`` are whole.  ``slot`` / ``n_valid`` are
-    per-row ``(B,)`` vectors (scalars are broadcast).  With
-    ``k_scale``/``v_scale`` the caches are int8 and dequantized in-shard.
-    Returns (attention output (B, H, Dh), the caches given...).
+    on a grid of more than one rank, the rows of the cache (this rank's
+    rows where the batch is split over dp, ``decode_rows``) and, of the
+    caches, this rank's S-shard of :func:`cache_shardings`.  ``slot`` /
+    ``n_valid`` are per-row ``(B,)`` vectors (scalars are broadcast).
+    With ``k_scale``/``v_scale`` the caches are int8 and dequantized
+    in-shard.  Returns (attention output (B, H, Dh), the caches given...).
     """
     b, h, dh = q.shape
     dev = q.device
@@ -536,52 +559,22 @@ def _decode_attention(q, k_new, v_new, k_cache, v_cache, slot, n_valid,
     else:
         news = ((k_cache, k_new), (v_cache, v_new))
         caches = (k_cache, v_cache)
-
-    if not _sharded(ctx):
-        for buf, new in news:
-            _local_ring_update(buf, new, slot, 0)
-        m, l, o = _partial_attn(q, k_cache, v_cache, n_valid, 0,
-                                k_scale, v_scale)
-        out = o / torch.clamp(l[..., None], min=1e-30)
-        return (out.reshape(b, h, dh).to(q.dtype),) + caches
-
-    # the per-rank program of the reference's shard_map
-    grid = ctx.grid
-    dp_sharded = b % max(ctx.dp_size, 1) == 0
-    if not dp_sharded and ctx.tp_size > 1:
-        # Explicit fallback: a ragged continuous batch that does not
-        # divide the DP degree replicates the *whole cache* on every DP
-        # rank for this step.  Correct but costly — callers size their
-        # slot pools to a DP multiple (serve.scheduler does) or pad.
-        warnings.warn(
-            f"decode batch {b} is not divisible by dp={ctx.dp_size}: "
-            "KV cache DP sharding is dropped (replicated) for this step; "
-            "pad the batch or use a slot count divisible by dp",
-            RuntimeWarning,
-            stacklevel=2,
-        )
-    rows = slice(None)
-    if dp_sharded and ctx.dp_size > 1:
-        b_loc = b // ctx.dp_size
-        r0 = grid.axis_index(ctx.dp) * b_loc
-        rows = slice(r0, r0 + b_loc)
-    s_loc = k_cache.shape[2]
-    offset = (grid.axis_index(ctx.tp_axis) * s_loc
-              if ctx.tp_axis is not None else 0)
+    # the per-rank program of the reference's shard_map: the rank's
+    # S-shard starts at its tp index times the shard's length
+    offset = (ctx.grid.axis_index(ctx.tp_axis) * k_cache.shape[2]
+              if _sharded(ctx) and ctx.tp_axis is not None else 0)
     for buf, new in news:
-        _local_ring_update(buf, new[rows], slot[rows], offset)
-    m, l, o = _partial_attn(q[rows], k_cache, v_cache, n_valid[rows],
-                            offset, k_scale, v_scale)
+        _local_ring_update(buf, new, slot, offset)
+    m, l, o = _partial_attn(q, k_cache, v_cache, n_valid, offset, k_scale,
+                            v_scale)
     if ctx.tp_size > 1:
+        grid = ctx.grid
         m_g = grid.all_reduce(m, ctx.tp_axis, op="max")
         corr = torch.exp(m - m_g)
         l = grid.all_reduce(l * corr, ctx.tp_axis)
         o = grid.all_reduce(o * corr[..., None], ctx.tp_axis)
     out = o / torch.clamp(l[..., None], min=1e-30)
-    out = out.reshape(-1, h, dh).to(q.dtype)
-    if rows != slice(None):
-        out = grid.all_gather(out, ctx.dp, 0)
-    return (out,) + caches
+    return (out.reshape(b, h, dh).to(q.dtype),) + caches
 
 
 def _ring_attend(q_t, k_new, v_new, cache, pos, cfg, ctx):
@@ -603,15 +596,19 @@ def _decode_block(kind, p, x_t, positions, cache, pos, cfg, ctx,
                   attend=_ring_attend):
     """x_t (B, D) one token at per-row positions ``pos`` (B,); updates
     ``cache`` in place and returns x_t.  An attn block's attention is
-    ``attend`` (the dense ring's unless told otherwise)."""
+    ``attend`` (the dense ring's unless told otherwise).  On a grid (x_t
+    holds the cache's rows) the attention and recurrent weights are
+    gathered whole, every tp rank repeating the projections around its
+    sequence-sharded attention."""
     if kind == "attn":
-        h = L.rmsnorm(p.attn.norm, x_t, cfg.norm_eps)
-        q, k, v = _project_qkv(p.attn, h[:, None, :], positions, cfg, ctx)
+        pa = ctx.whole(p.attn)
+        h = L.rmsnorm(pa.norm, x_t, cfg.norm_eps)
+        q, k, v = _project_qkv(pa, h[:, None, :], positions, cfg, ctx)
         q_t = q.reshape(q.shape[0], q.shape[2], q.shape[3])  # (B, H, dh)
         # k, v (B, 1, Hkv, dh) -> (B, Hkv, 1, dh)
         o = attend(q_t, k.transpose(1, 2), v.transpose(1, 2), cache, pos,
                    cfg, ctx)
-        x_t = x_t + L.dense(p.attn.wo,
+        x_t = x_t + L.dense(pa.wo,
                             o.reshape(x_t.shape[0], -1).to(x_t.dtype))
         if p.moe is not None:
             y, _ = moe_ffn(p.moe, x_t[:, None, :], cfg, ctx)
@@ -619,15 +616,16 @@ def _decode_block(kind, p, x_t, positions, cache, pos, cfg, ctx,
         elif p.ffn is not None:
             x_t = x_t + ffn(p.ffn, x_t[:, None, :], cfg, ctx)[:, 0]
         return x_t
+    rec = ctx.whole(p.rec)
     if kind == "rglru":
-        o, st = rglru_step(p.rec, x_t, cache, cfg)
+        o, st = rglru_step(rec, x_t, cache, cfg)
         x_t = x_t + o
         x_t = x_t + ffn(p.ffn, x_t[:, None, :], cfg, ctx)[:, 0]
     elif kind == "mlstm":
-        o, st = mlstm_step(p.rec, x_t, cache, cfg)
+        o, st = mlstm_step(rec, x_t, cache, cfg)
         x_t = x_t + o
     elif kind == "slstm":
-        o, st = slstm_step(p.rec, x_t, cache, cfg)
+        o, st = slstm_step(rec, x_t, cache, cfg)
         x_t = x_t + o
     else:
         raise ValueError(kind)
@@ -651,11 +649,17 @@ def decode_step(model: LM, cache, tokens, cfg: ModelConfig,
     ctx)`` is each attn block's attention over its cache, the dense
     ring's by default (``serve.pages`` passes its page-table twin).
     """
+    rows = decode_rows(tokens.shape[0], ctx)
+    if rows:  # this rank's rows, which its cache holds
+        tokens = ctx.block(tokens, ctx.dp)
+        if active is not None:
+            active = ctx.block(torch.as_tensor(active, device=tokens.device),
+                               ctx.dp)
     pos = cache["pos"]
     b = tokens.shape[0]
     if pos.ndim == 0:  # one position for the whole batch
         pos = pos.expand(b)
-    x = L.embed(model.embed, tokens) if cfg.embed_inputs else tokens
+    x = _embed(model.embed, tokens, cfg, ctx) if cfg.embed_inputs else tokens
     if cfg.rope == "mrope":
         positions = pos[:, None, None].expand(b, 1, 3)
     else:
@@ -669,10 +673,8 @@ def decode_step(model: LM, cache, tokens, cfg: ModelConfig,
         x = _decode_block(kind, model.tail[j], x, positions,
                           cache["tail"][j], pos, cfg, ctx, attend)
     x = L.rmsnorm(model.final_norm, x, cfg.norm_eps)
-    if model.head is not None:
-        logits = L.dense(model.head, x).float()
-    else:
-        logits = L.unembed(model.embed, x)
+    logits = whole_logits(model, head_logits(model, x, cfg, ctx), cfg, ctx,
+                          rows)
     advance = 1 if active is None else torch.as_tensor(
         active, device=pos.device).to(pos.dtype)
     cache["pos"] = pos + advance

@@ -142,6 +142,10 @@ def _check_paged_supported(cfg: ModelConfig, ctx: ParallelCtx):
         raise NotImplementedError(
             "paged + TP seq-sharding: keep the dense ring"
         )
+    if ctx.dp_size > 1:
+        raise NotImplementedError(
+            "paged + a slot pool split over DP ranks: keep the dense ring"
+        )
 
 
 def paged_init_cache(cfg: ModelConfig, n_slots: int, n_pages: int,

@@ -23,8 +23,16 @@ Backends: ``"dense"`` uses ``engine``'s ring caches; ``"paged"`` uses
 reshaping of live state.  Each step brings the argmax tokens back to the
 host once; on the card a step's latency ends in a synchronize, so p50
 and p99 time the work, not the launch queue.  The pool lives on the
-model's device; grids of more than one DP rank are not served here
-(their batch-sharded pools wait for ROADMAP A8b's sharding rules).
+model's device.
+
+On a grid of dp ranks (the model holding its blocks,
+``dist.partitioning.shard_params``) the dense pool is split over dp:
+``n_slots`` must divide by dp, and
+each DP rank holds its ``n_slots / dp`` rows of the caches.  Every rank
+runs the same loop: an admission's batch-1 prefill runs on every rank
+(it does not divide dp) and the slot's owner keeps its cache row; each
+decode step runs each rank's rows and gathers the step's logits, so
+every rank picks the same tokens and admits and evicts alike.
 """
 from __future__ import annotations
 
@@ -105,10 +113,14 @@ class Scheduler:
             raise ValueError(f"mode={mode!r}")
         if backend not in ("dense", "paged"):
             raise ValueError(f"backend={backend!r}")
-        if ctx.dp_size > 1:
-            raise NotImplementedError(
-                "a slot pool sharded over DP ranks needs the sharding rules "
-                "of ROADMAP A8b")
+        # the pool's rows this rank holds: its share over dp
+        if n_slots % ctx.dp_size:
+            raise ValueError(
+                f"n_slots={n_slots} must divide by dp={ctx.dp_size}: "
+                "each DP rank holds an equal share of the slot pool")
+        n = n_slots // ctx.dp_size
+        r0 = ctx.grid.axis_index(ctx.dp) * n if ctx.dp_size > 1 else 0
+        self.rows = range(r0, r0 + n)
         self.params = params
         self.cfg = cfg
         self.ctx = ctx
@@ -136,11 +148,11 @@ class Scheduler:
         else:
             self.alloc = None
             # on a tensor-parallel grid the pool holds this rank's S-shard,
-            # as prefill's caches do
+            # as prefill's caches do, and over dp its rows
             self.cache = engine._local_kv(engine.init_cache(
-                cfg, n_slots, max_len, kv_quant=ctx.kv_quant,
+                cfg, len(self.rows), max_len, kv_quant=ctx.kv_quant,
                 device=self.device,
-            ), ctx, n_slots)
+            ), ctx, len(self.rows))
         # host mirrors of the slots' next tokens and positions: the loop
         # reads them without a wait for the card
         self.tokens = np.zeros(n_slots, np.int64)
@@ -193,6 +205,10 @@ class Scheduler:
             pages.paged_prefill_write(
                 self.cache, sub_cache, self.alloc, slot, req.prompt_len
             )
+
+        if slot not in self.rows:  # only the slot's DP rank holds its row
+            return
+        slot -= self.rows.start
 
         def row(path, leaf, sub):
             if self.backend == "paged" and (

@@ -16,9 +16,14 @@ checkpoint written by either package is read by the other.  The train
 state is saved in the reference's tree (``train.train_step.state_tree``:
 the units' parameters stacked on a leading axis).
 
-The port keeps every tensor whole (ROADMAP A8b), so restore takes a
-device where the reference takes shardings: leaves are loaded on the
-host and moved there.
+A checkpoint holds every leaf whole, whatever grid wrote it.  Restore
+takes a device and, for a sharded state, the leaves' specs and the grid
+(``train.train_step.state_shardings``) where the reference takes
+shardings: each leaf is loaded whole on the host, cut to this rank's
+block there and moved to the device, so a checkpoint restores onto any
+grid.  On a grid of more than one rank every rank gathers the whole
+state (a collective) and one rank writes it (``CheckpointManager(...,
+write=...)``).
 """
 from __future__ import annotations
 
@@ -111,13 +116,17 @@ def restore_checkpoint(
     *,
     device=None,
     verify: bool = True,
+    shardings: Any = None,
+    grid=None,
 ) -> Any:
     """Restore into the structure of ``target``, a tree whose leaves have
     a ``shape`` and a torch ``dtype`` (tensors, on any device including
     ``meta``).  Each leaf is cast to its target's dtype and put on
-    ``device`` (default: the target leaf's device).  Raises ``IOError``
-    on a checksum mismatch (with ``verify``) and ``ValueError`` on a
-    shape mismatch."""
+    ``device`` (default: the target leaf's device); with ``shardings``
+    (a tree of ``target``'s structure of spec tuples) and ``grid``, only
+    this rank's block of it.  Raises ``IOError`` on a checksum mismatch
+    (with ``verify``) and ``ValueError`` on a shape mismatch."""
+    from repro_torch.dist.partitioning import block_of
     base = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(base, "manifest.json")) as f:
         manifest = json.load(f)
@@ -134,26 +143,36 @@ def restore_checkpoint(
                 f"{tuple(tgt.shape)}"
             )
         out = _from_numpy(arr, meta["dtype"]).to(tgt.dtype)
+        spec = specs.get(path) if specs else None
+        if spec:
+            out = block_of(out, spec, grid)
         return out.to(device if device is not None else tgt.device)
 
+    specs = dict(leaves(shardings)) if shardings is not None else None
     return tree_map_with_path(load, target)
 
 
 class CheckpointManager:
-    """Keeps the last ``keep`` checkpoints, saves every ``every`` steps."""
+    """Keeps the last ``keep`` checkpoints, saves every ``every`` steps;
+    ``write=False`` builds the tree (a collective on a sharded state) and
+    leaves the writing to another rank."""
 
-    def __init__(self, ckpt_dir: str, every: int = 50, keep: int = 3):
+    def __init__(self, ckpt_dir: str, every: int = 50, keep: int = 3,
+                 write: bool = True):
         self.dir = ckpt_dir
         self.every = every
         self.keep = keep
+        self.write = write
 
     def maybe_save(self, step: int, tree: Any) -> bool:
         """Save ``tree`` (or what a callable ``tree`` returns, built only
         when a save is due) at a step that ``every`` divides."""
         if self.every <= 0 or step % self.every:
             return False
-        save_checkpoint(self.dir, step, tree() if callable(tree) else tree)
-        self._gc()
+        tree = tree() if callable(tree) else tree
+        if self.write:
+            save_checkpoint(self.dir, step, tree)
+            self._gc()
         return True
 
     def _gc(self):

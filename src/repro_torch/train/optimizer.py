@@ -20,6 +20,15 @@ RMS update clip is taken over the whole stacked leaf.
 updates ``opt_state`` in place (each slot is replaced leaf by leaf, so
 the old and new state never coexist in memory) and returns new params;
 ``grads`` are read, not written.
+
+On a sharded train state (``train.train_step``) every leaf is this
+rank's block, and ``update(..., shards=Shards(...))`` says where each
+lies: the global norm sums each leaf's squares over the axes the leaf
+is sharded on (and not over those it is replicated on), AdamW updates
+its moments and master in their slots' layout (ZeRO-1: a block over
+the FSDP axis of a parameter every rank holds whole over it, the new
+parameter gathered back), and Adafactor's row and column means and its
+RMS clip reduce over the sharded dims.
 """
 from __future__ import annotations
 
@@ -31,7 +40,7 @@ import torch
 
 from repro_torch.train.tree import at, leaves, tree_map
 
-__all__ = ["OptimizerConfig", "Optimizer", "make_optimizer"]
+__all__ = ["OptimizerConfig", "Optimizer", "Shards", "make_optimizer"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,10 +84,59 @@ def _schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
     return cfg.peak_lr * torch.minimum(warm, cos)
 
 
-def _global_norm(tree) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class Shards:
+    """Where the leaves of a sharded train state lie on ``grid``:
+    ``params`` maps a parameter's path to the spec of its block (and of
+    its gradient's), ``state`` is the optimizer state's tree of specs."""
+
+    grid: Any
+    params: dict
+    state: Any
+
+    def live(self, spec) -> tuple:
+        """The axes of ``spec`` with more than one rank."""
+        return tuple(a for e in spec if e is not None
+                     for a in (e if isinstance(e, tuple) else (e,))
+                     if self.grid.axis_size(a) > 1)
+
+    def move(self, x: torch.Tensor, src, dst) -> torch.Tensor:
+        from repro_torch.dist.partitioning import reshard
+
+        return reshard(x, src, dst, self.grid)
+
+    def mean(self, x: torch.Tensor, dim: int, spec) -> torch.Tensor:
+        """The mean of the whole tensor along ``dim``, of which ``x`` is
+        the block under ``spec``."""
+        axes = self.live(spec[dim:dim + 1] if dim >= 0 else
+                         spec[len(spec) + dim:len(spec) + dim + 1])
+        if not axes:
+            return x.mean(dim=dim)
+        n = x.shape[dim] * self.grid.axis_size(axes)
+        return self.grid.all_reduce(x.sum(dim=dim), axes) / n
+
+    def mean_all(self, x: torch.Tensor, spec) -> torch.Tensor:
+        axes = self.live(spec)
+        if not axes:
+            return torch.mean(x)
+        n = x.numel() * self.grid.axis_size(axes)
+        return self.grid.all_reduce(x.sum(), axes) / n
+
+
+def _global_norm(tree, shards: Shards | None = None) -> torch.Tensor:
     total = 0
-    for _, leaf in leaves(tree):
-        total = total + torch.sum(torch.square(leaf.float()))
+    if shards is None:
+        for _, leaf in leaves(tree):
+            total = total + torch.sum(torch.square(leaf.float()))
+        return torch.sqrt(total)
+    by_axes: dict = {}  # one all-reduce per set of axes
+    for path, leaf in leaves(tree):
+        axes = tuple(sorted(set(shards.live(shards.params[path]))))
+        by_axes[axes] = by_axes.get(axes, 0) + torch.sum(
+            torch.square(leaf.float()))
+    for axes, part in by_axes.items():
+        total = total + (shards.grid.all_reduce(part, axes) if axes
+                         else part)
     return torch.sqrt(total)
 
 
@@ -116,8 +174,8 @@ def _make_adamw(cfg: OptimizerConfig) -> Optimizer:
                           params),
         }
 
-    def update(grads, state, params, step):
-        scale = _clip_scale(_global_norm(grads), cfg.clip_norm)
+    def update(grads, state, params, step, shards: Shards | None = None):
+        scale = _clip_scale(_global_norm(grads, shards), cfg.clip_norm)
         lr = _schedule(cfg, step)
         t = _step_f32(step) + 1.0
         bc1 = 1.0 - cfg.b1 ** t
@@ -125,6 +183,10 @@ def _make_adamw(cfg: OptimizerConfig) -> Optimizer:
         new_params = tree_map(lambda p: None, params)
         for path, g in leaves(grads):
             g = g.float() * scale
+            if shards is not None:  # into the moments' layout
+                spec = shards.params[path]
+                slot = at(shards.state["m"], path)
+                g = shards.move(g, spec, slot)
             m = cfg.b1 * at(state["m"], path) + (1 - cfg.b1) * g
             v = cfg.b2 * at(state["v"], path) + (1 - cfg.b2) * g * g
             del g
@@ -134,9 +196,12 @@ def _make_adamw(cfg: OptimizerConfig) -> Optimizer:
                 delta = delta + cfg.weight_decay * master
             master = master - lr * delta
             del delta
-            for slot, value in (("m", m), ("v", v), ("master", master)):
-                _set(state[slot], path, value)
-            _set(new_params, path, master.to(at(params, path).dtype))
+            for name, value in (("m", m), ("v", v), ("master", master)):
+                _set(state[name], path, value)
+            new = master.to(at(params, path).dtype)
+            if shards is not None:
+                new = shards.move(new, slot, spec)
+            _set(new_params, path, new)
         return new_params, state
 
     return Optimizer(init=init, update=update)
@@ -158,8 +223,8 @@ def _make_adafactor(cfg: OptimizerConfig) -> Optimizer:
 
         return {"v": tree_map(leaf_state, params)}
 
-    def update(grads, state, params, step):
-        scale = _clip_scale(_global_norm(grads), cfg.clip_norm)
+    def update(grads, state, params, step, shards: Shards | None = None):
+        scale = _clip_scale(_global_norm(grads, shards), cfg.clip_norm)
         lr = _schedule(cfg, step)
         t = _step_f32(step) + 1.0
         beta2 = 1.0 - t ** (-cfg.decay_rate)
@@ -168,23 +233,48 @@ def _make_adafactor(cfg: OptimizerConfig) -> Optimizer:
             g = g.float() * scale
             p = at(params, path)
             v = at(state["v"], path)
+            # the update runs in the parameter's layout (``spec``); the
+            # factored moments are stored in their own (``slot``)
+            spec = (None,) * p.ndim
+            slot = {k: spec for k in v}
+            if shards is not None:
+                spec = shards.params[path]
+                slot = at(shards.state["v"], path)
+            specs = {"vr": spec[:-1], "vc": spec[:-2] + spec[-1:], "v": spec}
+
+            def mean(x, dim, x_spec):
+                if shards is None:
+                    return x.mean(dim=dim)
+                return shards.mean(x, dim, x_spec)
+
+            def load(k):
+                if shards is None:
+                    return v[k]
+                return shards.move(v[k], slot[k], specs[k])
+
             g2 = g * g + cfg.af_eps
             if p.ndim >= 2:
-                vr = beta2 * v["vr"] + (1 - beta2) * g2.mean(dim=-1)
-                vc = beta2 * v["vc"] + (1 - beta2) * g2.mean(dim=-2)
+                vr = beta2 * load("vr") + (1 - beta2) * mean(g2, -1, spec)
+                vc = beta2 * load("vc") + (1 - beta2) * mean(g2, -2, spec)
                 # rank-1 reconstruction of the second moment
                 denom = vr[..., :, None] * vc[..., None, :]
                 denom = denom / torch.clamp(
-                    vr.mean(dim=-1)[..., None, None], min=cfg.af_eps)
+                    mean(vr, -1, specs["vr"])[..., None, None],
+                    min=cfg.af_eps)
                 upd = g / torch.sqrt(denom + cfg.af_eps)
                 nv = {"vr": vr, "vc": vc}
             else:
-                vv = beta2 * v["v"] + (1 - beta2) * g2
+                vv = beta2 * load("v") + (1 - beta2) * g2
                 upd = g / torch.sqrt(vv + cfg.af_eps)
                 nv = {"v": vv}
             del g, g2
+            if shards is not None:
+                nv = {k: shards.move(x, specs[k], slot[k])
+                      for k, x in nv.items()}
             # update clipping by RMS (Adafactor's d=1.0 rule)
-            rms = torch.sqrt(torch.mean(upd * upd) + 1e-12)
+            rms = torch.sqrt((torch.mean(upd * upd) if shards is None
+                              else shards.mean_all(upd * upd, spec))
+                             + 1e-12)
             upd = upd / torch.clamp(rms, min=1.0)
             if p.ndim >= 2:
                 upd = upd + cfg.weight_decay * p.float()

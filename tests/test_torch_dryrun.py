@@ -220,7 +220,7 @@ def test_cache_shardings_engine_is_the_only_impl():
 def test_run_cell_on_every_arch(arch, monkeypatch):
     """Every shape of every arch at smoke size on the card's grid: counted
     and finite, the reference's statuses for the skipped cells; the
-    production grids record schedules and argument bytes, and no
+    production grids record schedules, argument bytes and rank 0's
     per-device count."""
     monkeypatch.setattr(dryrun, "SHAPES", SMALL_SHAPES)
     for shape in SMALL_SHAPES:
@@ -241,8 +241,14 @@ def test_run_cell_on_every_arch(arch, monkeypatch):
         prod = dryrun.run_cell(arch, shape, True, smoke=True,
                                matmul_strategy="summa")
         assert prod["mesh"] == "2x16x16" and prod["chips"] == 512
-        assert prod["per_device"] == dryrun.PER_DEVICE_STATUS
-        assert "flops_per_device" not in prod
+        # rank 0's program counted on the production grid: a share of
+        # the one-rank count, its collectives, its peak memory
+        assert set(REF_KEYS) <= set(prod)
+        assert 0 < prod["flops_per_device"] < res["flops_per_device"]
+        assert prod["collective_bytes_per_device"] > 0
+        assert sum(prod["collective_counts"].values()) > 0
+        assert prod["roofline"]["bound_s"] > 0
+        assert prod["argument_bytes_per_rank"] > 0
         assert prod["memory_analysis"]["argument_size_in_bytes"] > 0
         assert prod["model_flops"] == res["roofline"]["model_flops"]
         cfg = get_config(arch, smoke=True)

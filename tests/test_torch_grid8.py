@@ -16,18 +16,24 @@ the reference's own expert-parallel test):
   task-based and all-gather strategies and the A-/B-stationary
   re-layouts;
 * expert parallelism on a (2, 4) grid: mixtral-8x7b's and kimi-k2's
-  SMOKE MoE layers with their experts over the 4-rank ``model`` axis,
+  SMOKE MoE layers stored as each rank's blocks
+  (``dist.partitioning.shard_params``: experts over the 4-rank ``model``
+  axis, ``d_model`` over ``data``) and run on the rank's batch rows,
   against the one-rank route (the reference's
   ``tests/test_moe.py::test_expert_parallel_equivalence_subprocess``);
-  the gradient through them (every parameter's and the activations')
-  and one Adafactor train step of each SMOKE model on the grid, against
-  the reference's whole gradient and step on one device (at 1e-4 of
-  each leaf's largest value, as ``tests/test_torch_train.py``);
+  the gradient through them (every parameter's and the activations',
+  gathered whole) and one Adafactor train step of each SMOKE model on
+  its sharded state, against the reference's whole gradient and step on
+  one device (at 1e-4 of each leaf's largest value, as
+  ``tests/test_torch_train.py``);
 * the ring collective matmul on the (2, 4) grid: ``allgather_matmul`` at
   lookahead 1, 2 and 4, with ``batch_axes=("data",)``, and its weight
   gradient (the reference's ``tests/test_dist.py`` ``ALLGATHER_MM_CODE``
   cases), then ``project`` under ``"allgather"`` and ``"auto"`` (which
-  picks the ring, as in ``PROJECT_AUTO_CODE``) with its gradients.
+  picks the ring, as in ``PROJECT_AUTO_CODE``) on the rank's rows and
+  its stored block of the weight, with its gradients.
+
+Every rank gathers its results whole.
 
 Run it alone with ``pytest tests/test_torch_grid8.py`` (~40 s).
 """
@@ -92,6 +98,7 @@ from repro_torch.models.convert import (load_leaves,
                                         train_state_to_numpy)
 from repro_torch.analysis.cost import analyze_step
 from repro_torch.dist.collective_matmul import allgather_matmul, project
+from repro_torch.dist.partitioning import gather_block, shard_params
 from repro_torch.train import train_step as ts
 from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
 from repro_torch.train.tree import leaves as tree_leaves, unflatten
@@ -119,40 +126,51 @@ for name, (row, col, how) in spec["tuple_cases"].items():
                           strategy=how, k_blocks=4)
         out[name] = summa_matmul(a, b, cfg).numpy()
 ctx = ParallelCtx(Grid.from_process_group(2, 4, device="cpu"))
+grid = ctx.grid
+
+
+def rows(x):  # this rank's rows of a global batch (over data)
+    return torch.from_numpy(np.split(x, 2)[grid.axis_index("data")])
+
+
 for arch in spec["moe_archs"]:
     cfg = get_config(arch, smoke=True)
     cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
         cfg.moe, capacity_factor=32.0))
     leaves = {k.split("/", 1)[1]: case[k] for k in case.files
               if k.startswith(arch + "/")}
-    layer = load_leaves(moe.MoE(cfg, ep=4, dtype=torch.float32, device="cpu"),
-                        leaves)
-    y, aux = moe.moe_ffn(layer, torch.from_numpy(case[arch + "-x"]), cfg, ctx)
-    out["ep-" + arch], out["aux-" + arch] = y.numpy(), aux.numpy()
-    # the gradient through expert parallelism
+    layer = shard_params(load_leaves(
+        moe.MoE(cfg, ep=4, dtype=torch.float32, device="cpu"), leaves), grid)
+    y, aux = moe.moe_ffn(layer, rows(case[arch + "-x"]), cfg, ctx)
+    out["ep-" + arch] = grid.all_gather(y, "data", 0).numpy()
+    out["aux-" + arch] = aux.numpy()
+    # the gradient through expert parallelism: each rank's loss is its
+    # rows' sum of squares and the (global) aux loss
     layer.requires_grad_(True)
-    x = torch.from_numpy(case[arch + "-x"]).requires_grad_(True)
+    x = rows(case[arch + "-x"]).requires_grad_(True)
     y, aux = moe.moe_ffn(layer, x, cfg, ctx)
     ((y ** 2).sum() + aux).backward()
-    out[f"grad-{arch}/x"] = x.grad.numpy()
+    ts.sync_grads(layer, ctx)
+    out[f"grad-{arch}/x"] = grid.all_gather(x.grad, "data", 0).numpy()
     for name, p in layer.named_parameters():
-        out[f"grad-{arch}/{name}"] = p.grad.numpy()
+        out[f"grad-{arch}/{name}"] = gather_block(p.grad, p.spec,
+                                                  grid).numpy()
     # one train step of the SMOKE model on the grid
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
     flat = {k.split("/", 1)[1]: case[k] for k in case.files
             if k.startswith("state-" + arch + "/")}
-    state = train_state_from_reference(unflatten(flat), cfg, "cpu", ep=4)
+    state = train_state_from_reference(unflatten(flat), cfg, "cpu", ep=4,
+                                       ctx=ctx)
     batch = {k.split("/", 1)[1]: case[k] for k in case.files
              if k.startswith("batch-" + arch + "/")}
     opt = make_optimizer(OptimizerConfig(name="adafactor", total_steps=10,
                                          warmup_steps=1))
     state, metrics = ts.build_train_step(cfg, ctx, opt)(state, batch)
-    for k, v in tree_leaves(train_state_to_numpy(state)):
+    for k, v in tree_leaves(train_state_to_numpy(state, ctx)):
         out[f"step-{arch}/{k}"] = v
     for k, v in metrics.items():
         out[f"metric-{arch}/{k}"] = v.numpy()
 # the ring collective matmul: tiles gathered back to whole on every rank
-grid = ctx.grid
 x, w = case["ring_x"], case["ring_w"]
 me = grid.axis_index("model")
 w_loc = torch.from_numpy(np.ascontiguousarray(np.split(w, 4, axis=1)[me]))
@@ -171,14 +189,21 @@ w_grad = w_loc.clone().requires_grad_(True)
  ).sum().backward()
 out["ring-dw"] = grid.all_gather(w_grad.grad, "model", 1).numpy()
 for strategy in ("allgather", "auto"):
-    xs = torch.from_numpy(x).requires_grad_(True)
-    ws = torch.from_numpy(case["ring_w_wide"]).requires_grad_(True)
+    # the rank's rows, and its block of an FFN kernel ("data", "model")
+    xs = rows(x).requires_grad_(True)
+    holder = torch.nn.Module()
+    holder.w = torch.nn.Parameter(torch.from_numpy(case["ring_w_wide"]))
+    ws = shard_params(holder, grid).w
     y, wc, _ = analyze_step(
         project, xs, ws, ParallelCtx(grid, matmul_strategy=strategy))
     (y ** 2).sum().backward()
-    out[f"project-{strategy}"] = y.detach().numpy()
-    out[f"project-{strategy}-dx"] = xs.grad.numpy()
-    out[f"project-{strategy}-dw"] = ws.grad.numpy()
+    ts.sync_grads(holder, ctx)
+    out[f"project-{strategy}"] = grid.all_gather(
+        grid.all_gather(y.detach(), "model", 1), "data", 0).numpy()
+    out[f"project-{strategy}-dx"] = grid.all_gather(xs.grad, "data",
+                                                    0).numpy()
+    out[f"project-{strategy}-dw"] = gather_block(ws.grad, ws.spec,
+                                                 grid).numpy()
     out[f"project-{strategy}-hops"] = np.array(
         wc.coll_counts_by_op["collective-permute"])
 np.savez(data.replace("case", f"out{rank}"), **out)
@@ -285,8 +310,9 @@ def _hold(got, want):
 
 
 def test_every_rank_returns_the_whole_result(grid8):
-    """Products are gathered on every rank and the MoE output is summed
-    over the tp axis on every rank: all eight hold the same arrays."""
+    """Products are gathered on every rank, the MoE output is summed over
+    the tp axis and gathered over the data axis, and every sharded result
+    is gathered whole: all eight hold the same arrays."""
     _, _, outs = grid8
     for rank in range(1, 8):
         assert outs[rank].keys() == outs[0].keys()
@@ -329,9 +355,10 @@ def test_tuple_axes_match_reference(grid8, name):
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_expert_parallel_matches_one_rank_route(grid8, arch):
-    """Experts over the 4-rank ``model`` axis of a (2, 4) grid, every
-    rank's partial output summed by ``Grid.all_reduce``: within 1e-4 of
-    the one-rank route, the port's and the reference's."""
+    """Experts stored over the 4-rank ``model`` axis of a (2, 4) grid,
+    each rank on its batch rows, every rank's partial output summed over
+    ``model`` by ``Grid.sum``: within 1e-4 of the one-rank route, the
+    port's and the reference's."""
     _, _, outs = grid8
     cfg, rcfg, params, x = _moe_case(arch)
     layer = load_leaves(moe.MoE(cfg, dtype=torch.float32, device="cpu"),
@@ -354,7 +381,8 @@ def test_expert_parallel_gradient_matches_reference(grid8, arch):
     every parameter of the MoE layer and of its input, equals the
     reference's whole gradient on one device: no factor of the 4 ranks
     (the activations' gradient summed over them, each expert weight's
-    gathered from its rank)."""
+    block gathered from its rank, a replicated one's summed over the
+    data axis)."""
     _, _, outs = grid8
     cfg, rcfg, params, x = _moe_case(arch)
 
@@ -375,8 +403,9 @@ def test_expert_parallel_gradient_matches_reference(grid8, arch):
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_expert_parallel_train_step_matches_reference(grid8, arch):
-    """One Adafactor step of the fp32 SMOKE model with its experts over
-    the 4-rank ``model`` axis equals the reference's step on one device:
+    """One Adafactor step of the fp32 SMOKE model on its sharded state
+    (experts over the 4-rank ``model`` axis, each rank its rows of the
+    batch) equals the reference's step on one device:
     metrics at rtol 1e-4, every leaf of the new state at 1e-4 of its
     largest value."""
     _, _, outs = grid8
@@ -432,8 +461,9 @@ def test_ring_matmul_with_batch_axes_and_gradient(grid8):
 
 @pytest.mark.parametrize("strategy", ["allgather", "auto"])
 def test_project_runs_the_ring(grid8, strategy):
-    """``project`` on the (2, 4) grid routes ``"allgather"`` and, for this
-    dense shape, ``"auto"`` (the ring's pipeline estimate beats the tuned
+    """``project`` on the (2, 4) grid, given the rank's rows and its stored
+    block of the weight, routes ``"allgather"`` and, for this dense
+    shape, ``"auto"`` (the ring's pipeline estimate beats the tuned
     schedule) to the ring: ring hops on every rank, the reference's
     product, and the whole gradients within 1e-3."""
     from repro.core.plan import plan_matmul

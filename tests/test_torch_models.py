@@ -373,7 +373,8 @@ import torch.distributed as dist
 from repro_torch.configs.registry import get_config
 from repro_torch.core import Grid
 from repro_torch.dist.context import ParallelCtx
-from repro_torch.models.model import forward, init_model
+from repro_torch.dist.partitioning import shard_params
+from repro_torch.models.model import forward, init_model, whole_logits
 
 rank, rdv, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 dist.init_process_group("gloo", init_method="file://" + rdv, rank=rank,
@@ -385,7 +386,9 @@ model = init_model(cfg, generator=torch.Generator().manual_seed(0),
 tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))
 ctx = ParallelCtx(Grid.from_process_group(2, 2, device="cpu"),
                   matmul_strategy="summa")
+shard_params(model, ctx.grid)  # the rank's blocks
 logits, _ = forward(model, {"tokens": torch.from_numpy(tokens)}, cfg, ctx)
+logits = whole_logits(model, logits, cfg, ctx, rows=True)
 if rank == 0:
     np.save(out, logits.numpy())
 dist.destroy_process_group()
@@ -393,10 +396,11 @@ dist.destroy_process_group()
 
 
 def test_forward_on_a_2x2_gloo_grid_matches_xla(tmp_path):
-    """Four gloo processes form the 2x2 grid; every FFN projection runs
-    task-based SUMMA over it (panel broadcasts along grid rows and
-    columns).  The logits equal the 1x1 ``"xla"`` forward of the same
-    weights within the oracle tolerance (fp32)."""
+    """Four gloo processes form the 2x2 grid, each holding its blocks of
+    the weights and running its rows of the batch; every FFN projection
+    runs task-based SUMMA over it (panel broadcasts along grid rows and
+    columns).  The logits, gathered whole, equal the 1x1 ``"xla"``
+    forward of the same weights within the oracle tolerance (fp32)."""
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
     out = tmp_path / "logits.npy"

@@ -8,8 +8,9 @@ one in hand.  One spawn of four CPU processes runs the reference's
 ``tests/test_dist.py`` ``ALLGATHER_MM_CODE`` cases on a (2, 2) grid —
 lookahead 1, 2 and 4 (clamped to the ring of two), M sharded over
 ``("data", "model")``, the weight's gradient — and ``project`` under
-``"allgather"`` and ``"auto"``, each tile gathered back to whole on every
-rank.  Products are held with ``ORACLE_ATOL``/``ORACLE_RTOL`` against
+``"allgather"`` and ``"auto"`` on the rank's rows and its stored block of
+the weight (``dist.partitioning.shard_params``), each tile gathered back
+to whole on every rank.  Products are held with ``ORACLE_ATOL``/``ORACLE_RTOL`` against
 the reference on a one-device mesh of the same axes, gradients within
 1e-3 as the reference's own test holds them.  The (2, 4) cases run in
 ``tests/test_torch_grid8.py``'s spawn.
@@ -43,6 +44,8 @@ from repro_torch.analysis.cost import analyze_step
 from repro_torch.core import Grid
 from repro_torch.dist.collective_matmul import allgather_matmul, project
 from repro_torch.dist.context import ParallelCtx
+from repro_torch.dist.partitioning import gather_block, shard_params
+from repro_torch.train.train_step import sync_grads
 
 rank, rdv, data = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 dist.init_process_group("gloo", init_method="file://" + rdv, rank=rank,
@@ -71,14 +74,22 @@ out["ring-batch-dw"] = grid.all_gather(w_grad.grad, "model", 1).numpy()
 out["ring-batch-dx"] = grid.all_gather(x_rows.grad, ("data", "model"),
                                        0).numpy()
 for strategy in ("allgather", "auto"):
-    xs = torch.from_numpy(x).requires_grad_(True)
-    ws = torch.from_numpy(w_wide).requires_grad_(True)
-    y, wc, _ = analyze_step(
-        project, xs, ws, ParallelCtx(grid, matmul_strategy=strategy))
+    # the rank's rows, and its block of an FFN kernel ("data", "model")
+    xs = torch.from_numpy(np.split(x, 2)[grid.axis_index("data")])
+    xs.requires_grad_(True)
+    holder = torch.nn.Module()
+    holder.w = torch.nn.Parameter(torch.from_numpy(w_wide))
+    ws = shard_params(holder, grid).w
+    ctx = ParallelCtx(grid, matmul_strategy=strategy)
+    y, wc, _ = analyze_step(project, xs, ws, ctx)
     (y ** 2).sum().backward()
-    out[f"project-{strategy}"] = y.detach().numpy()
-    out[f"project-{strategy}-dx"] = xs.grad.numpy()
-    out[f"project-{strategy}-dw"] = ws.grad.numpy()
+    sync_grads(holder, ctx)
+    out[f"project-{strategy}"] = grid.all_gather(
+        grid.all_gather(y.detach(), "model", 1), "data", 0).numpy()
+    out[f"project-{strategy}-dx"] = grid.all_gather(xs.grad, "data",
+                                                    0).numpy()
+    out[f"project-{strategy}-dw"] = gather_block(ws.grad, ws.spec,
+                                                 grid).numpy()
     out[f"project-{strategy}-hops"] = np.array(
         wc.coll_counts_by_op["collective-permute"])
 np.savez(data.replace("case", f"out{rank}"), **out)
@@ -162,9 +173,10 @@ def test_ring_matmul_with_batch_axes_and_gradients(ring4):
 
 @pytest.mark.parametrize("strategy", STRATEGIES)
 def test_project_runs_the_ring(ring4, strategy):
-    """``project`` routes ``"allgather"`` and, at this shape, ``"auto"``
-    to the ring (one hop in the forward on a ring of two), with the
-    reference's product and gradients."""
+    """``project``, given the rank's rows and its stored block of the
+    weight, routes ``"allgather"`` and, at this shape, ``"auto"`` to the
+    ring (one hop in the forward on a ring of two), with the reference's
+    product and gradients."""
     x, _, w = _case()
     plan = tune_plan(plan_matmul(16, 64, 4096, abstract_summa_config(
         2, 2, strategy="taskbased")))

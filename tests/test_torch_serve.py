@@ -466,6 +466,7 @@ def test_cache_shardings_match_reference(arch, kv_quant):
 # ---------------------------------------------------------------------------
 
 _RANK_PROGRAM = r"""
+import copy
 import sys
 import warnings
 import numpy as np
@@ -474,6 +475,7 @@ import torch.distributed as dist
 from repro_torch.configs.registry import get_config
 from repro_torch.core import Grid
 from repro_torch.dist.context import ParallelCtx
+from repro_torch.dist.partitioning import shard_params
 from repro_torch.models.model import init_model
 from repro_torch.serve import engine
 
@@ -496,14 +498,20 @@ def run(tag, quant, slot, n_valid):
     b = q.shape[0]
     caches = [block(torch.from_numpy(case[f"{tag}-{n}"]), b)
               for n in (("k", "v", "ks", "vs") if quant else ("k", "v"))]
+    slot, n_valid = torch.from_numpy(slot), torch.from_numpy(n_valid)
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
-        res = engine._decode_attention(
-            q, kn, vn, caches[0], caches[1], torch.from_numpy(slot),
-            torch.from_numpy(n_valid), ctx, *caches[2:])
+        split = engine.decode_rows(b, ctx)  # as decode_step decides
+        if split:  # the rank's rows, which its cache block holds
+            q, kn, vn = (ctx.block(t, ctx.dp) for t in (q, kn, vn))
+            slot, n_valid = (ctx.block(t, ctx.dp) if t.ndim else t
+                             for t in (slot, n_valid))
+        res = engine._decode_attention(q, kn, vn, caches[0], caches[1],
+                                       slot, n_valid, ctx, *caches[2:])
     out[f"{tag}-warned"] = np.array(
         any("not divisible by dp" in str(w.message) for w in rec))
-    for name, t in zip(("o", "k", "v", "ks", "vs"), res):
+    o = grid.all_gather(res[0], ctx.dp, 0) if split else res[0]
+    for name, t in zip(("o", "k", "v", "ks", "vs"), (o, *res[1:])):
         out[f"{tag}-{name}"] = t.float().numpy()
 
 
@@ -522,12 +530,14 @@ cfg = get_config("llama3.2-1b", smoke=True)
 model = init_model(cfg, generator=torch.Generator().manual_seed(0),
                    device="cpu")
 toks = torch.from_numpy(case["tokens"])
-for label, c in (("grid", ParallelCtx(grid)), ("one", ParallelCtx(None))):
-    logits, cache = engine.prefill(model, {"tokens": toks[:, :24]}, cfg, c,
+for label, c, m in (("grid", ParallelCtx(grid),
+                     shard_params(copy.deepcopy(model), grid)),
+                    ("one", ParallelCtx(None), model)):
+    logits, cache = engine.prefill(m, {"tokens": toks[:, :24]}, cfg, c,
                                    max_len=28)
     steps = [logits]
     for t in range(3):
-        logits, cache = engine.decode_step(model, cache, toks[:, 24 + t],
+        logits, cache = engine.decode_step(m, cache, toks[:, 24 + t],
                                            cfg, c)
         steps.append(logits)
     out[f"e2e-{label}"] = torch.stack(steps).numpy()
@@ -555,16 +565,18 @@ def _block(x, rank, batch):
 
 def test_seq_sharded_decode_attention_on_2x2_gloo_grid(tmp_path):
     """Four gloo processes form the 2x2 (data, model) grid: each holds its
-    block of the cache (its batch rows and its S-shard), writes the new
-    token where it owns the slot and combines partial softmaxes with
-    all_reduce(max) then all_reduce(sum).  Against the reference's
-    single-device ``_decode_attention``: the output within 1e-4, every
-    rank's cache block equal to the reference's updated cache there
-    (1e-6), with and without ``kv_quant`` (ragged per-row positions);
-    the dp-divisibility warning at batch 3 and not at 4.  Then a prefill
-    and three decode steps of llama3.2-1b (SMOKE) on the grid equal the
-    same on one rank, and ``launch.serve.main --dp 2 --tp 2`` generates
-    the tokens of ``launch.serve`` on one rank."""
+    block of the cache (its batch rows and its S-shard) and its rows of
+    the step's q and new K/V (``decode_rows``: every row where the batch
+    does not divide dp), writes the new token where it owns the slot and
+    combines partial softmaxes with all_reduce(max) then all_reduce(sum).
+    Against the reference's single-device ``_decode_attention``: the
+    output, gathered over dp, within 1e-4, every rank's cache block equal
+    to the reference's updated cache there (1e-6), with and without
+    ``kv_quant`` (ragged per-row positions); the dp-divisibility warning
+    at batch 3 and not at 4.  Then a prefill and three decode steps of
+    llama3.2-1b (SMOKE), its weights the rank's blocks, on the grid
+    equal the same on one rank, and ``launch.serve.main --dp 2 --tp 2``
+    generates the tokens of ``launch.serve`` on one rank."""
     rng = np.random.default_rng(0)
     h, hkv, dh = 8, 2, 16
     arrays, want = {}, {}
