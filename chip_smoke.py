@@ -97,6 +97,23 @@ raises, so the script exits non-zero:
    the eager route bitwise; a tuned ``contract_chain`` of (A.B).C at
    N = 8192, blocks 256, decay masks: its report, the windows that ran,
    C against ``torch.matmul`` of operands masked here;
+
+   [filter] norm-filtered (DBCSR-style screened) products: the
+   reference ``bench_filter``'s workload at N = 32768, blocks 256,
+   fp32, each block (i, k) of A and B scaled by exp(-0.8 |i - k|), norms
+   from ``core.sparsity.block_norms``, through ``DistributedMatmul(...,
+   a_norms, b_norms, filter_eps)`` with ``filter_eps`` = frac x the
+   largest product bound, frac in (0, 1e-4, 1e-3, 1e-2, 5e-2): the eps-0
+   plan's digest equal to the norm-free plan's, the launches per kernel
+   (128 ``tiled_matmul`` unfiltered, one ``bsmm`` over the screened
+   band), the gemm tasks never rising, ||C - C_exact||_F (C_exact in
+   float64 on the card) within the plan's ``filter_bound`` plus
+   bench_filter's slack scaled by sqrt(N / 1024), wall and peak, and each
+   launched kernel against its plain version at the plan's shapes; the
+   bsmm call at 1e-3 timed beside its plain version, ``torch.matmul``
+   and its bound; a filtered ``contract_chain`` of (A.B).C at N = 8192:
+   step 2 planned on step 1's filtered structure, C within b1 ||C||_F +
+   b2 of a float64 chain;
 8. LM forward: llama3.2-1b at full size (16 layers, d_model 2048, 32/8
    heads, d_ff 8192, vocab 128256, bf16, tied embeddings), weights from
    ``init_model`` with a seeded generator, 4 prompts x 4096 tokens.  An
@@ -190,12 +207,21 @@ raises, so the script exits non-zero:
    twin cut to one unit, a prefill of 4096 and 8 decode steps against
    ``forward`` of the whole sequence at each position (the reference's
    serving hold), and continuous and paged tokens equal to the serial
-   per-request loop's; in bf16 at full depth each step no further from
-   the fp32 twin's forward than 1.5x the bf16 forward is; one decode
+   per-request loop's; in bf16 at full depth each step within 0.25 of
+   max |logit| of the bf16 forward of the same weights (the forward one
+   position earlier must fail that) and no further from the fp32 twin's
+   forward than 1.5x the bf16 forward is; one decode
    step on the int8 cache against attention over the cache dequantized
    here.  Prints prefill and decode tok/s, continuous tok/s with p50 and
    p99 step ms, first call beside warm, peak memory and the int8 cache's
-   bytes beside bf16's;
+   bytes beside bf16's.  Then mixtral-8x7b at full width cut to 8 layers
+   (MoE serving): the engine's prefill of 4 x 4096 (8 ``flash_attention``
+   launches) and 63 decode steps wrapping its 4096-token window ring,
+   first and warm, with p50/p99 step ms and a decode step's device kernel
+   count; the scheduler over the same ragged trace (dense: paged is
+   refused for a window, as in the reference); [serve]'s holds on an fp32
+   twin cut to one layer and on the bf16 model, with a capacity factor
+   that drops no token;
 
    [train] the training path, bf16, every kernel's plain version made to
    raise on a CUDA tensor: llama3.2-1b at full width and depth, its
@@ -208,7 +234,16 @@ raises, so the script exits non-zero:
    microbatches against 1 (params within 5e-2) and 3 steps under
    ``matmul_strategy="summa"`` (the FFN projections and both products of
    their backward through ``DistributedMatmul``) against ``"xla"``
-   (losses within rtol 2e-2); ``chunked_attention`` at llama's
+   (losses within rtol 2e-2); mixtral-8x7b at full width cut to 2 layers,
+   AdamW, chunked attention and remat, 3 steps of 2 x 4096 tokens in 2
+   microbatches (walls, tokens/s, a peak under 70 GiB, finite losses and
+   load-balance losses, no kernel launched), and at 1 layer against an
+   fp32 twin of the same weights: the first update's moments and master
+   changes leaf by leaf (the same step on half the batch must fail that),
+   the params their masters rounded, and each bf16 step's loss within
+   rtol 2e-2 of the twin's on the same weights (the twin left to itself
+   printed beside);
+   ``chunked_attention`` at llama's
    attention call (4 x 4096, 32/8 heads of 64) in fp32 against
    ``flash_attention_plain`` under autograd (output 2e-5, dQ/dK/dV 2e-4
    of the operands' rms), and forward + backward timed in fp32 and bf16
@@ -276,9 +311,11 @@ raises, so the script exits non-zero:
    each rank) against the 1x1 forward, and block 0 layer by layer (its
    attention block and its MoE layer on the rank's experts against the
    1x1 ones, ``flash_attention`` and ``grouped_gemm`` on 4 experts against
-   their plain versions, at the output's scale); the scheduler on 2x1, 8
-   ragged requests on 4 slots (2 per rank) on an fp32 twin at full width
-   cut to 2 layers, every request's greedy tokens equal to the 1x1 run's.
+   their plain versions, at the output's scale); the scheduler on 2x1,
+   dense and paged (one page table over all slots, the pool whole on each
+   rank), 4 ragged requests on 4 slots (2 per rank) on an fp32 twin at
+   full width cut to 2 layers, every request's greedy tokens equal to the
+   1x1 run's.
 
 Every product runs on an empty autotune cache, so its launch counts do
 not depend on the cache, except the two that check the cache: the end of
@@ -342,6 +379,7 @@ from repro_torch.core.contract import (  # noqa: E402
 from repro_torch.core.sparsity import (  # noqa: E402
     banded_block_mask,
     block_csr_from_mask,
+    block_norms,
     decay_block_mask,
     decay_rank_map,
     random_block_mask,
@@ -392,8 +430,13 @@ from repro_torch.models.chunked_attention import (  # noqa: E402
     chunked_attention,
 )
 from repro_torch.models.config import ShapeConfig  # noqa: E402
+from repro_torch.models.convert import params_tree  # noqa: E402
 from repro_torch.models.model import LM, forward, init_model  # noqa: E402
-from repro_torch.sched import abstract_summa_config, tune_plan  # noqa: E402
+from repro_torch.sched import (  # noqa: E402
+    abstract_summa_config,
+    from_plan,
+    tune_plan,
+)
 from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.train import tree as train_tree  # noqa: E402
 from repro_torch.train.data import SyntheticData  # noqa: E402
@@ -404,6 +447,7 @@ from repro_torch.train.optimizer import (  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
     build_train_step,
     make_train_state,
+    train_state,
 )
 from repro_torch.serve.plan_service import set_plan_service  # noqa: E402
 from repro_torch.serve.scheduler import Scheduler, ragged_trace  # noqa: E402
@@ -438,6 +482,18 @@ CONTRACT_FAMILIES = ("matmul", "free2", "multi_contracted", "transpose",
                      "batch", "rank_sparse", "rank_sparse_32", "nonuniform")
 ORACLE_ATOL, ORACLE_RTOL = 5e-4, 1e-4
 CHAIN_N, CHAIN_BLOCK, CHAIN_DECAY = 8192, 256, 0.5
+#: [filter]: the reference's ``bench_filter`` workload (benchmarks/run.py)
+#: at the commodity size: N x N fp32 operands in BLOCK blocks, each block
+#: scaled by exp(-FILTER_DECAY |i - k|), norms from
+#: ``core.sparsity.block_norms``, the sweep filter_eps = frac x pmax over
+#: FILTER_FRACS.  The error is held to the plan's ``filter_bound`` plus
+#: bench_filter's slack, 1e-5 ||C_exact||_F at its n = 1024, scaled by
+#: sqrt(N / 1024) as the kernel holds scale their absolute part by
+#: sqrt(K).  FILTER_TIMED_FRAC's bsmm call is timed for phase 7's table;
+#: the filtered chain runs at CHAIN_N with FILTER_CHAIN_FRAC
+FILTER_FRACS = (0.0, 1e-4, 1e-3, 1e-2, 5e-2)
+FILTER_DECAY, FILTER_SLACK_AT_1024 = 0.8, 1e-5
+FILTER_TIMED_FRAC, FILTER_CHAIN_FRAC = 1e-3, 1e-2
 #: [auto forward]: llama3.2-1b at full width, depth cut to 2 layers
 AUTO_LAYERS, AUTO_SEQ = 2, 4096
 #: [25d]: the three axes of the multi-pod grid (replicas over the first)
@@ -495,7 +551,10 @@ LM_BATCH, LM_SEQ, LM_LONG_SEQ = 4, 4096, 32768
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 4096, 64
 RG_SERVE_BATCH, RG_SERVE_GEN = 2, 32
 SERVE_HOLD_STEPS, SERVE_HOLD_BATCH = 8, 2
-SERVE_HOLD_LAYERS = {LM_ARCH: 2, RG_ARCH: 3}
+SERVE_HOLD_LAYERS = {LM_ARCH: 2, RG_ARCH: 3, MOE_ARCH: 1}
+#: The bf16 engine at full depth against the bf16 forward of the same
+#: weights (``hold_engine_depth``): max |difference| / max |logit|
+ENGINE_PAIR_TOL = 0.25
 #: [train]: llama3.2-1b's train step at full width and depth, bf16, AdamW,
 #: chunked attention and remat, TRAIN_STEPS steps of TRAIN_BATCH x
 #: TRAIN_SEQ tokens (train_4k's length) in TRAIN_MICRO microbatches; the
@@ -509,6 +568,17 @@ SERVE_HOLD_LAYERS = {LM_ARCH: 2, RG_ARCH: 3}
 #: the loss falls over CLI_STEPS, a run killed at CLI_FAIL_AT of
 #: CLI_RESUME_STEPS resumes losslessly
 TRAIN_BATCH, TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS = 8, 2, 4096, 3
+#: [train] mixtral-8x7b: full width, MOE_TRAIN_LAYERS layers (AdamW's
+#: fp32 master and moments of 2 layers' experts are 31 GiB beside their
+#: 5.2 GiB of bf16 weights), MOE_TRAIN_BATCH x TRAIN_SEQ tokens a step in
+#: MOE_TRAIN_MICRO microbatches, the printed peak under MOE_TRAIN_PEAK;
+#: at MOE_TRAIN_HOLD_LAYERS against an fp32 twin (``hold_train_twin``):
+#: the first update's moments and master changes per leaf, and each of
+#: TRAIN_STEPS bf16 steps' losses against the twin's on the same weights
+#: at [train]'s rtol
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_MICRO = 2, 2, 2
+MOE_TRAIN_HOLD_LAYERS, MOE_TRAIN_PEAK = 1, 70 * 2**30
+MOE_TWIN_MOMENT_HOLD, MOE_TWIN_CHANGE_HOLD = 0.15, 0.5
 TRAIN_MICRO_BATCH = TRAIN_BATCH // TRAIN_MICRO
 TRAIN_HOLD_LAYERS, TRAIN_HOLD_BATCH, TRAIN_HOLD_STEPS = 2, 4, 3
 TRAIN_MB_HOLD, TRAIN_MB_M_HOLD, TRAIN_SUMMA_RTOL = 5e-2, 5e-2, 2e-2
@@ -912,6 +982,16 @@ def _cols(mask: np.ndarray) -> torch.Tensor:
                            dtype=torch.int32, device=DEVICE)
 
 
+def cols_mask(cols: torch.Tensor, k_blocks: int) -> torch.Tensor:
+    """The block mask (rows of blocks x ``k_blocks``) a CSR column map
+    names (entries < 0 pad a row), built here."""
+    mask = torch.zeros((cols.shape[0], k_blocks + 1), dtype=torch.bool,
+                       device=cols.device)
+    idx = torch.where(cols >= 0, cols.long(), k_blocks)
+    mask.scatter_(1, idx, True)
+    return mask[:, :k_blocks].float()
+
+
 def _bsmm_operands(plan, dtype, gen):
     """Random operands of the shapes ``_exec_sparse_bsmm`` hands the kernel
     for ``plan`` on the 1x1 grid."""
@@ -1034,12 +1114,15 @@ def phase_tuned(mm, a, b, a_mask, b_mask) -> dict:
         out[name] = dict(wall=wall, tuned=plan.tuned,
                          launches=counts[kernel])
     if out["dense"]["tuned"]["strategy"] == "allgather":
-        # the one product of the all-gather schedule, alone
+        # the one product of the all-gather schedule, alone, beside
+        # torch.matmul of the same operands
         ms = cuda_ms(lambda: tiled_matmul_cuda(a, b), 1)
+        lib_ms = cuda_ms(lambda: torch.matmul(a, b), 1)
         out["dense"]["kernel_ms"] = ms
+        out["dense"]["library_ms"] = lib_ms
         log(f"  the tuned dense product's one tiled_matmul ({N}x{N})x({N}x"
-            f"{N}) alone: {ms:.3f} ms (CUDA events, one launch after a "
-            f"warm-up)")
+            f"{N}) alone: {ms:.3f} ms, torch.matmul {lib_ms:.3f} ms (CUDA "
+            f"events, one launch each after a warm-up)")
     return out
 
 
@@ -1266,9 +1349,11 @@ def phase_nonuniform(tuner) -> dict:
     out["expand_s"] = time.perf_counter() - t0
     if plan.cfg.strategy == "allgather":  # its one product, alone
         out["kernel_ms"] = cuda_ms(lambda: tiled_matmul_cuda(a_p, b_p), 1)
+        out["library_ms"] = cuda_ms(lambda: torch.matmul(a_p, b_p), 1)
         log(f"  the one tiled_matmul ({extents[0]}x{extents[1]})x"
-            f"({extents[1]}x{extents[2]}) alone: {out['kernel_ms']:.3f} ms "
-            f"(CUDA events, one launch after a warm-up)")
+            f"({extents[1]}x{extents[2]}) alone: {out['kernel_ms']:.3f} ms, "
+            f"torch.matmul {out['library_ms']:.3f} ms (CUDA events, one "
+            f"launch each after a warm-up)")
     del a, b, a_p, b_p
     c_p = torch.zeros((extents[0], extents[2]), device=DEVICE)
     torch.cuda.synchronize()
@@ -1546,11 +1631,17 @@ def phase_contract_ladder() -> dict:
     nbytes = 4.0 * (live_blocks * bm * bk + b_g.numel() + m * n)
     bsmm_ms = cuda_ms(lambda: bsmm_cuda(a_g, b_g, cols, bm=bm, bk=bk, bn=bn),
                       3)
+    # the library call: torch.matmul of A with its dead blocks zeroed here
+    # (from the CSR map) times the same B
+    a_z = a_g * cols_mask(cols, a_g.shape[1] // bk).repeat_interleave(
+        bm, 0).repeat_interleave(bk, 1)
+    lib_ms = cuda_ms(lambda: torch.matmul(a_z, b_g), 3)
     bound_ms, by, bound_text = split_bound(flops, nbytes)
     log(f"  bsmm at the ladder's call ({m},{a_g.shape[1]})x({a_g.shape[1]},"
         f"{n}), {live_blocks} live blocks: {bsmm_ms:.3f} ms "
-        f"({flops / bsmm_ms / 1e9:.2f} TFLOP/s of fp32 work), {bound_text}")
-    del a_g, b_g
+        f"({flops / bsmm_ms / 1e9:.2f} TFLOP/s of fp32 work), torch.matmul "
+        f"(dense, masked operands) {lib_ms:.3f} ms, {bound_text}")
+    del a_g, b_g, a_z
 
     # where the warm wall goes: each data step of the call, alone
     parts = {}
@@ -1754,6 +1845,208 @@ def phase_contract_chain() -> dict:
     return dict(wall=wall, warm=warm, report=rep, err=err)
 
 
+# ---------------------------------------------------------------------------
+# [filter]: norm-filtered (DBCSR-style screened) products
+# ---------------------------------------------------------------------------
+
+
+def decayed(n: int, block: int, gen) -> torch.Tensor:
+    """bench_filter's operand on the card: standard normals, each block
+    (i, k) scaled by exp(-FILTER_DECAY |i - k|)."""
+    nb = n // block
+    idx = torch.arange(nb, device=DEVICE, dtype=torch.float32)
+    decay = torch.exp(-FILTER_DECAY * (idx[:, None] - idx[None, :]).abs())
+    x = torch.randn((n, n), generator=gen, device=DEVICE)
+    x.view(nb, block, nb, block).mul_(decay[:, None, :, None])
+    return x
+
+
+def fro_distance(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want||_F in float64, by row chunks (bounded temporaries)."""
+    total = 0.0
+    for r in range(0, got.shape[0], 4096):
+        d = got[r:r + 4096].double() - want[r:r + 4096].double()
+        if not torch.isfinite(d).all():
+            raise AssertionError("non-finite values")
+        total += float(d.square().sum())
+    return math.sqrt(total)
+
+
+def expected_launches(plans) -> dict:
+    """Launches of the plans ``execute_plan`` ran on one card with
+    ``local_matmul="pallas"``: ``bsmm`` once a plan, ``tiled_matmul``
+    once a K panel (or once for the all-gather schedule)."""
+    want: dict = {}
+    for p in plans:
+        kernel = plan_kernel(p)
+        want[kernel] = want.get(kernel, 0) + (
+            expected_tiled_launches(p) if kernel == "tiled_matmul" else 1)
+    return want
+
+
+def masked_product(a, b, plan) -> torch.Tensor:
+    """``torch.matmul`` of ``a`` and ``b`` with the blocks ``plan``'s
+    masks leave dead zeroed here, the output blocks its ``c_mask`` leaves
+    dead zeroed after: what a screened plan computes."""
+    c = torch.matmul(kron_mask(a, plan.a_mask) if plan.a_mask is not None
+                     else a,
+                     kron_mask(b, plan.b_mask) if plan.b_mask is not None
+                     else b)
+    return kron_mask(c, plan.c_mask) if plan.c_mask is not None else c
+
+
+def filter_slack(exact_fro: float, n: int) -> float:
+    return FILTER_SLACK_AT_1024 * math.sqrt(n / 1024) * exact_fro
+
+
+def phase_filter() -> dict:
+    """[filter] the filtered product through ``DistributedMatmul(...,
+    a_norms, b_norms, filter_eps)`` over FILTER_FRACS, then the filtered
+    chain; returns their numbers."""
+    t_phase = time.perf_counter()
+    nb = N // BLOCK
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 28)
+    a, b = decayed(N, BLOCK, gen), decayed(N, BLOCK, gen)
+    t0 = time.perf_counter()
+    an = block_norms(a.cpu().numpy(), nb, nb)
+    bn = block_norms(b.cpu().numpy(), nb, nb)
+    norms_s = time.perf_counter() - t0
+    pmax = float(np.max(an[:, :, None] * bn[None]))
+    log(f"[filter] bench_filter's workload at N={N}, blocks {BLOCK} "
+        f"({nb} x {nb}), fp32: block (i, k) scaled by exp(-{FILTER_DECAY} "
+        f"|i - k|); core.sparsity.block_norms on the host {norms_s:.1f} s; "
+        f"pmax {pmax:.6g}; DistributedMatmul(taskbased, k_blocks="
+        f"{K_PANELS}, local_matmul=pallas) on Grid.local")
+    mm = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                           k_blocks=K_PANELS, local_matmul="pallas")
+    base, p0 = mm.plan(N, N, N), mm.plan(N, N, N, a_norms=an, b_norms=bn,
+                                          filter_eps=0.0)
+    hold(p0.digest() == base.digest(),
+         f"the eps-0 plan's digest {p0.digest()[:16]} equals the norm-free "
+         f"plan's {base.digest()[:16]}")
+    exact = torch.matmul(a.double(), b.double())
+    exact_fro = float(torch.linalg.norm(exact))
+    slack = filter_slack(exact_fro, N)
+    log(f"  C_exact: torch.matmul in float64 on the card, ||C_exact||_F "
+        f"{exact_fro:.6g}; slack {slack:.6g} (1e-5 x ||C_exact||_F x "
+        f"sqrt({N} / 1024))")
+    out = {"rows": {}, "norms_s": norms_s}
+    prev = None
+    for frac in FILTER_FRACS:
+        eps = frac * pmax
+        plan = mm.plan(N, N, N, a_norms=an, b_norms=bn, filter_eps=eps)
+        gemms = sum(1 for t in from_plan(plan).tasks
+                    if t.kind == "gemm" and t.flops > 0)
+        live = int(plan.a_mask.sum()) if plan.a_mask is not None else nb * nb
+        log(f"  frac {frac:g} (filter_eps {eps:.6g}): local_impl "
+            f"{plan.local_impl}, A's live blocks {live} of {nb * nb}, gemm "
+            f"tasks {gemms}, filter_bound {plan.filter_bound:.6g}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        entry_bytes = torch.cuda.memory_allocated()
+        with plain_guard(PLAIN_VERSIONS, "[filter]"), \
+                executed_plans() as seen:
+            c, wall, counts = run_counted(
+                lambda: mm(a, b, a_norms=an, b_norms=bn, filter_eps=eps),
+                plan_kernel(plan))
+        peak = torch.cuda.max_memory_allocated() - entry_bytes
+        hold_counts(counts, expected_launches(seen),
+                    f"frac {frac:g}: {len(seen)} plan(s) run")
+        if frac:  # the screened product itself, from the plan's masks
+            compare(c, masked_product(a, b, plan), N, torch.float32,
+                    f"frac {frac:g}: C vs torch.matmul of the operands "
+                    "masked here by the plan's screened masks")
+        err = fro_distance(c, exact)
+        del c
+        hold(err <= plan.filter_bound + slack,
+             f"frac {frac:g}: ||C - C_exact||_F {err:.6g} within "
+             f"filter_bound {plan.filter_bound:.6g} + slack {slack:.6g}")
+        hold(prev is None or gemms <= prev,
+             f"frac {frac:g}: gemm tasks {gemms} never rise (before: {prev})")
+        prev = gemms
+        for p in seen:
+            hold_plan_kernel(p, None, f"[filter] frac {frac:g}", gen)
+        torch.cuda.empty_cache()
+        out["rows"][frac] = dict(launches=counts, live=live, gemms=gemms,
+                                 bound=plan.filter_bound, err=err, wall=wall,
+                                 peak=peak)
+        log(f"  frac {frac:g}: launches {counts}, wall {wall:.4f} s (host "
+            f"clock ending in synchronize), peak {peak / 2**30:.2f} GiB above "
+            f"the {entry_bytes / 2**30:.2f} GiB held on entry")
+        if frac == FILTER_TIMED_FRAC:
+            out["bsmm"] = time_bsmm(plan, a, b, f"bsmm at frac {frac:g}")
+    del a, b, exact
+    torch.cuda.empty_cache()
+    out["chain"] = filter_chain(gen)
+    out["wall"] = time.perf_counter() - t_phase
+    log(f"  [filter] took {out['wall']:.1f} s")
+    return out
+
+
+def filter_chain(gen) -> dict:
+    """The filtered ``contract_chain`` of (A.B).C at CHAIN_N on
+    bench_filter's operands: step 2 planned on step 1's filtered
+    structure (its fill below the unfiltered chain's), each kernel its
+    plans launch held against its plain version, and the result within
+    the chain's bound of the float64 chain.  Step 1's error E1 (||E1||_F
+    <= b1) reaches the result as E1.C, so ||(A.B).C - R||_F <= b1 ||C||_F
+    + b2 (+ the slack)."""
+    nb = CHAIN_N // CHAIN_BLOCK
+    ops = [BlockSparseTensor.from_dense(
+        decayed(CHAIN_N, CHAIN_BLOCK, gen),
+        block_shape=(CHAIN_BLOCK, CHAIN_BLOCK)) for _ in range(3)]
+    an, bn = ops[0].block_norms(), ops[1].block_norms()
+    eps = FILTER_CHAIN_FRAC * float(np.max(an[:, :, None] * bn[None]))
+    steps = [("ik,kj->ij", ops[0], ops[1]), ("ik,kj->ij", ops[2])]
+    log(f"[filter] chain (A.B).C at N={CHAIN_N}, blocks {CHAIN_BLOCK} ({nb} x "
+        f"{nb}), the same decay, filter_eps {eps:.6g} ({FILTER_CHAIN_FRAC} x "
+        f"pmax)")
+    mm = DistributedMatmul(Grid.local(DEVICE), strategy="taskbased",
+                           local_matmul="pallas")
+    with plain_guard(PLAIN_VERSIONS, "[filter]"):
+        _, rep0 = mm.contract_chain(steps)
+        with executed_plans() as seen:
+            (res, rep), wall, counts = run_counted(
+                lambda: mm.contract_chain(steps, filter_eps=eps), "bsmm")
+    hold_counts(counts, expected_launches(seen),
+                f"filtered chain: {len(seen)} plans run")
+    fills = (rep0["plans"][1]["fill_in"], rep["plans"][1]["fill_in"])
+    bounds = rep["filter_bounds"]
+    hold(len(bounds) == 2 and min(bounds) >= 0 and fills[1] < fills[0]
+         and res.mask is not None and not res.mask.all(),
+         f"filtered chain report: bounds {bounds}, step 2's fill "
+         f"{fills[1]:.4f} below the unfiltered chain's {fills[0]:.4f} (it "
+         f"plans on step 1's filtered structure), result mask "
+         f"{int(res.mask.sum())} of {res.mask.size} blocks")
+    for i, p in enumerate(seen):
+        hold_plan_kernel(p, None, f"filtered chain step {i}", gen)
+    # the screened chain itself, from the two plans' masks; the second
+    # product's left operand is not of unit scale (see phase_contract_chain)
+    mid = masked_product(ops[0].data, ops[1].data, seen[0])
+    scale = mid.square().mean().sqrt()
+    compare(res.data / scale, masked_product(mid, ops[2].data, seen[1]) / scale,
+            CHAIN_N, torch.float32, "filtered chain result vs torch.matmul "
+            "of operands masked here by each step's screened masks, both "
+            "over rms(step 1)")
+    del mid
+    a, b, c = (t.data.double() for t in ops)
+    exact = torch.matmul(torch.matmul(a, b), c)
+    c_fro = float(torch.linalg.norm(c))
+    del a, b, c
+    exact_fro = float(torch.linalg.norm(exact))
+    err = fro_distance(res.data, exact)
+    slack = filter_slack(exact_fro, CHAIN_N)
+    limit = bounds[0] * c_fro + bounds[1] + slack
+    hold(err <= limit, f"filtered chain: ||(A.B).C - R||_F {err:.6g} within "
+         f"b1 ||C||_F + b2 + slack = {bounds[0]:.6g} x {c_fro:.6g} + "
+         f"{bounds[1]:.6g} + {slack:.6g} = {limit:.6g} (float64 chain on "
+         "the card)")
+    del exact, res, ops, steps
+    torch.cuda.empty_cache()
+    return dict(wall=wall, launches=counts, bounds=bounds, fills=fills,
+                err=err, limit=limit)
+
+
 def densify_here(rcsr) -> torch.Tensor:
     """The dense A of a ``RankCSR``, built on the card from its factors:
     every stored block's ``u[s] @ v[s]`` written at (block row, column)
@@ -1855,8 +2148,18 @@ def phase_times(a, b, sparse_plan, rank_plan, r_pad) -> dict:
         f"work), plain {plain_ms:.3f} ms, torch.matmul {lib_ms:.3f} ms, "
         f"{bound_text}")
 
-    # the main path's bsmm call: the masked operands' live panels, gathered
-    plan = sparse_plan
+    out["bsmm"] = time_bsmm(sparse_plan, a, b, "bsmm")
+    torch.cuda.empty_cache()
+    out["grouped_gemm"] = _time_grouped(rank_plan, r_pad, b_rank)
+    return out
+
+
+def time_bsmm(plan, a, b, what: str) -> dict:
+    """A main-path ``bsmm`` call of ``plan`` on the 1x1 grid, timed on its
+    own operands: the masked operands' live panels, gathered as the
+    executor gathers them, and the plan's CSR map; beside its plain
+    version, ``torch.matmul`` of the same gathered (masked) operands and
+    the bound (``split_bound``)."""
     w = plan.kb_width
     idx = torch.cat([torch.arange(kk * w, (kk + 1) * w, device=DEVICE)
                      for kk in plan.live_panels])
@@ -1864,26 +2167,25 @@ def phase_times(a, b, sparse_plan, rank_plan, r_pad) -> dict:
     b_g = kron_mask(b, plan.b_mask)[idx].contiguous()
     cols = torch.as_tensor(plan.local_cols[0, 0], device=DEVICE)
     bm, bk, bn = plan.local_block
+    m, n = a.shape[0], b.shape[1]
     live_blocks = int((plan.local_cols[0, 0] >= 0).sum())
-    flops = bsmm_flops(live_blocks, bm, bk, N)
-    nbytes = 4.0 * (live_blocks * bm * bk + b_g.numel() + N * N) + cols.numel() * 4
+    flops = bsmm_flops(live_blocks, bm, bk, n)
+    nbytes = 4.0 * (live_blocks * bm * bk + b_g.numel() + m * n) + cols.numel() * 4
     ms = cuda_ms(lambda: bsmm_cuda(a_g, b_g, cols, bm=bm, bk=bk, bn=bn), 3)
     plain_ms = cuda_ms(
         lambda: bsmm_plain(a_g, b_g, cols, bm=bm, bk=bk, bn=bn), 3
     )
     lib_ms = cuda_ms(lambda: torch.matmul(a_g, b_g), 3)
     bound_ms, by, bound_text = split_bound(flops, nbytes)
-    out["bsmm"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound_ms, bound_by=by, flops=flops)
-    log(f"  bsmm ({N},{a_g.shape[1]}) live blocks {live_blocks} "
-        f"({live_blocks / cols.shape[0] / (a_g.shape[1] // bk):.4f} of A's): "
-        f"kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} TFLOP/s of fp32 work), "
-        f"plain {plain_ms:.3f} ms, torch.matmul (dense, masked operands) "
-        f"{lib_ms:.3f} ms, {bound_text}")
+    log(f"  {what} ({m},{a_g.shape[1]}) live blocks {live_blocks} "
+        f"({live_blocks / cols.shape[0] / (a_g.shape[1] // bk):.4f} of A's), "
+        f"S={cols.shape[1]}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} "
+        f"TFLOP/s of fp32 work), plain {plain_ms:.3f} ms, torch.matmul "
+        f"(dense, masked operands) {lib_ms:.3f} ms, {bound_text}")
     del a_g, b_g
-    torch.cuda.empty_cache()
-    out["grouped_gemm"] = _time_grouped(rank_plan, r_pad, b_rank)
-    return out
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=by, flops=flops,
+                live_blocks=live_blocks)
 
 
 def _time_grouped(plan, r_pad, b) -> dict:
@@ -3295,47 +3597,90 @@ def hold_engine_twin(model, cfg, gen, what: str) -> float:
     return max(share)
 
 
+def twin_forward(model, cfg, tokens) -> torch.Tensor:
+    """The logits of ``forward`` (plain attention) of ``model``'s fp32
+    twin on ``tokens``.  Where the twin (twice the bf16 weights) would not
+    fit beside the model, the model waits in host memory meanwhile."""
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    park = 3 * weights > 0.8 * torch.cuda.get_device_properties(0).total_memory
+    if park:
+        model.to("cpu")
+        torch.cuda.empty_cache()
+    twin, cfg32 = fp32_twin(model, cfg)
+    with torch.inference_mode():
+        logits, _ = forward(twin, {"tokens": tokens}, cfg32,
+                            ParallelCtx(None), use_kernel=False)
+    del twin
+    torch.cuda.empty_cache()
+    if park:
+        model.to(DEVICE)
+        log(f"  (the bf16 model, {weights / 2**30:.2f} GiB, waited in host "
+            f"memory while its fp32 twin ran)")
+    return logits
+
+
 def hold_engine_depth(model, cfg, gen, what: str) -> dict:
-    """At full depth in bf16, one prompt: each decode step's distance from
-    the fp32 twin's forward (max |difference| / max |logit| of the whole
-    sequence), printed beside the bf16 forward's own distance at that
-    position; at every position the engine's must be no larger than
-    LM_BF16_REL_RATIO x the bf16 forward's there (phase 8's margin)."""
+    """At full depth in bf16, one prompt, at the prefill's last position
+    and each decode step:
+
+    * the engine against the bf16 ``forward(use_kernel=True)`` of the
+      whole sequence: max |difference| / max |logit| of that forward
+      within ENGINE_PAIR_TOL.  The forward's logits one position earlier
+      (what a step that reads the wrong position gives) must fail that at
+      every position, so each run shows the check can fail;
+    * each step's distance from the fp32 twin's forward (max |difference|
+      / max |logit| of the twin), printed beside the bf16 forward's own
+      there, no larger than LM_BF16_REL_RATIO x the forward's (phase 8's
+      margin).  Where bf16 alone moves the logits by their own scale, as
+      in mixtral's 8 random layers, this one cannot tell a fault."""
     xla = ParallelCtx(None)
     total = SERVE_PROMPT + SERVE_HOLD_STEPS
     tokens = torch.randint(0, cfg.vocab_size, (1, total), generator=gen,
                            device=DEVICE)
-    twin, cfg32 = fp32_twin(model, cfg)
-    with torch.inference_mode():
-        ref32, _ = forward(twin, {"tokens": tokens}, cfg32, xla,
-                           use_kernel=False)
-    del twin
-    torch.cuda.empty_cache()
+    ref32 = twin_forward(model, cfg, tokens)
     with torch.inference_mode():
         bf16, _ = forward(model, {"tokens": tokens}, cfg, xla,
                           use_kernel=True)
     rel_fwd, _ = logit_distance(bf16, ref32, f"{what} bf16 forward(use_kernel"
                                 "=True) vs fp32 twin, whole sequence")
     scale = ref32.abs().max().item()
+    scale16 = bf16.abs().max().item()
     want = ref32[:, SERVE_PROMPT - 1:].clone()
     fwd = bf16[:, SERVE_PROMPT - 1:].clone()
+    prev = bf16[:, SERVE_PROMPT - 2:-1].clone()
     del ref32, bf16
     torch.cuda.empty_cache()
     got = engine_steps(model, cfg, tokens, f"{what} bf16, full depth")
+    pair = ((got - fwd).abs().amax(dim=(0, 2)) / scale16).tolist()
+    shift = ((prev - fwd).abs().amax(dim=(0, 2)) / scale16).tolist()
+    agree = float((got.argmax(-1) == fwd.argmax(-1)).float().mean())
     eng = ((got - want).abs().amax(dim=(0, 2)) / scale).tolist()
     own = ((fwd - want).abs().amax(dim=(0, 2)) / scale).tolist()
-    log(f"  {what} bf16 at full depth, distance from the fp32 twin's forward "
-        f"(share of max |logit| {scale:.6g}) at the prefill's last position "
-        f"and each decode step: engine "
+    log(f"  {what} bf16 at full depth, at the prefill's last position and "
+        f"each decode step: the engine's distance from the bf16 forward "
+        f"(share of its max |logit| {scale16:.6g}) "
+        + ", ".join(f"{x:.4g}" for x in pair)
+        + f", argmax agreeing at {agree:.4g}; the forward one position "
+        f"earlier "
+        + ", ".join(f"{x:.4g}" for x in shift)
+        + f"; distance from the fp32 twin's forward (share of max |logit| "
+        f"{scale:.6g}): engine "
         + ", ".join(f"{x:.4g}" for x in eng) + "; bf16 forward "
         + ", ".join(f"{x:.4g}" for x in own))
+    hold(max(pair) <= ENGINE_PAIR_TOL, f"{what}: the bf16 engine within "
+         f"{max(pair):.4g} of the bf16 forward's max |logit| at every "
+         f"position (<= {ENGINE_PAIR_TOL})")
+    hold(min(shift) > ENGINE_PAIR_TOL, f"{what}: the forward one position "
+         f"earlier at least {min(shift):.4g} from it (> {ENGINE_PAIR_TOL}: "
+         "the check fails a step at the wrong position)")
     hold(all(e <= LM_BF16_REL_RATIO * o for e, o in zip(eng, own)),
          f"{what}: the bf16 engine no further from the fp32 twin than "
          f"{LM_BF16_REL_RATIO} x the bf16 forward at each position (the "
          f"forward's {rel_fwd:.6g} over the whole sequence)")
-    del got, want, fwd
+    del got, want, fwd, prev
     torch.cuda.empty_cache()
-    return dict(engine=max(eng), forward=rel_fwd)
+    return dict(engine=max(eng), forward=rel_fwd, pair=max(pair),
+                shift=min(shift), agree=agree)
 
 
 def serial_outputs(model, cfg, reqs) -> dict:
@@ -3379,11 +3724,13 @@ def agreement(got: dict, want: dict) -> float:
 
 
 def hold_scheduler_twin(model, cfg) -> None:
-    """Continuous and paged on the fp32 twin cut to one unit: the tokens
-    of every request equal the serial per-request loop's."""
+    """Continuous (and paged, for an arch without a window) on the fp32
+    twin cut to one unit: the tokens of every request equal the serial
+    per-request loop's."""
     twin, cut = cut_twin(model, cfg, SERVE_HOLD_LAYERS[cfg.name])
     want = serial_outputs(twin, cut, serve_trace(cut))
-    for backend in ("dense", "paged"):
+    # paged serving is for archs without a window, as in the reference
+    for backend in ("dense",) if cfg.window else ("dense", "paged"):
         with torch.inference_mode(), \
                 plain_guard(PLAIN_VERSIONS, "[serve]"):
             res = Scheduler(twin, cut, ParallelCtx(None),
@@ -3605,6 +3952,146 @@ def phase_serve() -> dict:
     return out
 
 
+def no_drop(cfg):
+    """``cfg`` with a capacity factor of num_experts / top_k: an expert's
+    capacity is then at least the row's tokens, and as a token sends at
+    most one copy to an expert, no copy is dropped (the CPU tests' rule,
+    tests/test_torch_serve.py).  Serving a prompt and the forward of the
+    longer sequence then route alike at every shared position."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def decode_kernels(model, cache, tok, cfg) -> float | None:
+    """Device kernels one decode step launches (``torch.profiler``, one
+    step traced after the loop), or None where the profiler records no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CUDA]) as prof:
+        serve_engine.decode_step(model, cache, tok, cfg, ParallelCtx(None))
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    return sum(e.count for e in events) if events else None
+
+
+def phase_serve_moe() -> dict:
+    """[serve] mixtral-8x7b: the engine's fixed batch, the scheduler on
+    ``launch.serve``'s ragged trace, and [serve]'s holds; returns the
+    numbers."""
+    t_phase = time.perf_counter()
+    base = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(base, num_layers=MOE_LAYERS)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 29)
+    xla = ParallelCtx(None)
+    max_len = SERVE_PROMPT + SERVE_GEN
+    n_attn = attention_blocks(cfg)
+    log(f"[serve] {cfg.name} at full width, {MOE_LAYERS} of its "
+        f"{base.num_layers} layers ({cfg.moe.num_experts} experts of d_ff "
+        f"{cfg.moe.d_ff}, top-{cfg.moe.top_k}, window {cfg.window}), bf16, "
+        f"init_model seed {SEED}: {SERVE_BATCH} x {SERVE_PROMPT} prompts, "
+        f"{SERVE_GEN} tokens each (decode wraps the window's ring); the "
+        "engine's prefill and decode_step, and serve.scheduler.Scheduler")
+    model = card_model(cfg)
+    inputs = launch_serve.prompt_inputs(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                        DEVICE)
+    out = {}
+    for label in ("first", "warm"):
+        with torch.inference_mode(), plain_guard(PLAIN_VERSIONS, "[serve]"):
+            zero_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits, cache = serve_engine.prefill(model, inputs, cfg, xla,
+                                                 max_len=max_len)
+            tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            hold_counts(read_counts(), {"flash_attention": n_attn},
+                        f"{cfg.name} fixed batch ({label}): one prefill")
+            zero_counts()
+            toks, steps = [tok], []
+            for _ in range(SERVE_GEN - 1):
+                t0 = time.perf_counter()
+                logits, cache = serve_engine.decode_step(model, cache, tok,
+                                                         cfg, xla)
+                tok = logits.argmax(-1)
+                torch.cuda.synchronize()
+                steps.append(time.perf_counter() - t0)
+                toks.append(tok)
+            hold_counts(read_counts(), {}, f"{cfg.name} fixed batch "
+                        f"({label}): {SERVE_GEN - 1} decode steps")
+        tokens = torch.stack(toks, 1).cpu().numpy()
+        hold(tokens.shape == (SERVE_BATCH, SERVE_GEN)
+             and 0 <= tokens.min() and tokens.max() < cfg.vocab_size,
+             f"{cfg.name} fixed batch ({label}): {tokens.shape} in-vocab "
+             "tokens")
+        lat = np.array(steps) * 1e3
+        out[label] = dict(
+            prefill_s=t_pre, decode_s=float(sum(steps)),
+            p50=float(np.percentile(lat, 50)),
+            p99=float(np.percentile(lat, 99)),
+            peak=torch.cuda.max_memory_allocated(), tokens=tokens)
+        r = out[label]
+        log(f"  fixed batch ({label}; host clock, each decode step ending "
+            f"in synchronize): prefill {SERVE_BATCH * SERVE_PROMPT / t_pre:,.0f}"
+            f" tok/s ({t_pre:.4f} s), decode "
+            f"{SERVE_BATCH * (SERVE_GEN - 1) / r['decode_s']:,.0f} tok/s "
+            f"({r['decode_s']:.4f} s over {SERVE_GEN - 1} steps), step p50 "
+            f"{r['p50']:.3f} ms / p99 {r['p99']:.3f} ms, peak "
+            f"{r['peak'] / 2**30:.2f} GiB")
+    out["agree"] = float((out["first"]["tokens"]
+                          == out["warm"]["tokens"]).mean())
+    with plain_guard(PLAIN_VERSIONS, "[serve]"):
+        zero_counts()
+        out["decode_kernels"] = decode_kernels(model, cache, tok, cfg)
+        hold_counts(read_counts(), {}, f"{cfg.name}: the traced decode step")
+    log(f"  warm tokens agree with the first call's at {out['agree']:.4f} "
+        f"(not held); one decode step launches "
+        f"{out['decode_kernels'] or 'not measured (no device events)'} "
+        f"device kernels (torch.profiler), none of them the four "
+        "hand-written ones")
+    del cache, logits
+    torch.cuda.empty_cache()
+    try:
+        Scheduler(model, cfg, xla, n_slots=SERVE_BATCH, max_len=max_len,
+                  backend="paged")
+    except NotImplementedError as e:
+        log(f"    -> paged backend refused for a window, as in the "
+            f"reference ({e}): ok")
+    else:
+        raise AssertionError("the paged backend took a windowed arch")
+    with torch.inference_mode(), plain_guard(PLAIN_VERSIONS, "[serve]"):
+        zero_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = Scheduler(model, cfg, xla, n_slots=SERVE_BATCH,
+                        max_len=max_len).run(serve_trace(cfg))
+        hold_counts(read_counts(), {"flash_attention":
+                                    n_attn * res["prefills"]},
+                    f"{cfg.name} continuous[dense]: {res['prefills']} "
+                    "prefills")
+    out["continuous"] = dict(res, peak=torch.cuda.max_memory_allocated(),
+                             outputs=None)
+    log(f"  continuous[dense] over {res['requests']} requests on "
+        f"{SERVE_BATCH} slots: {res['steps']} steps, "
+        f"{res['tokens_per_s']:,.0f} tok/s, p50 {res['p50_step_ms']:.3f} ms"
+        f" / p99 {res['p99_step_ms']:.3f} ms, peak "
+        f"{out['continuous']['peak'] / 2**30:.2f} GiB")
+    held = no_drop(cfg)
+    out["twin"] = hold_engine_twin(model, held, gen, cfg.name)
+    hold_scheduler_twin(model, held)
+    out["depth"] = hold_engine_depth(model, held, gen, cfg.name)
+    del model
+    torch.cuda.empty_cache()
+    out["wall"] = time.perf_counter() - t_phase
+    log(f"  [serve] {cfg.name} took {out['wall']:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # [train]: the training path (models.chunked_attention, train/, launch.train)
 # ---------------------------------------------------------------------------
@@ -3634,7 +4121,7 @@ def run_train_steps(state, step_fn, data, steps: int, what: str) -> dict:
     """``steps`` train steps on ``data.batch_at(i)`` inside the plain
     guard, every count set to 0 just before and read just after: each
     step's wall (host clock ending in ``synchronize``), loss and metrics."""
-    walls, losses = [], []
+    walls, losses, aux = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with plain_guard(PLAIN_VERSIONS, "[train]"):
@@ -3647,12 +4134,13 @@ def run_train_steps(state, step_fn, data, steps: int, what: str) -> dict:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             losses.append(float(metrics["loss"]))
+            aux.append(float(metrics["aux"]))
         counts = read_counts()
     hold_counts(counts, {}, f"{what}: {steps} train steps")
-    hold(all(math.isfinite(x) for x in losses), f"{what}: finite losses "
-         f"{losses}")
-    return dict(state=state, walls=walls, losses=losses, counts=counts,
-                peak=torch.cuda.max_memory_allocated())
+    hold(all(math.isfinite(x) for x in losses + aux), f"{what}: finite "
+         f"losses {losses} (aux {aux})")
+    return dict(state=state, walls=walls, losses=losses, aux=aux,
+                counts=counts, peak=torch.cuda.max_memory_allocated())
 
 
 def train_ctx(strategy: str = "xla") -> ParallelCtx:
@@ -3879,6 +4367,211 @@ def phase_train_cli() -> dict:
     hold(all(math.isfinite(x) for x in rg), f"{RG_ARCH} --smoke: finite "
          f"losses {[round(x, 4) for x in rg]}")
     return dict(first=losses[0], last=losses[-1], gap=gap)
+
+
+def norm_gap(got, want) -> float:
+    """||got - want|| / ||want|| (||got|| where want is 0)."""
+    scale = float(torch.linalg.norm(want))
+    diff = float(torch.linalg.norm(got - want))
+    return diff / scale if scale else diff
+
+
+def first_update(state, step_fn, batch) -> tuple:
+    """One train step of a fresh AdamW ``state``: (state, metrics, the
+    step's first and second moments and each master's change, ``{slot:
+    {path: leaf}}``).  The optimizer stores new leaves, so the moments are
+    kept by reference, and they stay as they are through later steps."""
+    old = dict(train_tree.leaves(state["opt"]["master"]))
+    state, metrics = step_fn(state, batch)
+    opt = state["opt"]
+    moved = {"m": dict(train_tree.leaves(opt["m"])),
+             "v": dict(train_tree.leaves(opt["v"])),
+             "change": {path: x - old.pop(path) for path, x
+                        in train_tree.leaves(opt["master"])}}
+    return state, metrics, moved
+
+
+def update_gaps(moved: dict, ref: dict) -> dict:
+    """``norm_gap`` of each slot's leaf against ``ref``'s."""
+    return {slot: {path: norm_gap(x, ref[slot][path])
+                   for path, x in leaves.items()}
+            for slot, leaves in moved.items()}
+
+
+def worst_leaf(gaps: dict) -> dict:
+    """Each slot's largest gap over its leaves."""
+    return {slot: max(by_leaf.values()) for slot, by_leaf in gaps.items()}
+
+
+def hold_train_twin(cut, opt, data, what: str) -> dict:
+    """``cut`` trained in bf16 against its fp32 twin (the same weights
+    widened, exact), TRAIN_STEPS steps of ``data``:
+
+    * the first update: from the same weights, the bf16 step's first and
+      second moments within MOE_TWIN_MOMENT_HOLD of the twin step's, and
+      each master's change within MOE_TWIN_CHANGE_HOLD of the twin's, per
+      leaf (``norm_gap``); the bf16 params are their masters rounded.
+      The same step on the batch's first half (a step that drops its
+      second microbatch) must fail each of the two holds, so each run
+      shows they can fail; a backward, a moment or an update that is
+      wrong, or a state left unchanged, fails them too;
+    * each bf16 step's loss within TRAIN_SUMMA_RTOL of the twin's loss
+      on the step's own weights and batch;
+    * printed, not held: the twin left to itself over the same steps.
+      Two runs left alone part after the first update (it moves each
+      weight by ~lr, ~2 % of it, where bf16 keeps it to ~0.4 %)."""
+    ctx = train_ctx()
+    cut32 = dataclasses.replace(cut, dtype="float32")
+    weights = {name: p.detach() for name, p in
+               new_train_state(cut, ctx, opt)["params"].named_parameters()}
+
+    def fresh(config):
+        model = LM(config, device=DEVICE)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                p.copy_(weights[name])
+        return model
+
+    def on_card(batch):
+        return {k: torch.from_numpy(np.asarray(v)).to(DEVICE, torch.int64)
+                for k, v in batch.items()}
+
+    batches = [data.batch_at(i) for i in range(TRAIN_STEPS)]
+    step32 = build_train_step(cut32, ctx, opt)
+    step16 = build_train_step(cut, ctx, opt)
+    with plain_guard(PLAIN_VERSIONS, "[train]"):
+        zero_counts()
+        # the fp32 twin left to itself; its first update is the yardstick
+        state, metrics, ref = first_update(
+            train_state(fresh(cut32), opt, ctx), step32, batches[0])
+        free = [float(metrics["loss"])]
+        for batch in batches[1:]:
+            state, metrics = step32(state, batch)
+            free.append(float(metrics["loss"]))
+        del state
+        torch.cuda.empty_cache()
+        # the control: the bf16 step on the first half of the batch
+        half = {k: v[:len(v) // 2] for k, v in batches[0].items()}
+        state, _, moved = first_update(
+            train_state(fresh(cut), opt, ctx), step16, half)
+        fault = update_gaps(moved, ref)
+        del state, moved
+        torch.cuda.empty_cache()
+        # the bf16 run: its first update against the twin's, and each
+        # step's loss against the twin's on the step's weights
+        state = train_state(fresh(cut), opt, ctx)
+        del weights
+        losses, forced = [], [free[0]]
+        for i, batch in enumerate(batches):
+            if i == 0:
+                state, metrics, moved = first_update(state, step16, batch)
+                gaps = update_gaps(moved, ref)
+                rounded = all(torch.equal(x, train_tree.at(
+                    state["opt"]["master"], path).to(x.dtype))
+                    for path, x in train_tree.leaves(
+                        params_tree(state["params"])))
+                del moved, ref
+            else:
+                twin = LM(cut32, device=DEVICE)
+                params = dict(state["params"].named_parameters())
+                with torch.no_grad():
+                    for name, p in twin.named_parameters():
+                        p.copy_(params[name])
+                    loss32, _ = lm_model.loss_fn(twin, on_card(batch), cut32,
+                                                 ctx)
+                forced.append(float(loss32))
+                del twin, params, loss32
+                state, metrics = step16(state, batch)
+            losses.append(float(metrics["loss"]))
+        hold_counts(read_counts(), {}, f"{what}: {TRAIN_STEPS} steps, the "
+                    "twin's and the control's")
+    del state
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, forced)]
+    apart = [abs(a - b) / abs(b) for a, b in zip(losses, free)]
+    worst, worst_fault = worst_leaf(gaps), worst_leaf(fault)
+    for slot in gaps:
+        log(f"  {what}: the first update's {slot} against the fp32 twin's, "
+            f"||bf16 - fp32|| / ||fp32|| by leaf: "
+            f"{ {k: float(f'{v:.3e}') for k, v in gaps[slot].items()} }; "
+            f"the half-batch control's "
+            f"{ {k: float(f'{v:.3e}') for k, v in fault[slot].items()} }")
+    log(f"  {what}: bf16 losses {losses}; the fp32 twin's on the same "
+        f"weights {forced} (relative gaps {[f'{x:.3e}' for x in rel]}); "
+        f"the twin left to itself {free} (gaps, not held, "
+        f"{[f'{x:.3e}' for x in apart]})")
+    hold(rounded, f"{what}: after the first step each bf16 param is its "
+         "fp32 master rounded")
+    for slots, limit in ((("m", "v"), MOE_TWIN_MOMENT_HOLD),
+                         (("change",), MOE_TWIN_CHANGE_HOLD)):
+        for slot in slots:
+            hold(worst[slot] <= limit, f"{what}: the first update's {slot} "
+                 f"within {worst[slot]:.3e} of the fp32 twin's at every "
+                 f"leaf (<= {limit})")
+            hold(worst_fault[slot] > limit, f"{what}, the step on half the "
+                 f"batch: its {slot} {worst_fault[slot]:.3e} from the twin's "
+                 f"at its worst leaf (> {limit}: the check fails it)")
+    hold(max(rel) < TRAIN_SUMMA_RTOL, f"{what}: bf16 losses within rtol "
+         f"{max(rel):.3e} of the fp32 twin's on the same weights at each "
+         f"step (< {TRAIN_SUMMA_RTOL})")
+    return dict(rel=rel, apart=apart, losses=losses, free=free,
+                gaps=worst, fault=worst_fault)
+
+
+def phase_train_moe() -> dict:
+    """[train] mixtral-8x7b's train step at full width; returns its
+    numbers."""
+    t_phase = time.perf_counter()
+    base = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(base, num_layers=MOE_TRAIN_LAYERS)
+    log(f"[train] {cfg.name} at full width, {MOE_TRAIN_LAYERS} of its "
+        f"{base.num_layers} layers (d_model {cfg.d_model}, "
+        f"{cfg.moe.num_experts} experts of d_ff {cfg.moe.d_ff}, top-"
+        f"{cfg.moe.top_k}, window {cfg.window}), bf16, AdamW, "
+        f"attention_impl=chunked, remat; SyntheticData {MOE_TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens a step in {MOE_TRAIN_MICRO} microbatches; "
+        "every kernel's plain version raises on a CUDA tensor")
+    ctx, opt = train_ctx(), train_opt(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = new_train_state(cfg, ctx, opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    parts = state_bytes(state)
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    log(f"  train state: {n_params:,} parameters; bytes {parts} "
+        f"({sum(parts.values()) / 2**30:.2f} GiB); make_train_state "
+        f"{init_s:.3f} s")
+    step_fn = build_train_step(cfg, ctx, opt, microbatches=MOE_TRAIN_MICRO,
+                               remat=True)
+    data = SyntheticData(cfg, MOE_TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    r = run_train_steps(state, step_fn, data, TRAIN_STEPS,
+                        f"[train] {cfg.name}")
+    warm = min(r["walls"][1:])
+    tokens = MOE_TRAIN_BATCH * TRAIN_SEQ
+    out = dict(walls=r["walls"], losses=r["losses"], aux=r["aux"],
+               peak=r["peak"], warm=warm, tokens_per_s=tokens / warm,
+               counts=r["counts"])
+    log(f"  {cfg.name} train step ({torch.cuda.get_device_name(0)}; host "
+        f"clock ending in synchronize): walls "
+        f"{[round(w, 4) for w in r['walls']]} s (first {r['walls'][0]:.4f}, "
+        f"warm {warm:.4f}), {tokens / warm:,.0f} tokens/s warm, peak device "
+        f"memory {r['peak'] / 2**30:.2f} GiB, losses {r['losses']}, aux "
+        f"{r['aux']}, launches {r['counts']}")
+    hold(r["peak"] < MOE_TRAIN_PEAK, f"{cfg.name} train step: peak "
+         f"{r['peak'] / 2**30:.2f} GiB under {MOE_TRAIN_PEAK / 2**30:.0f} GiB")
+    del state, r, step_fn
+    torch.cuda.empty_cache()
+    # the hold: bf16 against its fp32 twin at MOE_TRAIN_HOLD_LAYERS
+    cut = dataclasses.replace(cfg, num_layers=MOE_TRAIN_HOLD_LAYERS)
+    data = SyntheticData(cut, MOE_TRAIN_BATCH, TRAIN_SEQ, seed=SEED + 3)
+    r = hold_train_twin(cut, opt, data, f"[train] {cut.name}, "
+                        f"{MOE_TRAIN_HOLD_LAYERS} layer")
+    out["hold"] = r
+    out["wall"] = time.perf_counter() - t_phase
+    log(f"  [train] {cfg.name} took {out['wall']:.1f} s")
+    return out
 
 
 def phase_train() -> dict:
@@ -4320,13 +5013,15 @@ def phase_examples() -> dict:
 #: 2x1 (FSDP + DP) of SHARD_TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO
 #: microbatches against the 1x1 step at [train]'s holds; mixtral-8x7b cut
 #: to SHARD_MOE_LAYERS layers on 1 x MOE_SEQ at 1x2 (4 experts per rank);
-#: and the scheduler on 2x1, SHARD_REQUESTS ragged requests on
-#: SHARD_SLOTS slots (2 per rank), on an fp32 twin at full width cut to
-#: SHARD_SERVE_LAYERS layers, its greedy tokens equal to the 1x1 run's
+#: and the scheduler on 2x1, dense and paged, SHARD_REQUESTS ragged
+#: requests on SHARD_SLOTS slots (2 per rank), on an fp32 twin at full
+#: width cut to SHARD_SERVE_LAYERS layers, its greedy tokens equal to the
+#: 1x1 run's (4 requests a backend: a forward on 2x1 takes seconds, every
+#: collective going through host memory)
 SHARD_WORLD = 2
 SHARD_TRAIN_BATCH = 4
 SHARD_MOE_LAYERS = 2
-SHARD_SERVE_LAYERS, SHARD_SLOTS, SHARD_REQUESTS = 2, 4, 8
+SHARD_SERVE_LAYERS, SHARD_SLOTS, SHARD_REQUESTS = 2, 4, 4
 SHARD_PROMPTS, SHARD_GENS = (128, 256), (2, 8)
 
 
@@ -4584,15 +5279,17 @@ def shard_serve(dp) -> dict:
                             seed=SEED)
 
     max_len = SHARD_PROMPTS[-1] + SHARD_GENS[-1]
+    sharded = shard_params(copy.deepcopy(twin), dp)
     out = {}
-    for name, ctx, m in (("1x1", ParallelCtx(None), twin),
-                         ("2x1", ParallelCtx(dp), shard_params(
-                             copy.deepcopy(twin), dp))):
+    for name, ctx, m, backend in (
+            ("1x1", ParallelCtx(None), twin, "dense"),
+            ("2x1", ParallelCtx(dp), sharded, "dense"),
+            ("2x1 paged", ParallelCtx(dp), sharded, "paged")):
         with torch.inference_mode(), plain_guard(PLAIN_VERSIONS, "[shard]"):
             zero_counts()
             t0 = time.perf_counter()
             res = Scheduler(m, cut, ctx, n_slots=SHARD_SLOTS,
-                            max_len=max_len).run(trace())
+                            max_len=max_len, backend=backend).run(trace())
             torch.cuda.synchronize()
             counts = read_counts()
         out[name] = dict(outputs=res["outputs"], steps=res["steps"],
@@ -4600,10 +5297,11 @@ def shard_serve(dp) -> dict:
         hold_counts(counts, {"flash_attention": SHARD_REQUESTS
                              * attention_blocks(cut)},
                     f"[shard] {name} scheduler ({SHARD_REQUESTS} prefills)")
-    hold(out["2x1"]["outputs"] == out["1x1"]["outputs"],
-         f"2x1 scheduler ({SHARD_SLOTS} slots, {SHARD_SLOTS // 2} per rank, "
-         f"{out['2x1']['steps']} steps): every request's greedy tokens equal "
-         "the 1x1 run's")
+    for name in ("2x1", "2x1 paged"):
+        hold(out[name]["outputs"] == out["1x1"]["outputs"],
+             f"{name} scheduler ({SHARD_SLOTS} slots, {SHARD_SLOTS // 2} per "
+             f"rank, {out[name]['steps']} steps): every request's greedy "
+             "tokens equal the 1x1 run's")
     return {k: dict(v, outputs=None) for k, v in out.items()}
 
 
@@ -4733,6 +5431,17 @@ def main() -> None:
         f"{ladder['eager']:.3f} s, peak {ladder['peak'] / 2**30:.2f} GiB; "
         f"families {sum(f['wall'] for f in families.values()):.3f} s; "
         f"chain {chain['wall']:.3f} s (warm {chain['warm']:.3f} s)")
+    filt = phase_filter()
+    for frac, r in filt["rows"].items():
+        log(f"  [filter] frac {frac:g}: launches {r['launches']}, live blocks "
+            f"{r['live']}, gemm tasks {r['gemms']}, filter_bound "
+            f"{r['bound']:.6g}, ||C - C_exact||_F {r['err']:.6g}, wall "
+            f"{r['wall']:.4f} s, peak {r['peak'] / 2**30:.2f} GiB")
+    fc = filt["chain"]
+    log(f"  [filter] chain: launches {fc['launches']}, bounds {fc['bounds']}, "
+        f"step 2's fill {fc['fills'][1]:.4f} (unfiltered {fc['fills'][0]:.4f})"
+        f", error {fc['err']:.6g} within {fc['limit']:.6g}, wall "
+        f"{fc['wall']:.4f} s; [filter] {filt['wall']:.1f} s")
     lm = phase_lm(lm_cfg)
     times["flash_attention"] = lm["times"]
     log(f"  LM forward (host clock, ending in synchronize): B={LM_BATCH} "
@@ -4763,7 +5472,9 @@ def main() -> None:
             f"{r['peak'] / 2**30:.2f} GiB, {r['launches']} flash_attention "
             f"launches, greedy {r['greedy']}")
     serve = phase_serve()
+    serve_moe = phase_serve_moe()
     train = phase_train()
+    train_moe = phase_train_moe()
     dry = phase_dryrun(a_mask, b_mask)
     examples = phase_examples()
     shard = phase_shard()
@@ -4791,6 +5502,34 @@ def main() -> None:
         f" tok/s ({pre:.4f} s), decode "
         f"{RG_SERVE_BATCH * (RG_SERVE_GEN - 1) / dec:,.0f} tok/s "
         f"({dec:.4f} s), peak {serve['rg']['peak'] / 2**30:.2f} GiB")
+    for label in ("first", "warm"):
+        r = serve_moe[label]
+        log(f"  {MOE_ARCH} serving ({MOE_LAYERS} layers), fixed batch "
+            f"{SERVE_BATCH} x {SERVE_PROMPT} + {SERVE_GEN} ({label}): prefill "
+            f"{SERVE_BATCH * SERVE_PROMPT / r['prefill_s']:,.0f} tok/s, decode "
+            f"{SERVE_BATCH * (SERVE_GEN - 1) / r['decode_s']:,.0f} tok/s, "
+            f"step p50 {r['p50']:.3f} / p99 {r['p99']:.3f} ms, peak "
+            f"{r['peak'] / 2**30:.2f} GiB")
+    mc = serve_moe["continuous"]
+    log(f"  {MOE_ARCH} serving, continuous[dense] over {mc['requests']} "
+        f"requests on {SERVE_BATCH} slots: {mc['tokens_per_s']:,.0f} tok/s "
+        f"(p50 {mc['p50_step_ms']:.3f} / p99 {mc['p99_step_ms']:.3f} ms), "
+        f"peak {mc['peak'] / 2**30:.2f} GiB; a decode step "
+        f"{serve_moe['decode_kernels']} device kernels; [serve] {MOE_ARCH} "
+        f"{serve_moe['wall']:.1f} s")
+    log(f"  {MOE_ARCH} train step ({MOE_TRAIN_LAYERS} layers), "
+        f"{MOE_TRAIN_BATCH} x {TRAIN_SEQ} tokens in {MOE_TRAIN_MICRO} "
+        f"microbatches: first {train_moe['walls'][0]:.4f} s, warm "
+        f"{train_moe['warm']:.4f} s, {train_moe['tokens_per_s']:,.0f} "
+        f"tokens/s, peak {train_moe['peak'] / 2**30:.2f} GiB, launches "
+        f"{train_moe['counts']}, losses {train_moe['losses']}; at 1 layer "
+        f"the first update's worst leaf against the fp32 twin's "
+        f"{ {k: float(f'{v:.3e}') for k, v in train_moe['hold']['gaps'].items()} }"
+        f" (half-batch control "
+        f"{ {k: float(f'{v:.3e}') for k, v in train_moe['hold']['fault'].items()} }"
+        f"), losses within rtol {max(train_moe['hold']['rel']):.3e} of the "
+        f"twin's on the same weights; [train] {MOE_ARCH} "
+        f"{train_moe['wall']:.1f} s")
     log(f"  {LM_ARCH} train step, {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
         f"{TRAIN_MICRO} microbatches (host clock ending in synchronize): "
         f"first {train['walls'][0]:.4f} s, warm {train['warm']:.4f} s, "
@@ -4833,10 +5572,11 @@ def main() -> None:
         f"{m['experts']} experts, launches {m['launches']}, "
         f"{m['rel']:.4g} of max |logit|, agreement {m['agree']:.4f}; block "
         f"0 at its limits' shares {m['layers']}")
-    log(f"  [shard] scheduler on 2x1: {shard['serve']['2x1']['steps']} steps "
-        f"in {shard['serve']['2x1']['wall']:.3f} s (1x1: "
-        f"{shard['serve']['1x1']['wall']:.3f} s); [shard] "
-        f"{shard['wall']:.1f} s")
+    sv = shard["serve"]
+    log(f"  [shard] scheduler on 2x1: dense {sv['2x1']['steps']} steps in "
+        f"{sv['2x1']['wall']:.3f} s, paged {sv['2x1 paged']['steps']} steps "
+        f"in {sv['2x1 paged']['wall']:.3f} s (1x1: {sv['1x1']['wall']:.3f} "
+        f"s); [shard] {shard['wall']:.1f} s")
     launches = {"tiled_matmul": dense_launches, "bsmm": sparse_launches,
                 "grouped_gemm": rank["pallas"]["launches"],
                 "flash_attention": lm["launches"]}

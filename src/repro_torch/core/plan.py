@@ -692,9 +692,10 @@ def plan_matmul(
     norms.
 
     Returns a plan whose ``padded_shapes`` the caller pads operands to
-    before ``core.summa.execute_plan``.  Every route is planned here;
-    execution raises for the routes not ported yet (A-/B-stationary,
-    pull, rank payloads).
+    before ``core.summa.execute_plan`` (or ``execute_rank_plan`` for a
+    rank payload).  Every route is planned here, and every one runs:
+    C-, A- and B-stationary, broadcast and pull, dense, masked and rank
+    payloads.
     """
     if m <= 0 or k <= 0 or n <= 0:
         raise ValueError(f"bad shape ({m},{k})x({k},{n})")

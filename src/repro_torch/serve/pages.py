@@ -18,10 +18,16 @@ this step (inactive slots, out-of-capacity positions) are routed there,
 so the decode step has the same shapes every step and no per-row
 branching.
 
-Scope: non-windowed archs (a sliding-window ring is already O(window)
-and gains nothing from paging), ``tp_size == 1`` and ``kv_quant=False``
-— the seq-sharded and int8 decode paths keep the dense ring layout
-(``serve.engine``).
+Scope, the reference's: non-windowed archs (a sliding-window ring is
+already O(window) and gains nothing from paging), ``tp_size == 1`` and
+``kv_quant=False`` — the seq-sharded and int8 decode paths keep the dense
+ring layout (``serve.engine``).  A data-parallel grid is in scope, with
+the reference's layout: one page table over every slot (kept on the host
+alike on every rank, so every page number is the reference's) and a
+pool at the reference's shape on every dp rank (the page axis is not
+split over dp).  Each rank writes and gathers the pages of its own rows
+of the slot pool only (``serve.scheduler``), so of its copy of the pool
+only those pages are live.
 
 Like ``engine.decode_step``, ``paged_prefill_write`` and
 ``paged_decode_step`` update the pools they are given in place.
@@ -131,6 +137,9 @@ class PageAllocator:
 
 
 def _check_paged_supported(cfg: ModelConfig, ctx: ParallelCtx):
+    """Refuse what the reference refuses: a window, ``kv_quant`` and a
+    tensor-parallel axis of more than one rank.  Data parallelism is
+    allowed (see the module's scope)."""
     if cfg.window is not None:
         raise NotImplementedError(
             "paged KV targets non-windowed archs (a sliding-window ring is "
@@ -142,10 +151,6 @@ def _check_paged_supported(cfg: ModelConfig, ctx: ParallelCtx):
         raise NotImplementedError(
             "paged + TP seq-sharding: keep the dense ring"
         )
-    if ctx.dp_size > 1:
-        raise NotImplementedError(
-            "paged + a slot pool split over DP ranks: keep the dense ring"
-        )
 
 
 def paged_init_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
@@ -155,7 +160,8 @@ def paged_init_cache(cfg: ModelConfig, n_slots: int, n_pages: int,
     ``(n_pages, Hkv, page_size, Dh)`` (stacked ``(U, n_pages, ...)``) —
     there is **no batch axis** on KV leaves; the page table owns the
     slot -> page mapping.  Recurrent/conv states and ``pos`` keep their
-    dense per-slot layout (they are O(1) per row; nothing to page)."""
+    dense per-slot layout (they are O(1) per row; nothing to page), with
+    ``n_slots`` rows: on a dp grid, the rows this rank holds."""
     if ctx is not None:
         _check_paged_supported(cfg, ctx)
     dense = engine.init_cache(cfg, n_slots, page_size, device=device)
@@ -252,8 +258,12 @@ def paged_decode_step(model: LM, cache, tokens, table, cfg: ModelConfig,
                       ctx: ParallelCtx, *, active=None):
     """``engine.decode_step`` over page pools: same per-row ``pos``
     vector and ``active`` advancement, but attn KV lives behind
-    ``table`` ``(B, max_pages)`` (on the pools' device).  Updates
-    ``cache`` in place and returns (logits, cache)."""
+    ``table`` ``(B, max_pages)`` (on the pools' device).  Like
+    ``tokens``, the table holds every row: where the batch is split over
+    dp (``engine.decode_rows``) the step reads this rank's rows of it.
+    Updates ``cache`` in place and returns (logits, cache)."""
+    if ctx.splits_batch(tokens.shape[0]):
+        table = ctx.block(table, ctx.dp)
     return engine.decode_step(model, cache, tokens, cfg, ctx, active=active,
                               attend=functools.partial(_paged_attend,
                                                        table=table))

@@ -26,13 +26,17 @@ and p99 time the work, not the launch queue.  The pool lives on the
 model's device.
 
 On a grid of dp ranks (the model holding its blocks,
-``dist.partitioning.shard_params``) the dense pool is split over dp:
-``n_slots`` must divide by dp, and
-each DP rank holds its ``n_slots / dp`` rows of the caches.  Every rank
-runs the same loop: an admission's batch-1 prefill runs on every rank
-(it does not divide dp) and the slot's owner keeps its cache row; each
-decode step runs each rank's rows and gathers the step's logits, so
-every rank picks the same tokens and admits and evicts alike.
+``dist.partitioning.shard_params``) the slot pool is split over dp:
+``n_slots`` must divide by dp, and each DP rank holds its ``n_slots /
+dp`` rows of the caches.  Every rank runs the same loop: an admission's
+batch-1 prefill runs on every rank (it does not divide dp) and the
+slot's owner keeps its cache row; each decode step runs each rank's rows
+and gathers the step's logits, so every rank picks the same tokens and
+admits and evicts alike.  The paged backend keeps the reference's one
+allocator over all ``n_slots`` on every rank (the same admissions and
+page numbers everywhere) and a pool of the reference's shape; a rank
+writes a slot's pages only where it owns the slot, and decodes its rows
+of the page table.
 """
 from __future__ import annotations
 
@@ -142,8 +146,11 @@ class Scheduler:
                 n_pages=n_pages, page_size=page_size, n_slots=n_slots,
                 max_pages=max_pages,
             )
+            # the pool at the reference's shape; the per-slot leaves
+            # (``pos``, recurrent states) hold this rank's rows
             self.cache = pages.paged_init_cache(
-                cfg, n_slots, n_pages, page_size, ctx, device=self.device
+                cfg, len(self.rows), n_pages, page_size, ctx,
+                device=self.device,
             )
         else:
             self.alloc = None
@@ -200,11 +207,13 @@ class Scheduler:
         table; every other leaf (recurrent state, ``pos``; dense KV) is a
         row write at the leaf's batch axis."""
         if self.backend == "paged":
+            # every rank allocates alike; the slot's owner writes its pages
             req = self.slot_req[slot]
             self.alloc.ensure(slot, req.prompt_len)
-            pages.paged_prefill_write(
-                self.cache, sub_cache, self.alloc, slot, req.prompt_len
-            )
+            if slot in self.rows:
+                pages.paged_prefill_write(
+                    self.cache, sub_cache, self.alloc, slot, req.prompt_len
+                )
 
         if slot not in self.rows:  # only the slot's DP rank holds its row
             return

@@ -247,6 +247,22 @@ def test_paged_guards():
                                device="meta")
 
 
+def test_paged_pool_on_a_dp_grid_is_the_references():
+    """A data-parallel grid is in the reference's scope: on dp = 2, tp = 1
+    the pool keeps the reference's shape (the page axis whole) and the
+    per-slot leaves take the rows they are given."""
+    cfg, rcfg = _cfgs()
+    ctx = ParallelCtx(Grid(sizes=(2, 1)))
+    assert ctx.dp_size == 2 and ctx.tp_size == 1
+    cache = pages.paged_init_cache(cfg, 1, 9, 4, ctx, device="meta")
+    want = jax.eval_shape(lambda: ref_pages.paged_init_cache(
+        rcfg, n_slots=2, n_pages=9, page_size=4, ctx=RefCtx(None)))
+    for key in ("k", "v"):
+        assert (tuple(cache["units"]["b0"][key].shape)
+                == tuple(want["units"]["b0"][key].shape))
+    assert cache["pos"].shape == (1,)
+
+
 # ---------------------------------------------------------------------------
 # persistent plan service
 # ---------------------------------------------------------------------------

@@ -25,6 +25,11 @@ train states, fp32 SMOKE configs; MoE configs without capacity drops):
 * a checkpoint saved on 2x2 after two steps and restored on 1x1 (this
   process) and on 2x1: the next two losses equal the uninterrupted 2x2
   run's, and the 2x2 run's those of the reference;
+* the paged ``Scheduler`` on 2x1 (dp = 2, tp = 1): every request's greedy
+  tokens equal the reference's paged scheduler's and the port's dense
+  scheduler's on the same grid, each rank's pools have the shape of the
+  reference's ``paged_init_cache`` and its page table is the reference
+  allocator's;
 * each rank's held bytes equal its spec's share (``param_shardings``),
   ``gather_params`` gives the whole parameters back bitwise, and rank
   0's count of a train step on the 2x2 grid equals, to the FLOP
@@ -55,6 +60,7 @@ from repro.configs.registry import get_config as ref_get_config
 from repro.dist.context import ParallelCtx as RefCtx
 from repro.models import model as ref_model
 from repro.serve import engine as ref_engine
+from repro.serve import pages as ref_pages
 from repro.serve import scheduler as ref_sched
 from repro.train import optimizer as ref_opt
 from repro.train import train_step as ref_ts
@@ -93,6 +99,8 @@ STRATEGIES = ("allgather", "summa")
 CASES24 = ("llama3.2-1b", "vocab514")
 SERVE_LEN, SERVE_PROMPT, SERVE_STEPS = 24, 16, 4
 SLOTS, SCHED_MAX_LEN = 4, 32
+#: the 2x1 paged and dense schedulers' trace (the reference's ragged one)
+PAGED_REQUESTS = 8
 
 _RANK_PROGRAM = r"""
 import copy
@@ -229,6 +237,29 @@ if spec["serve"]:
             8, prompt_lens=(6, 10), gen_lens=(3, 8), vocab=cfg.vocab_size))
     for rid, toks_out in res["outputs"].items():
         out[f"sched-{rid}"] = np.array(toks_out)
+
+if spec["paged"]:
+    cfg = config("llama3.2-1b")
+    model = model_of("llama3.2-1b", cfg)
+    trace = dict(prompt_lens=(6, 10), gen_lens=(3, 8),
+                 vocab=cfg.vocab_size)
+    with torch.inference_mode():
+        for backend in ("dense", "paged"):
+            sched = Scheduler(model, cfg, ctx, n_slots=spec["slots"],
+                              max_len=spec["sched_max_len"],
+                              backend=backend)
+            if backend == "paged":  # the page table after admission
+                sched.run(ragged_trace(spec["slots"], **trace),
+                          max_steps=1)
+                out["paged-table"] = sched.alloc._table.copy()
+                for key, leaf in leaves(sched.cache):
+                    out[f"paged-shape/{key}"] = np.array(leaf.shape)
+                sched = Scheduler(model, cfg, ctx, n_slots=spec["slots"],
+                                  max_len=spec["sched_max_len"],
+                                  backend=backend)
+            res = sched.run(ragged_trace(spec["n_requests"], **trace))
+            for rid, toks_out in res["outputs"].items():
+                out[f"{backend}-{rid}"] = np.array(toks_out)
 
 if spec["ckpt_save"] or spec["ckpt_restore"]:
     cfg = config("llama3.2-1b")
@@ -396,7 +427,8 @@ def _spawn(tmp, sizes, payload, spec, timeout=300):
 
 
 _NO_SPEC = dict(forward=(), grad=(), strategies=(), steps={}, serve=False,
-                ckpt_save=False, ckpt_restore=False, count=False, ckpt_dir="")
+                ckpt_save=False, ckpt_restore=False, count=False, ckpt_dir="",
+                paged=False)
 
 
 @pytest.fixture(scope="module")
@@ -425,10 +457,12 @@ def grid24(tmp_path_factory):
 @pytest.fixture(scope="module")
 def grid21(grid22, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("grid21")
-    payload = {}
+    payload = _payload(("llama3.2-1b",), {})
     for i, batch in enumerate(_ckpt_batches()):
         payload |= {f"ckpt-batch{i}/b/{k}": v for k, v in batch.items()}
-    spec = dict(_NO_SPEC, ckpt_restore=True, ckpt_dir=str(grid22[0] / "ckpt"))
+    spec = dict(_NO_SPEC, ckpt_restore=True, ckpt_dir=str(grid22[0] / "ckpt"),
+                paged=True, slots=SLOTS, sched_max_len=SCHED_MAX_LEN,
+                n_requests=PAGED_REQUESTS)
     return _spawn(tmp, (2, 1), payload, spec)
 
 
@@ -568,6 +602,58 @@ def test_scheduler_with_a_dp2_pool_matches_reference(grid22):
     out = grid22[1][0]
     for rid, toks in ref["outputs"].items():
         assert list(out[f"sched-{rid}"]) == list(toks), rid
+
+
+def _ref_paged(n_requests, max_steps=100_000):
+    c = MEMO.case("llama3.2-1b")
+    sched = ref_sched.Scheduler(
+        c["params"], c["rcfg"], RefCtx(None), n_slots=SLOTS,
+        max_len=SCHED_MAX_LEN, backend="paged")
+    res = sched.run(ref_sched.ragged_trace(
+        n_requests, prompt_lens=(6, 10), gen_lens=(3, 8),
+        vocab=c["rcfg"].vocab_size), max_steps=max_steps)
+    return sched, res
+
+
+def test_paged_scheduler_on_2x1_matches_reference(grid21):
+    """dp = 2, tp = 1: every rank's greedy tokens equal the reference's
+    paged scheduler's (one device, as ``tests/test_scheduler.py`` runs
+    it) and the port's dense scheduler's on the same grid."""
+    _, ref = _ref_paged(PAGED_REQUESTS)
+    assert len(ref["outputs"]) == PAGED_REQUESTS
+    for out in grid21:
+        for rid, toks in ref["outputs"].items():
+            assert list(out[f"paged-{rid}"]) == list(toks), rid
+            assert list(out[f"dense-{rid}"]) == list(toks), rid
+
+
+def test_paged_pool_and_table_on_2x1_are_the_references(grid21):
+    """Each rank's KV pools have the shape of the reference's
+    ``paged_init_cache`` (replicated over dp, the page axis whole), its
+    per-slot leaves its rows of the pool, and the page table after the
+    first step equals the reference allocator's on every rank."""
+    c = MEMO.case("llama3.2-1b")
+    sched, _ = _ref_paged(SLOTS, max_steps=1)
+    max_pages = -(-SCHED_MAX_LEN // 8)
+    shapes = jax.eval_shape(lambda: ref_pages.paged_init_cache(
+        c["rcfg"], SLOTS, SLOTS * max_pages + 1, 8, RefCtx(None)))
+    kv = 0
+    for out in grid21:
+        np.testing.assert_array_equal(out["paged-table"],
+                                      np.asarray(sched.alloc._table))
+    for key, want in tree_leaves(shapes):
+        leaf = key.rsplit("/", 1)[-1]
+        for out in grid21:
+            got = tuple(out[f"paged-shape/{key}"])
+            if leaf in ("k", "v"):
+                kv += 1
+                assert got == tuple(want.shape), key
+            else:  # this rank's rows of the slot pool
+                ax = 1 if key.startswith("units") else 0
+                exp = list(want.shape)
+                exp[ax] //= 2
+                assert got == tuple(exp), key
+    assert kv > 0
 
 
 def test_checkpoint_restores_on_other_grids(grid22, grid21):
