@@ -1,0 +1,4 @@
+"""``api.call_host_ms`` in the rank cells, where it moves ``useful_tflops.rank``."""
+from mmbench.metrics import reader
+
+read = reader("api.call_host_ms")

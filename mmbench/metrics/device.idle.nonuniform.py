@@ -1,0 +1,4 @@
+"""``device.idle`` in the nonuniform cells, where it moves ``useful_tflops.nonuniform``."""
+from mmbench.metrics import reader
+
+read = reader("device.idle")
