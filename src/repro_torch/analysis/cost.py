@@ -24,11 +24,14 @@ has no HLO, so it counts the call itself as it runs:
   ``kernels/ops.py`` reports its function's work through
   ``kernel_call`` and suspends the counter inside, so the CUDA kernel,
   its plain version on the CPU and the shape-only route on ``meta``
-  count the same.
+  count the same.  ``kernel_call`` is also the span ``kernel.<name>``
+  of ``analysis.spans``.
 * ``core/grid.py``'s collectives report their result bytes
   (``report_collective``) under the reference's five kinds, with
-  ``exchange`` as ``collective-permute``, plus ``broadcast``; on an axis
-  of one rank they are the identity and report nothing.
+  ``exchange`` as ``collective-permute``, plus ``broadcast``, and the
+  recorder's counter ``grid.recv_bytes`` adds them up (``analysis.
+  spans``); on an axis of one rank they are the identity and report
+  nothing.
 * Memory: the storages the call creates, and the frees of those it found,
   tracked with ``weakref.finalize``: the peak of live bytes, the
   counterpart of ``memory_analysis()``.
@@ -62,6 +65,8 @@ import torch
 from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.analysis import spans
 
 __all__ = [
     "COLLECTIVE_OPS",
@@ -344,21 +349,23 @@ class _KernelCall:
 
 
 @contextlib.contextmanager
-def kernel_call(name: str):
-    """Around a kernel wrapper's body: suspends the active counter (the
-    plain version's torch ops, the launch's host work and the shape-only
-    route count nothing), then adds what the body ``report``-ed under
-    ``name``."""
+def kernel_call(name: str, device=None):
+    """Around a kernel wrapper's body: the span ``kernel.<name>`` (with
+    device time on a ``cuda`` ``device``, ``analysis.spans``); suspends the
+    active counter (the plain version's torch ops, the launch's host work
+    and the shape-only route count nothing), then adds what the body
+    ``report``-ed under ``name``."""
     counter = active_counter()
     call = _KernelCall()
-    if counter is None:
-        yield call
-        return
-    counter._paused += 1
-    try:
-        yield call
-    finally:
-        counter._paused -= 1
+    with spans.span("kernel." + name, device=device):
+        if counter is None:
+            yield call
+            return
+        counter._paused += 1
+        try:
+            yield call
+        finally:
+            counter._paused -= 1
     if call.work is not None:
         counter._add_kernel(name, *call.work)
 
@@ -391,7 +398,9 @@ def loop_steps(trips: int) -> int:
 
 def report_collective(kind: str, result: torch.Tensor) -> None:
     """A collective of ``kind`` (one of ``COLLECTIVE_OPS``) whose result on
-    this rank is ``result``."""
+    this rank is ``result``; its bytes also go to the recorder's
+    ``grid.recv_bytes`` (``analysis.spans``)."""
+    spans.count("grid.recv_bytes", _nbytes(result))
     counter = active_counter()
     if counter is not None and counter._on_device((result,)):
         counter._add_collective(kind, _nbytes(result))

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.spans import ROOT, span, spanned
 from repro_torch.core import blocking as bk
 from repro_torch.core import summa as sm
 from repro_torch.core.grid import Grid
@@ -124,6 +125,7 @@ class DistributedMatmul:
 
     # -- planning ------------------------------------------------------------
 
+    @spanned("plan.lookup")
     def plan(
         self,
         m: int,
@@ -292,14 +294,15 @@ class DistributedMatmul:
             raise ValueError(
                 f"contraction mismatch {tuple(a.shape)} @ {tuple(b.shape)}"
             )
-        plan = self.plan(
-            m, k, n, a_mask=a_mask, b_mask=b_mask, a_ranks=a_ranks,
-            b_ranks=b_ranks, c_mask=c_mask, strategy=strategy,
-            itemsize=a.element_size(), tune=tune, lookahead=lookahead,
-            comm_mode=comm_mode, stationarity=stationarity,
-            a_norms=a_norms, b_norms=b_norms, filter_eps=filter_eps,
-        )
-        return self._run(a, b, plan, compiled=self.compiled)
+        with span(ROOT, device=self.grid.device):
+            plan = self.plan(
+                m, k, n, a_mask=a_mask, b_mask=b_mask, a_ranks=a_ranks,
+                b_ranks=b_ranks, c_mask=c_mask, strategy=strategy,
+                itemsize=a.element_size(), tune=tune, lookahead=lookahead,
+                comm_mode=comm_mode, stationarity=stationarity,
+                a_norms=a_norms, b_norms=b_norms, filter_eps=filter_eps,
+            )
+            return self._run(a, b, plan, compiled=self.compiled)
 
     def _run(self, a, b, plan: MatmulPlan, *, compiled: bool) -> torch.Tensor:
         """C = A @ B under ``plan``, made for these operands' shapes: pad,
@@ -307,11 +310,13 @@ class DistributedMatmul:
         a, b = torch.as_tensor(a), torch.as_tensor(b)
         (mp, kp), (_, np_) = plan.padded_shapes
         cfg = plan.cfg
-        a_loc = sm.local_tile(_pad_to_shape(a, (mp, kp)), cfg)
-        b_loc = sm.local_tile(_pad_to_shape(b, (kp, np_)), cfg)
+        with span("api.pad", device=cfg.grid.device):
+            a_loc = sm.local_tile(_pad_to_shape(a, (mp, kp)), cfg)
+            b_loc = sm.local_tile(_pad_to_shape(b, (kp, np_)), cfg)
         c_loc = sm.execute_plan(a_loc, b_loc, plan, compiled=compiled)
         del a_loc, b_loc
-        return sm.gather_tiles(c_loc, cfg)[:a.shape[0], :b.shape[1]]
+        with span("api.crop", device=cfg.grid.device):
+            return sm.gather_tiles(c_loc, cfg)[:a.shape[0], :b.shape[1]]
 
     def _call_ranksparse(
         self,
@@ -340,39 +345,45 @@ class DistributedMatmul:
         if filter_eps > 0.0 and a_norms is None:
             # the factor payload carries its own norms, exact from U and V
             a_norms = rank_csr_norms(a_ranks)
-        plan = self.plan(
-            m, k, n, b_mask=b_mask, b_ranks=b_ranks, c_mask=c_mask,
-            a_ranks=a_ranks, strategy=strategy,
-            itemsize=b.element_size(), tune=tune, lookahead=lookahead,
-            comm_mode=comm_mode, stationarity=stationarity,
-            a_norms=a_norms, b_norms=b_norms, filter_eps=filter_eps,
-        )
-        return self._run_rank(a_ranks, b, plan, compiled=self.compiled)
+        with span(ROOT, device=self.grid.device):
+            plan = self.plan(
+                m, k, n, b_mask=b_mask, b_ranks=b_ranks, c_mask=c_mask,
+                a_ranks=a_ranks, strategy=strategy,
+                itemsize=b.element_size(), tune=tune, lookahead=lookahead,
+                comm_mode=comm_mode, stationarity=stationarity,
+                a_norms=a_norms, b_norms=b_norms, filter_eps=filter_eps,
+            )
+            return self._run_rank(a_ranks, b, plan, compiled=self.compiled)
 
     def _run_rank(self, a_ranks: RankCSR, b, plan: MatmulPlan, *,
                   compiled: bool) -> torch.Tensor:
         """C = A @ B under a plan of the factor route, A the ``RankCSR``."""
         b = torch.as_tensor(b)
         cfg = plan.cfg
+        dev = cfg.grid.device
         (mp, kp), (_, np_) = plan.padded_shapes
-        b_loc = sm.local_tile(_pad_to_shape(b, (kp, np_)), cfg)
+        with span("api.pad", device=dev):
+            b_loc = sm.local_tile(_pad_to_shape(b, (kp, np_)), cfg)
         if plan.local_impl != "ranksparse":
             # the factor layout does not fit this grid: densify and run the
             # planned masked DAG (mask-level pruning only); B is promoted
             # to the factors' type, as JAX promotes the mixed product
-            a = torch.from_numpy(a_ranks.to_dense())
-            b_loc = b_loc.to(torch.promote_types(a.dtype, b_loc.dtype))
-            a_loc = sm.local_tile(_pad_to_shape(a, (mp, kp)), cfg)
+            with span("api.pad", device=dev):
+                a = torch.from_numpy(a_ranks.to_dense())
+                b_loc = b_loc.to(torch.promote_types(a.dtype, b_loc.dtype))
+                a_loc = sm.local_tile(_pad_to_shape(a, (mp, kp)), cfg)
             c_loc = sm.execute_plan(a_loc, b_loc, plan, compiled=compiled)
         else:
             u_all, v_all = sm.rank_operands(a_ranks, plan)
-            c_loc = sm.execute_rank_plan(
-                sm.local_tile(torch.from_numpy(u_all), cfg),
-                sm.local_tile(torch.from_numpy(v_all), cfg), b_loc, plan,
-                compiled=compiled,
-            )
+            with span("rank.upload", device=dev):
+                u_loc = sm.local_tile(torch.from_numpy(u_all), cfg)
+                v_loc = sm.local_tile(torch.from_numpy(v_all), cfg)
+            c_loc = sm.execute_rank_plan(u_loc, v_loc, b_loc, plan,
+                                         compiled=compiled)
+            del u_loc, v_loc
         del b_loc
-        return sm.gather_tiles(c_loc, cfg)[:a_ranks.shape[0], :b.shape[1]]
+        with span("api.crop", device=dev):
+            return sm.gather_tiles(c_loc, cfg)[:a_ranks.shape[0], :b.shape[1]]
 
     # -- tensor contractions -------------------------------------------------
 
@@ -497,20 +508,22 @@ class NonuniformMatmul:
     def _expand(self, x: torch.Tensor, bdim: bk.BucketedTiling, axis: int):
         """``x`` gathered along ``axis`` into the padded physical layout
         (one gather, then the pad zeroed in place)."""
-        idx = torch.as_tensor(bdim.gather_indices(), device=x.device)
-        out = x.index_select(axis, idx.clamp(min=0))
-        pad = (idx < 0).nonzero().flatten()
-        out.index_fill_(axis, pad, 0)
-        return out
+        with span("blocking.expand", device=x.device):
+            idx = torch.as_tensor(bdim.gather_indices(), device=x.device)
+            out = x.index_select(axis, idx.clamp(min=0))
+            pad = (idx < 0).nonzero().flatten()
+            out.index_fill_(axis, pad, 0)
+            return out
 
     def _compact(self, c: torch.Tensor) -> torch.Tensor:
-        ridx = self.row_b.gather_indices()
-        cidx = self.col_b.gather_indices()
-        rsel = torch.as_tensor(np.nonzero(ridx >= 0)[0], device=c.device)
-        csel = torch.as_tensor(np.nonzero(cidx >= 0)[0], device=c.device)
-        # physical order of valid elements == logical order (blocks packed
-        # in order, tiles in order within a block)
-        return c.index_select(0, rsel).index_select(1, csel)
+        with span("blocking.compact", device=c.device):
+            ridx = self.row_b.gather_indices()
+            cidx = self.col_b.gather_indices()
+            rsel = torch.as_tensor(np.nonzero(ridx >= 0)[0], device=c.device)
+            csel = torch.as_tensor(np.nonzero(cidx >= 0)[0], device=c.device)
+            # physical order of valid elements == logical order (blocks
+            # packed in order, tiles in order within a block)
+            return c.index_select(0, rsel).index_select(1, csel)
 
     def __call__(
         self,
@@ -530,9 +543,10 @@ class NonuniformMatmul:
             raise ValueError(f"A shape {tuple(a.shape)} mismatches tilings")
         if tuple(b.shape) != (self.inner_tiling.extent, self.col_tiling.extent):
             raise ValueError(f"B shape {tuple(b.shape)} mismatches tilings")
-        plan = self.plan(a_ranks=a_ranks, itemsize=a.element_size(),
-                         lookahead=lookahead, tune=tune)
-        return self._run(a, b, plan, compiled=self.mm.compiled)
+        with span(ROOT, device=self.mm.grid.device):
+            plan = self.plan(a_ranks=a_ranks, itemsize=a.element_size(),
+                             lookahead=lookahead, tune=tune)
+            return self._run(a, b, plan, compiled=self.mm.compiled)
 
     def _run(self, a, b, plan: MatmulPlan, *, compiled: bool) -> torch.Tensor:
         """C = A @ B under the physical plan ``plan``: expand, multiply,

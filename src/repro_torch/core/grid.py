@@ -50,8 +50,11 @@ copies through the host.
 
 Each collective over an axis with peers reports its result bytes on this
 rank to the active ``analysis.cost.CostCounter`` (``exchange`` and
-``ring_shift`` as a ``collective-permute`` per buffer received); the
-identity on an axis of one rank reports nothing.
+``ring_shift`` as a ``collective-permute`` per buffer received) and to
+the recorder's ``grid.recv_bytes``, and runs in a span of the recorder
+(``analysis.spans``): ``grid.<collective>`` around the call and
+``grid.wait`` around each wait for its completion, host time only.  The
+identity on an axis of one rank reports nothing and opens no span.
 
 The collectives are not autograd-aware.  Five that are, each the
 other's transpose in the backward:
@@ -79,6 +82,7 @@ import math
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import spans
 from repro_torch.analysis.cost import paused, report_collective
 
 __all__ = ["Grid"]
@@ -296,26 +300,27 @@ class Grid:
         a host copy)."""
         if self.axis_size(axis) == 1:
             return x, None
-        if self.axis_index(axis) == owner:
-            buf = x.contiguous()
-        else:
-            buf = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-        report_collective("broadcast", buf)
-        if self.counting:
+        with spans.span("grid.broadcast"):
+            if self.axis_index(axis) == owner:
+                buf = x.contiguous()
+            else:
+                buf = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            report_collective("broadcast", buf)
+            if self.counting:
+                return buf, None
+            group = self._group(axis)
+            with paused():
+                host = buf.cpu() if self._host(group, buf) else buf
+                work = dist.broadcast(
+                    host, src=self.rank_at({axis: owner}), group=group,
+                    async_op=async_op,
+                )
+            work = _Works([work] if work is not None else [], None,
+                          (host, buf) if host is not buf else None)
+            if async_op:
+                return buf, work
+            work.wait()
             return buf, None
-        group = self._group(axis)
-        with paused():
-            host = buf.cpu() if self._host(group, buf) else buf
-            work = dist.broadcast(
-                host, src=self.rank_at({axis: owner}), group=group,
-                async_op=async_op,
-            )
-        work = _Works([work] if work is not None else [], None,
-                      (host, buf) if host is not buf else None)
-        if async_op:
-            return buf, work
-        work.wait()
-        return buf, None
 
     def all_gather(self, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
         """Concatenate every rank's ``x`` along ``dim``, in axis order (the
@@ -324,19 +329,19 @@ class Grid:
         size = self.axis_size(axis)
         if size == 1:
             return x
-        x0 = x.movedim(dim, 0).contiguous()
-        out = torch.empty(
-            (size * x0.shape[0], *x0.shape[1:]), dtype=x.dtype, device=x.device
-        )
-        self._transfer(axis, dist.all_gather_into_tensor, out, x0)
-        order = self._group_order(axis)
-        if order is not None:  # chunk g holds axis index order[g]
-            chunks = out.view(size, *x0.shape)
-            out = torch.empty_like(chunks)
-            out[order] = chunks
-            out = out.view(size * x0.shape[0], *x0.shape[1:])
-        report_collective("all-gather", out)
-        return out.movedim(0, dim).contiguous()
+        with spans.span("grid.all_gather"):
+            x0 = x.movedim(dim, 0).contiguous()
+            out = torch.empty((size * x0.shape[0], *x0.shape[1:]),
+                              dtype=x.dtype, device=x.device)
+            self._transfer(axis, dist.all_gather_into_tensor, out, x0)
+            order = self._group_order(axis)
+            if order is not None:  # chunk g holds axis index order[g]
+                chunks = out.view(size, *x0.shape)
+                out = torch.empty_like(chunks)
+                out[order] = chunks
+                out = out.view(size * x0.shape[0], *x0.shape[1:])
+            report_collective("all-gather", out)
+            return out.movedim(0, dim).contiguous()
 
     def reduce_scatter(self, x: torch.Tensor, axis, dim: int) -> torch.Tensor:
         """Sum every rank's ``x`` and keep this rank's slice of ``dim``, in
@@ -353,16 +358,17 @@ class Grid:
                 f"dim {dim} of {tuple(x.shape)} does not divide by the "
                 f"{size} ranks of axis {axis!r}"
             )
-        order = self._group_order(axis)
-        if order is not None:  # group rank g receives axis index order[g]
-            x0 = x0.view(size, -1, *x0.shape[1:])[order].flatten(0, 1)
-        out = torch.empty(
-            (x0.shape[0] // size, *x0.shape[1:]), dtype=x.dtype,
-            device=x.device,
-        )
-        self._transfer(axis, dist.reduce_scatter_tensor, out, x0)
-        report_collective("reduce-scatter", out)
-        return out.movedim(0, dim).contiguous()
+        with spans.span("grid.reduce_scatter"):
+            order = self._group_order(axis)
+            if order is not None:  # group rank g receives index order[g]
+                x0 = x0.view(size, -1, *x0.shape[1:])[order].flatten(0, 1)
+            out = torch.empty(
+                (x0.shape[0] // size, *x0.shape[1:]), dtype=x.dtype,
+                device=x.device,
+            )
+            self._transfer(axis, dist.reduce_scatter_tensor, out, x0)
+            report_collective("reduce-scatter", out)
+            return out.movedim(0, dim).contiguous()
 
     def all_reduce(self, x: torch.Tensor, axis, op: str = "sum"
                    ) -> torch.Tensor:
@@ -376,11 +382,12 @@ class Grid:
             raise ValueError(f"op={op!r}; known: {sorted(ops)}")
         if self.axis_size(axis) == 1:
             return x
-        out = x.clone(memory_format=torch.contiguous_format)
-        self._transfer(axis, lambda t, group: dist.all_reduce(
-            t, op=ops[op], group=group), out)
-        report_collective("all-reduce", out)
-        return out
+        with spans.span("grid.all_reduce"):
+            out = x.clone(memory_format=torch.contiguous_format)
+            self._transfer(axis, lambda t, group: dist.all_reduce(
+                t, op=ops[op], group=group), out)
+            report_collective("all-reduce", out)
+            return out
 
     def ring_shift(self, x: torch.Tensor, axis, *, async_op: bool = False):
         """The ``x`` of the previous rank along ``axis`` (index - 1, mod
@@ -393,25 +400,28 @@ class Grid:
         size = self.axis_size(axis)
         if size == 1:
             return x, None
-        send = x.contiguous()
-        buf = torch.empty_like(send)
-        report_collective("collective-permute", buf)
-        if self.counting:
+        with spans.span("grid.ring_shift"):
+            send = x.contiguous()
+            buf = torch.empty_like(send)
+            report_collective("collective-permute", buf)
+            if self.counting:
+                return buf, None
+            self.check_world()
+            me = self.axis_index(axis)
+            with paused():
+                host = self._host(self._group(axis), send)
+                h_send, h_buf = (send.cpu(), torch.empty(
+                    send.shape, dtype=send.dtype)) if host else (send, buf)
+                work = _Works([
+                    dist.irecv(h_buf,
+                               src=self.rank_at({axis: (me - 1) % size})),
+                    dist.isend(h_send,
+                               dst=self.rank_at({axis: (me + 1) % size})),
+                ], h_send, (h_buf, buf) if host else None)
+            if async_op:
+                return buf, work
+            work.wait()
             return buf, None
-        self.check_world()
-        me = self.axis_index(axis)
-        with paused():
-            host = self._host(self._group(axis), send)
-            h_send, h_buf = (send.cpu(), torch.empty(
-                send.shape, dtype=send.dtype)) if host else (send, buf)
-            work = _Works([
-                dist.irecv(h_buf, src=self.rank_at({axis: (me - 1) % size})),
-                dist.isend(h_send, dst=self.rank_at({axis: (me + 1) % size})),
-            ], h_send, (h_buf, buf) if host else None)
-        if async_op:
-            return buf, work
-        work.wait()
-        return buf, None
 
     # -- collectives that autograd sees (see the module's docstring) ----------
 
@@ -475,20 +485,22 @@ class Grid:
             return (t.cpu() if t.device.type == "cuda"
                     and dist.get_backend() == "gloo" else t)
 
-        sends = [(peer, t.contiguous()) for peer, t in sends]
-        with paused():
-            sends = [(peer, staged(t)) for peer, t in sends]
-            h_recvs = [(peer, staged(buf)) for peer, buf in recvs]
-            works = [dist.irecv(buf, src=peer) for peer, buf in h_recvs]
-            works += [dist.isend(t, dst=peer) for peer, t in sends]
-            for work in works:
-                work.wait()
-            for (_, buf), (_, h_buf) in zip(recvs, h_recvs):
-                if h_buf is not buf:
-                    buf.copy_(h_buf)
-        for _, buf in recvs:
-            report_collective("collective-permute", buf)
-        return sum(buf.numel() * buf.element_size() for _, buf in recvs)
+        with spans.span("grid.exchange"):
+            sends = [(peer, t.contiguous()) for peer, t in sends]
+            with paused():
+                sends = [(peer, staged(t)) for peer, t in sends]
+                h_recvs = [(peer, staged(buf)) for peer, buf in recvs]
+                works = [dist.irecv(buf, src=peer) for peer, buf in h_recvs]
+                works += [dist.isend(t, dst=peer) for peer, t in sends]
+                with spans.span("grid.wait"):
+                    for work in works:
+                        work.wait()
+                for (_, buf), (_, h_buf) in zip(recvs, h_recvs):
+                    if h_buf is not buf:
+                        buf.copy_(h_buf)
+            for _, buf in recvs:
+                report_collective("collective-permute", buf)
+            return sum(buf.numel() * buf.element_size() for _, buf in recvs)
 
 
 class _Works:
@@ -501,11 +513,12 @@ class _Works:
         self.works, self.keep, self.copy = works, keep, copy
 
     def wait(self) -> None:
-        for work in self.works:
-            work.wait()
-        if self.copy is not None:
-            with paused():
-                self.copy[1].copy_(self.copy[0])
+        with spans.span("grid.wait"):
+            for work in self.works:
+                work.wait()
+            if self.copy is not None:
+                with paused():
+                    self.copy[1].copy_(self.copy[0])
         self.keep = self.copy = None
 
 

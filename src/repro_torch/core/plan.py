@@ -34,6 +34,7 @@ import math
 
 import numpy as np
 
+from repro_torch.analysis.spans import spanned
 from repro_torch.core.sparsity import BlockRankMap, mask_matmul_flops
 from repro_torch.core.summa import SummaConfig, resolve_multi_issue
 
@@ -629,6 +630,7 @@ def _resolve_stationarity(
     return stationarity, vols
 
 
+@spanned("plan.build")
 def plan_matmul(
     m: int,
     k: int,

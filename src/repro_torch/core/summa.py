@@ -98,6 +98,7 @@ from typing import Callable, Literal
 import numpy as np
 import torch
 
+from repro_torch.analysis.spans import count, span, spanned
 from repro_torch.core.grid import Grid
 from repro_torch.kernels.autotune import autotune_cache, cache_fingerprint
 
@@ -264,12 +265,13 @@ def _local_dot(a_panel, b_panel, accum, cfg: SummaConfig) -> torch.Tensor:
     ``cfg.local_matmul`` is the static policy: ``"pallas"`` takes the
     hand-written tiled kernel, whose product is cast to the operand dtype
     before it is added (the reference's ``kernels.ops.tiled_matmul``
-    semantics); ``"xla"`` runs ``torch.matmul`` in ``accum_dtype``.  When
-    the autotune cache holds a measured ``pallas`` or ``xla`` winner for
-    this panel shape's bucket, that route overrides the policy.  The
-    consult is a lookup only, so a cold or disabled cache launches exactly
-    what the policy launches; a cache measured on another kind of device
-    is refused (``KernelAutotuner.lookup``).
+    semantics; the add is the span ``exec.accumulate``); ``"xla"`` runs
+    ``torch.matmul`` in ``accum_dtype``.  When the autotune cache holds a
+    measured ``pallas`` or ``xla`` winner for this panel shape's bucket,
+    that route overrides the policy.  The consult is a lookup only, so a
+    cold or disabled cache launches exactly what the policy launches; a
+    cache measured on another kind of device is refused
+    (``KernelAutotuner.lookup``).
     """
     route = "pallas" if cfg.local_matmul == "pallas" else "xla"
     entry = autotune_cache().lookup(
@@ -281,9 +283,10 @@ def _local_dot(a_panel, b_panel, accum, cfg: SummaConfig) -> torch.Tensor:
     if route == "pallas":
         from repro_torch.kernels import ops as kops
 
-        return accum.add_(kops.tiled_matmul(
-            a_panel, b_panel, accum_dtype=cfg.accum_dtype
-        ))
+        product = kops.tiled_matmul(a_panel, b_panel,
+                                    accum_dtype=cfg.accum_dtype)
+        with span("exec.accumulate", device=accum.device):
+            return accum.add_(product)
     return accum.addmm_(a_panel.to(cfg.accum_dtype), b_panel.to(cfg.accum_dtype))
 
 
@@ -427,8 +430,9 @@ def _exec_stationary(a_loc, b_loc, plan):
     ``sched.taskgraph._emit_stationary`` prices it: each rank receives its
     shard less what its own tile already holds of it (the task graph's
     relay carries ``BCAST_FACTOR`` times the shard, the reference's
-    broadcast-as-allreduce); ``_exec_stationary.recv_bytes`` counts what
-    this rank received.  On the 1x1 grid nothing moves.
+    broadcast-as-allreduce); the recorder's ``grid.recv_bytes`` in the
+    span ``grid.exchange`` counts what this rank received.  On the 1x1
+    grid nothing moves.
     """
     cfg = plan.cfg
     grid = cfg.grid
@@ -443,11 +447,6 @@ def _exec_stationary(a_loc, b_loc, plan):
                        dtype=cfg.accum_dtype, device=b_loc.device)
     _local_dot(a_rel, b_loc, part, cfg)
     return grid.reduce_scatter(part, cfg.row_axis, dim=0)
-
-
-#: bytes this rank received in stationary re-layouts (a plain integer; set
-#: it to 0 to start a count)
-_exec_stationary.recv_bytes = 0
 
 
 def _k_shard(x_loc, cfg, *, k_dim: int) -> torch.Tensor:
@@ -500,13 +499,14 @@ def _k_shard(x_loc, cfg, *, k_dim: int) -> torch.Tensor:
             if lo < hi and peer != grid.rank:
                 sends.append((peer, x_loc.narrow(k_dim, lo - me_k * k_tile,
                                                  hi - lo)))
-    _exec_stationary.recv_bytes += grid.exchange(sends, recvs)
+    grid.exchange(sends, recvs)
     for dest, (_, buf) in zip(places, recvs):
         dest.copy_(buf)
     return out
 
 
-def _exec_sparse_bsmm(a_loc, b_loc, cols_loc, plan, *, cols_dev=None):
+def _exec_sparse_bsmm(a_loc, b_loc, cols_loc, plan, *, blocks,
+                      cols_dev=None):
     """Per-device block-sparse rank-k update through the BSMM kernel.
 
     Gathers the globally-live panels (same broadcast traffic as the DAG
@@ -515,15 +515,19 @@ def _exec_sparse_bsmm(a_loc, b_loc, cols_loc, plan, *, cols_dev=None):
     checked on the host by ``bsmm_cols``; ``cols_dev`` is its copy on the
     operands' device): blocks dead for this grid row/column are never
     loaded nor multiplied, so local FLOPs follow the per-device fill-in
-    the planner computed.
+    the planner computed.  ``blocks`` is ``_bsmm_blocks``' count, added
+    to the recorder's counters.
     """
     from repro_torch.kernels.ops import bsmm_cols
 
     cfg = plan.cfg
-    a_parts, b_parts = _bcast_live_panels(a_loc, b_loc, plan)
-    a_g = torch.cat(a_parts, dim=1)  # (m_loc, L*kb)
-    b_g = torch.cat(b_parts, dim=0)  # (L*kb, n_loc)
-    del a_parts, b_parts
+    with span("exec.panels", device=a_loc.device):
+        a_parts, b_parts = _bcast_live_panels(a_loc, b_loc, plan)
+        a_g = torch.cat(a_parts, dim=1)  # (m_loc, L*kb)
+        b_g = torch.cat(b_parts, dim=0)  # (L*kb, n_loc)
+        del a_parts, b_parts
+    count("bsmm.blocks_multiplied", blocks[0])
+    count("bsmm.blocks_useful", blocks[1])
     bm, bk, bn = plan.local_block
     return bsmm_cols(
         a_g, b_g, cols_loc, bm=bm, bk=bk, bn=bn, out_dtype=cfg.accum_dtype,
@@ -804,16 +808,18 @@ def _exec_ranksparse_grouped(u_loc, v_loc, b_loc, plan, *, r_pad: int):
     for i0 in range(0, mb_loc, step):
         i1 = min(i0 + step, mb_loc)
         rows = i1 - i0
-        # tokens ordered (block row, panel, rank): tile (i, l) is panel l
-        x = torch.stack([v3[i0:i1] for v3 in v_parts], dim=1)
-        y = kops.grouped_gemm(
-            x.reshape(rows * live * r_pad, bk), w,
-            tile_expert[:rows * live], bt=r_pad, out_dtype=acc,
-        )
-        u_c = torch.cat([u3[i0:i1] for u3 in u_parts], dim=2).to(acc)
-        c[i0 * bm:i1 * bm] += torch.bmm(
-            u_c, y.view(rows, live * r_pad, n_loc)
-        ).reshape(-1, n_loc)
+        with span("rank.stage1", device=c.device):
+            # tokens ordered (block row, panel, rank): tile (i, l) is panel l
+            x = torch.stack([v3[i0:i1] for v3 in v_parts], dim=1)
+            y = kops.grouped_gemm(
+                x.reshape(rows * live * r_pad, bk), w,
+                tile_expert[:rows * live], bt=r_pad, out_dtype=acc,
+            )
+        with span("rank.stage2", device=c.device):
+            u_c = torch.cat([u3[i0:i1] for u3 in u_parts], dim=2).to(acc)
+            c[i0 * bm:i1 * bm] += torch.bmm(
+                u_c, y.view(rows, live * r_pad, n_loc)
+            ).reshape(-1, n_loc)
         del x, y  # the next chunk's buffers are not allocated beside these
     return c
 
@@ -862,7 +868,8 @@ def _cached_executable(key: tuple, build: Callable) -> Callable:
     fn = _EXEC_CACHE.get(key)
     if fn is None:
         _EXEC_STATS["misses"] += 1
-        fn = build()
+        with span("exec.build"):
+            fn = build()
         _EXEC_CACHE[key] = fn
     else:
         _EXEC_STATS["hits"] += 1
@@ -938,26 +945,30 @@ def execute_plan(
     _check_plan_operands(a_loc, b_loc, plan)
     plan.cfg.grid.check_world()
     out_dtype = out_dtype or a_loc.dtype
-    if not compiled:
-        return _run_plan(a_loc, b_loc, plan, out_dtype, _plan_constants(
-            plan, a_loc.shape, b_loc.shape, b_loc.device
-        ))
-    key = (
-        "plan", plan.digest(), plan.local_impl, plan.resolve_lookahead(),
-        str(a_loc.dtype), str(b_loc.dtype), str(out_dtype),
-    )
-    program = _cached_executable(
-        key, lambda: _count_build(_Program(plan, out_dtype, factors=False))
-    )
-    return program(a_loc, b_loc)
+    with span("exec.dispatch", device=b_loc.device):
+        if not compiled:
+            return _run_plan(a_loc, b_loc, plan, out_dtype, _plan_constants(
+                plan, a_loc.shape, b_loc.shape, b_loc.device
+            ))
+        key = (
+            "plan", plan.digest(), plan.local_impl, plan.resolve_lookahead(),
+            str(a_loc.dtype), str(b_loc.dtype), str(out_dtype),
+        )
+        program = _cached_executable(
+            key,
+            lambda: _count_build(_Program(plan, out_dtype, factors=False)),
+        )
+        return program(a_loc, b_loc)
 
 
+@spanned("exec.constants")
 def _plan_constants(plan, a_shape, b_shape, device, *,
                     factors: bool = False) -> dict:
     """What an execution of ``plan`` derives from the plan alone, on
     ``device``: the block-mask selectors of this rank's operand tiles (A's,
     or with ``factors`` U's, of ``a_shape``, and B's) and of C, and
-    ``bsmm``'s column map of this rank."""
+    ``bsmm``'s column map of this rank with its count of block products
+    (``_bsmm_blocks``)."""
     cfg = plan.cfg
     row = cfg.grid.axis_index(cfg.row_axis)
     col = cfg.grid.axis_index(cfg.col_axis)
@@ -989,7 +1000,40 @@ def _plan_constants(plan, a_shape, b_shape, device, *,
         out["cols"] = torch.as_tensor(
             np.asarray(plan.local_cols[row, col], np.int32), device=device
         )
+        out["blocks"] = _bsmm_blocks(plan, row, col, n_loc)
     return out
+
+
+def _bsmm_blocks(plan, row: int, col: int, n_loc: int) -> tuple[int, int]:
+    """The block products ``bsmm`` runs on rank ``(row, col)``, and those
+    of them whose block of B is live: ``(multiplied, useful)``.
+
+    The kernel multiplies each live entry of the rank's column map (A's
+    block row ``i``, gathered panel ``l``) by every one of the
+    ``n_loc / bn`` column tiles of the gathered B; such a product is
+    useful when the ``(kb_width, bn)`` block of B it reads meets a live
+    block of ``plan.b_mask``."""
+    cols = np.asarray(plan.local_cols[row, col])
+    _, width, bn = plan.local_block
+    tiles = -(-n_loc // bn)
+    entries = cols[np.cumprod(cols >= 0, axis=-1).astype(bool)]
+    per_panel = np.bincount(entries, minlength=len(plan.live_panels))
+    multiplied = int(per_panel.sum()) * tiles
+    if plan.b_mask is None:
+        return multiplied, multiplied
+    b = np.asarray(plan.b_mask, bool)
+    rb, cb = plan.k_pad // b.shape[0], plan.n_pad // b.shape[1]
+    # live blocks of B in rows [r0, r1) and columns [c0, c1) of its mask,
+    # by the summed-area table
+    area = np.zeros((b.shape[0] + 1, b.shape[1] + 1), np.int64)
+    area[1:, 1:] = b.cumsum(0).cumsum(1)
+    k0 = np.asarray(plan.live_panels) * width
+    n0 = col * n_loc + np.arange(tiles) * bn
+    n1 = np.minimum(n0 + bn, (col + 1) * n_loc)
+    r0, r1 = (k0 // rb)[:, None], (-(-(k0 + width) // rb))[:, None]
+    c0, c1 = n0 // cb, -(-n1 // cb)
+    live = (area[r1, c1] - area[r0, c1] - area[r1, c0] + area[r0, c0]) > 0
+    return multiplied, int(per_panel @ live.sum(axis=1))
 
 
 def _run_plan(a_loc, b_loc, plan, out_dtype, consts) -> torch.Tensor:
@@ -999,14 +1043,17 @@ def _run_plan(a_loc, b_loc, plan, out_dtype, consts) -> torch.Tensor:
     col = cfg.grid.axis_index(cfg.col_axis)
     if "a" in consts:
         # Zero masked blocks so padded/garbage data cannot contribute.
-        a_loc = _apply_block_mask(a_loc, plan.a_mask, keep=consts["a"])
+        with span("exec.mask", device=a_loc.device, operand="a"):
+            a_loc = _apply_block_mask(a_loc, plan.a_mask, keep=consts["a"])
     if "b" in consts:
-        b_loc = _apply_block_mask(b_loc, plan.b_mask, keep=consts["b"])
+        with span("exec.mask", device=b_loc.device, operand="b"):
+            b_loc = _apply_block_mask(b_loc, plan.b_mask, keep=consts["b"])
     if plan.stationarity != "C":
         c = _exec_stationary(a_loc, b_loc, plan)
     elif plan.local_impl == "bsmm":
         c = _exec_sparse_bsmm(a_loc, b_loc, plan.local_cols[row, col], plan,
-                              cols_dev=consts["cols"])
+                              cols_dev=consts["cols"],
+                              blocks=consts["blocks"])
     elif plan.local_impl in ("masked", "ranksparse"):
         # Rank plans given dense-stored operands run the masked DAG, as in
         # the reference: without factors there is nothing rank-sized to
@@ -1045,23 +1092,24 @@ def rank_operands(a_ranks, plan) -> tuple[np.ndarray, np.ndarray]:
     cached = a_ranks.__dict__.get(cache_key)
     if cached is not None:
         return cached
-    bm, bk = a_ranks.bm, a_ranks.bk
-    r_pad = a_ranks.r_pad
-    csr = a_ranks.csr
-    m_blk_p = plan.m_pad // bm
-    k_steps = plan.k_steps
-    u_all = np.zeros((plan.m_pad, k_steps * r_pad), np.float32)
-    v_all = np.zeros((m_blk_p * r_pad, plan.k_pad), np.float32)
-    for i in range(csr.m_blocks):
-        lo, hi = csr.row_ptr[i], csr.row_ptr[i + 1]
-        for s in range(lo, hi):
-            kk = int(csr.col_idx[s])
-            u_all[i * bm:(i + 1) * bm, kk * r_pad:(kk + 1) * r_pad] = (
-                a_ranks.u[s]
-            )
-            v_all[i * r_pad:(i + 1) * r_pad, kk * bk:(kk + 1) * bk] = (
-                a_ranks.v[s]
-            )
+    with span("rank.layout"):
+        bm, bk = a_ranks.bm, a_ranks.bk
+        r_pad = a_ranks.r_pad
+        csr = a_ranks.csr
+        m_blk_p = plan.m_pad // bm
+        k_steps = plan.k_steps
+        u_all = np.zeros((plan.m_pad, k_steps * r_pad), np.float32)
+        v_all = np.zeros((m_blk_p * r_pad, plan.k_pad), np.float32)
+        for i in range(csr.m_blocks):
+            lo, hi = csr.row_ptr[i], csr.row_ptr[i + 1]
+            for s in range(lo, hi):
+                kk = int(csr.col_idx[s])
+                u_all[i * bm:(i + 1) * bm, kk * r_pad:(kk + 1) * r_pad] = (
+                    a_ranks.u[s]
+                )
+                v_all[i * r_pad:(i + 1) * r_pad, kk * bk:(kk + 1) * bk] = (
+                    a_ranks.v[s]
+                )
     a_ranks.__dict__[cache_key] = (u_all, v_all)
     return u_all, v_all
 
@@ -1094,19 +1142,21 @@ def execute_rank_plan(
     _check_rank_operands(u_loc, v_loc, b_loc, plan)
     plan.cfg.grid.check_world()
     out_dtype = out_dtype or b_loc.dtype
-    if not compiled:
-        return _run_rank_plan(u_loc, v_loc, b_loc, plan, out_dtype,
-                              _plan_constants(plan, u_loc.shape, b_loc.shape,
-                                              b_loc.device, factors=True))
-    key = (
-        "rank", plan.digest(), plan.resolve_lookahead(),
-        tuple(u_loc.shape), tuple(v_loc.shape), str(u_loc.dtype),
-        str(v_loc.dtype), str(b_loc.dtype), str(out_dtype),
-    )
-    program = _cached_executable(
-        key, lambda: _count_build(_Program(plan, out_dtype, factors=True))
-    )
-    return program(u_loc, v_loc, b_loc)
+    with span("exec.dispatch", device=b_loc.device):
+        if not compiled:
+            return _run_rank_plan(
+                u_loc, v_loc, b_loc, plan, out_dtype,
+                _plan_constants(plan, u_loc.shape, b_loc.shape, b_loc.device,
+                                factors=True))
+        key = (
+            "rank", plan.digest(), plan.resolve_lookahead(),
+            tuple(u_loc.shape), tuple(v_loc.shape), str(u_loc.dtype),
+            str(v_loc.dtype), str(b_loc.dtype), str(out_dtype),
+        )
+        program = _cached_executable(
+            key, lambda: _count_build(_Program(plan, out_dtype, factors=True))
+        )
+        return program(u_loc, v_loc, b_loc)
 
 
 def _run_rank_plan(u_loc, v_loc, b_loc, plan, out_dtype, consts):
@@ -1116,7 +1166,8 @@ def _run_rank_plan(u_loc, v_loc, b_loc, plan, out_dtype, consts):
     # a rank plan carries B's mask even when every block is live; masking
     # then only copies B (4 GiB at N = 32768), so _plan_constants skips it
     if "b" in consts:
-        b_loc = _apply_block_mask(b_loc, plan.b_mask, keep=consts["b"])
+        with span("exec.mask", device=b_loc.device, operand="b"):
+            b_loc = _apply_block_mask(b_loc, plan.b_mask, keep=consts["b"])
     dtype = torch.promote_types(u_loc.dtype, b_loc.dtype)
     u_loc, v_loc, b_loc = u_loc.to(dtype), v_loc.to(dtype), b_loc.to(dtype)
     if plan.comm_mode == "pull":
@@ -1166,7 +1217,8 @@ def _filter_c(c_loc: torch.Tensor, plan, consts: dict) -> torch.Tensor:
     execution can never populate blocks the output structure excludes."""
     if "c" not in consts:
         return c_loc
-    return _apply_block_mask(c_loc, plan.c_mask, keep=consts["c"])
+    with span("exec.mask", device=c_loc.device, operand="c"):
+        return _apply_block_mask(c_loc, plan.c_mask, keep=consts["c"])
 
 
 def _block_keep(mask, shape, block, origin, device):

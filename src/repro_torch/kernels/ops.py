@@ -124,7 +124,7 @@ def tiled_matmul(
     run = _route(a, tiled_matmul_cuda, tiled_matmul_plain, _tiled_matmul_meta)
     m, k = a.shape
     n = b.shape[1]
-    with kernel_call("tiled_matmul") as call:
+    with kernel_call("tiled_matmul", a.device) as call:
         if run is not tiled_matmul_plain:  # the kernel masks ragged edges
             c = run(a, b, out_dtype)
         else:
@@ -163,7 +163,7 @@ def bsmm_cols(
     # the blocks the kernel multiplies: each row's prefix of valid entries
     valid = (cols >= 0) & (cols < k_blocks)
     live = int(np.cumprod(valid, axis=-1).sum()) if cols.size else 0
-    with kernel_call("bsmm") as call:
+    with kernel_call("bsmm", a.device) as call:
         c = run(a, b, device_cols, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
         call.report(2.0 * live * bm * bk * b.shape[1], (a, b, device_cols),
                     (c,))
@@ -229,7 +229,7 @@ def grouped_gemm(
         raise ValueError(
             f"tile_expert names an expert outside [0, {w.shape[0]})"
         )
-    with kernel_call("grouped_gemm") as call:
+    with kernel_call("grouped_gemm", x.device) as call:
         y = run(x, w, te, bt=bt, out_dtype=out_dtype)
         call.report(2.0 * t * x.shape[1] * w.shape[2], (x, w), (y,),
                     extra_bytes=te.nbytes)
@@ -309,7 +309,7 @@ def flash_attention(
     run = _route(q, flash_attention_cuda, flash_attention_plain,
                  _flash_attention_meta)
     b, h, sq, dh = q.shape
-    with kernel_call("flash_attention") as call:
+    with kernel_call("flash_attention", q.device) as call:
         o = run(q, k, v, causal=causal, window=window, scale=scale)
         call.report(4.0 * b * h * sq * k.shape[2] * dh, (q, k, v), (o,))
     return o

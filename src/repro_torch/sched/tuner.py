@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+from repro_torch.analysis.spans import spanned
 from repro_torch.sched.simulator import (
     DEFAULT_MACHINE,
     MachineModel,
@@ -74,6 +75,7 @@ def _sim_summary(sim) -> dict:
     }
 
 
+@spanned("plan.tune")
 def tune_plan(
     plan,
     *,

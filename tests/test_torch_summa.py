@@ -293,6 +293,7 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+from repro_torch.analysis import spans
 from repro_torch.core import DistributedMatmul, Grid
 from repro_torch.core import summa
 
@@ -327,11 +328,22 @@ for name, mm_kw, call_kw, masked in json.loads(spec):
     mm = DistributedMatmul(grid, k_blocks=8, **mm_kw)
     kw = dict(call_kw, **(masks if masked else {}))
     plan = mm.plan(64, 128, 96, **kw)
-    summa._exec_stationary.recv_bytes = 0
-    c = mm(case["a"], case["b"], **kw)
+    with spans.recording():
+        c = mm(case["a"], case["b"], **kw)
+        recs = spans.records()
+    # what the stationary re-layout received, and the spans of the panel
+    # broadcasts and of the waits for them (not the re-layout's own)
+    exchanges = {r.id for r in recs if r.name == "grid.exchange"}
+    mine = [sum(r.counters.get("grid.recv_bytes", 0) for r in recs
+                if r.id in exchanges),
+            sum(r.name == "grid.broadcast" for r in recs),
+            sum(r.name == "grid.wait" and r.parent not in exchanges
+                for r in recs)]
     recv = [None] * 4
-    dist.all_gather_object(recv, summa._exec_stationary.recv_bytes)
-    out[name + "-recv"] = np.array(recv)
+    dist.all_gather_object(recv, mine)
+    out[name + "-recv"] = np.array([r[0] for r in recv])
+    out[name + "-spans"] = np.array([r[1:] for r in recv])
+    out[name + "-steps"] = np.array([len(plan.live_panels), plan.k_steps])
     if plan.stationarity != "C":
         new_k_shard, summa._k_shard = summa._k_shard, parent_k_shard
         out[name + "-parent"] = mm(case["a"], case["b"], **kw).numpy()
@@ -404,7 +416,11 @@ def test_2x2_gloo_grid_matches_oracle(tmp_path, family):
     (less the factor of the reference's broadcast-as-allreduce) less the
     part its own tile holds, masked or not (zero blocks travel, as in the
     reference's re-layout); C equals bitwise the C of the earlier
-    re-layout, which all-gathered the whole operand."""
+    re-layout, which all-gathered the whole operand.  Each rank records
+    (``analysis.spans``) two ``grid.broadcast`` and two ``grid.wait``
+    spans per panel it multiplies (every K step, or every live panel),
+    none on the all-gather and stationary routes, and reads the bytes
+    its re-layout received from ``grid.recv_bytes`` in ``grid.exchange``."""
     case = oracle_case("dense" if family == "dense" else "banded", seed=7)
     data = tmp_path / "case.npz"
     masks = {} if case["a_mask"] is None else dict(
@@ -449,6 +465,16 @@ def test_2x2_gloo_grid_matches_oracle(tmp_path, family):
             assert (out[name + "-recv"] < price).all(), name
         elif stationarity == "C":
             assert not out[name + "-recv"].any(), name
+        live, k_steps = out[name + "-steps"]
+        impl = str(out[name + "-impl"])
+        if stationarity != "C":
+            panels = 0
+        elif impl in ("bsmm", "masked", "ranksparse"):
+            panels = live
+        else:
+            panels = 0 if strategy == "allgather" else k_steps
+        assert (out[name + "-spans"] == 2 * panels).all(), (
+            name, out[name + "-spans"], panels)
     if family in ("dense", "banded"):
         want_impl = "dense" if family == "dense" else "bsmm"
         assert str(out["pallas-taskbased-impl"]) == want_impl
