@@ -401,7 +401,11 @@ from repro_torch.kernels.autotune import (  # noqa: E402
     bucket_key,
     set_autotune_cache,
 )
-from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain  # noqa: E402
+from repro_torch.kernels.bsmm import (  # noqa: E402
+    TILE_COLS,
+    bsmm_cuda,
+    bsmm_plain,
+)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     KERNEL_HEAD_DIMS,
     flash_attention_cuda,
@@ -703,7 +707,8 @@ def tiled_flops(m: int, k: int, n: int) -> float:
 
 
 def bsmm_flops(live_blocks: int, bm: int, bk: int, n: int) -> float:
-    """``bsmm``'s: each live block of A times its K panel of B."""
+    """``bsmm``'s: each live block of A times its K panel of B, ``n``
+    columns wide (a tile map's list: 256 columns)."""
     return 2.0 * live_blocks * bm * bk * n
 
 
@@ -907,17 +912,23 @@ def phase_kernels(sparse_plan, rank_plan, r_pad) -> dict:
             raise AssertionError("bsmm: empty block rows must give zero")
         compare(got, bsmm_plain(a, b, _cols(mask), bm=32, bk=32, bn=32), 128,
                 dtype, f"bsmm {dtype} empty rows")
-        # the main path's call: gathered live panels and the plan's CSR map
+        # the main path's call: gathered live panels, B's dead blocks
+        # zeroed, and the executor's map (a tile map: B's mask kills some
+        # products); then the same operands over A's map alone, the walk
+        # of the callers without a B map
         a_g, b_g, cols, (bm, bk, bn) = _bsmm_operands(sparse_plan, dtype, gen)
-        got = bsmm_cuda(a_g, b_g, cols, bm=bm, bk=bk, bn=bn)
-        torch.cuda.synchronize()
-        err = compare(got, bsmm_plain(a_g, b_g, cols, bm=bm, bk=bk, bn=bn),
-                      a_g.shape[1], dtype,
-                      f"bsmm {dtype} main ({N},{a_g.shape[1]}) blocks "
-                      f"({bm},{bk}) S={cols.shape[1]}")
-        if dtype == torch.float32:
-            errs["bsmm"] = err
-        del a_g, b_g, got
+        a_map = torch.as_tensor(sparse_plan.local_cols[0, 0], device=DEVICE)
+        for walk, name in ((cols, "main"), (a_map, "A's map")):
+            got = bsmm_cuda(a_g, b_g, walk, bm=bm, bk=bk, bn=bn)
+            torch.cuda.synchronize()
+            err = compare(got, bsmm_plain(a_g, b_g, walk, bm=bm, bk=bk, bn=bn),
+                          a_g.shape[1], dtype,
+                          f"bsmm {dtype} {name} ({N},{a_g.shape[1]}) blocks "
+                          f"({bm},{bk}) map {tuple(walk.shape)}")
+            if dtype == torch.float32 and name == "main":
+                errs["bsmm"] = err
+            del got
+        del a_g, b_g
         torch.cuda.empty_cache()
 
         # the reference's shapes, tiles of 8 and 24 rows, a ragged F
@@ -992,14 +1003,56 @@ def cols_mask(cols: torch.Tensor, k_blocks: int) -> torch.Tensor:
     return mask[:, :k_blocks].float()
 
 
-def _bsmm_operands(plan, dtype, gen):
+def _bsmm_operands(plan, dtype, gen, map_of=None):
     """Random operands of the shapes ``_exec_sparse_bsmm`` hands the kernel
-    for ``plan`` on the 1x1 grid."""
+    for ``plan`` on the 1x1 grid, B's dead blocks zeroed as the executor
+    zeroes them, and the executor's map (``bsmm_walk``), or ``map_of``."""
     width = len(plan.live_panels) * plan.kb_width
     a_g = randn((plan.m_pad, width), dtype, gen)
-    b_g = randn((width, plan.n_pad), dtype, gen)
-    cols = torch.as_tensor(plan.local_cols[0, 0], device=DEVICE)
-    return a_g, b_g, cols, plan.local_block
+    b_g = gathered_b_keep(plan, randn((width, plan.n_pad), dtype, gen))
+    walk = bsmm_walk(plan)[0] if map_of is None else map_of
+    return a_g, b_g, torch.as_tensor(walk, device=DEVICE), plan.local_block
+
+
+def gathered_b_keep(plan, b_g: torch.Tensor) -> torch.Tensor:
+    """``b_g``, B's live K panels gathered (rows of ``plan.live_panels``
+    in order), with the blocks of ``plan.b_mask`` that are dead zeroed in
+    place, row by gathered row (built here from the mask)."""
+    if plan.b_mask is None:
+        return b_g
+    mask = np.asarray(plan.b_mask, bool)
+    rb, cb = plan.k_pad // mask.shape[0], plan.n_pad // mask.shape[1]
+    w = plan.kb_width
+    rows = (np.repeat(np.asarray(plan.live_panels) * w, w)
+            + np.tile(np.arange(w), len(plan.live_panels))) // rb
+    for r in range(0, b_g.shape[0], 4096):  # row chunks bound the keep
+        keep = torch.as_tensor(mask[rows[r:r + 4096]], device=b_g.device)
+        b_g[r:r + 4096].mul_(keep.repeat_interleave(cb, 1)[:, :b_g.shape[1]])
+    return b_g
+
+
+def bsmm_walk(plan) -> tuple[np.ndarray, float, int]:
+    """The map the executor hands ``bsmm`` for ``plan`` on the 1x1 grid
+    (``core.summa._bsmm_walk``: A's CSR map, one list a block row, or
+    where B's mask kills some of its products one list a block row and
+    256-column tile), with the FLOP the kernel multiplies over it and the
+    blocks of A it reads, both counted here from the map."""
+    walk, _ = core_summa._bsmm_walk(plan, 0, 0, plan.n_pad)
+    bm, bk, _ = plan.local_block
+    k_blocks = len(plan.live_panels) * plan.kb_width // bk
+    listed = np.where(np.logical_and.accumulate(walk >= 0, axis=-1), walk,
+                      k_blocks)
+    rows = listed.reshape(listed.shape[0], -1)
+    seen = np.zeros((rows.shape[0], k_blocks + 1), bool)
+    seen[np.arange(rows.shape[0])[:, None], rows] = True
+    a_blocks = int(seen[:, :k_blocks].sum())
+    if walk.ndim == 2:
+        return walk, bsmm_flops(a_blocks, bm, bk, plan.n_pad), a_blocks
+    per_tile = (listed < k_blocks).sum(axis=(0, 2))
+    flops = sum(bsmm_flops(int(c), bm, bk,
+                           min(TILE_COLS, plan.n_pad - t * TILE_COLS))
+                for t, c in enumerate(per_tile))
+    return walk, flops, a_blocks
 
 
 COUNTERS = {"tiled_matmul": tiled_matmul_cuda, "bsmm": bsmm_cuda,
@@ -1521,7 +1574,7 @@ def hold_plan_kernel(plan, r_pad, what: str, gen) -> str:
         compare(got, bsmm_plain(a, b, cols, bm=bm, bk=bk, bn=bn), a.shape[1],
                 torch.float32, f"{what}: bsmm ({plan.m_pad},{a.shape[1]})x"
                 f"({a.shape[1]},{plan.n_pad}) blocks ({bm},{bk}) "
-                f"S={cols.shape[1]} vs plain")
+                f"map {tuple(cols.shape)} vs plain")
     elif kernel == "grouped_gemm":
         x, w, te = _grouped_operands(plan, r_pad, torch.float32, gen)
         got = grouped_gemm_cuda(x, w, te, bt=r_pad)
@@ -1626,19 +1679,20 @@ def phase_contract_ladder() -> dict:
     # the kernel at the ladder's call, against its plain version, and alone
     hold_plan_kernel(plan, None, "ladder", gen)
     a_g, b_g, cols, (bm, bk, bn) = _bsmm_operands(plan, torch.float32, gen)
-    live_blocks = int((plan.local_cols[0, 0] >= 0).sum())
-    flops = bsmm_flops(live_blocks, bm, bk, n)
+    _, flops, live_blocks = bsmm_walk(plan)
     nbytes = 4.0 * (live_blocks * bm * bk + b_g.numel() + m * n)
     bsmm_ms = cuda_ms(lambda: bsmm_cuda(a_g, b_g, cols, bm=bm, bk=bk, bn=bn),
                       3)
     # the library call: torch.matmul of A with its dead blocks zeroed here
-    # (from the CSR map) times the same B
-    a_z = a_g * cols_mask(cols, a_g.shape[1] // bk).repeat_interleave(
+    # (from A's CSR map) times the same B
+    a_cols = torch.as_tensor(plan.local_cols[0, 0], device=DEVICE)
+    a_z = a_g * cols_mask(a_cols, a_g.shape[1] // bk).repeat_interleave(
         bm, 0).repeat_interleave(bk, 1)
     lib_ms = cuda_ms(lambda: torch.matmul(a_z, b_g), 3)
     bound_ms, by, bound_text = split_bound(flops, nbytes)
     log(f"  bsmm at the ladder's call ({m},{a_g.shape[1]})x({a_g.shape[1]},"
-        f"{n}), {live_blocks} live blocks: {bsmm_ms:.3f} ms "
+        f"{n}), {live_blocks} live blocks, map {tuple(cols.shape)}: "
+        f"{bsmm_ms:.3f} ms "
         f"({flops / bsmm_ms / 1e9:.2f} TFLOP/s of fp32 work), torch.matmul "
         f"(dense, masked operands) {lib_ms:.3f} ms, {bound_text}")
     del a_g, b_g, a_z
@@ -2157,19 +2211,20 @@ def phase_times(a, b, sparse_plan, rank_plan, r_pad) -> dict:
 def time_bsmm(plan, a, b, what: str) -> dict:
     """A main-path ``bsmm`` call of ``plan`` on the 1x1 grid, timed on its
     own operands: the masked operands' live panels, gathered as the
-    executor gathers them, and the plan's CSR map; beside its plain
-    version, ``torch.matmul`` of the same gathered (masked) operands and
-    the bound (``split_bound``)."""
+    executor gathers them, and the executor's map (``bsmm_walk``); beside
+    its plain version, ``torch.matmul`` of the same gathered (masked)
+    operands and the bound at the map's FLOP (``split_bound``).  Where the
+    executor's map is a tile map, A's map alone is timed on the same
+    operands too, with its bound, as an extra line (``a_map``)."""
     w = plan.kb_width
     idx = torch.cat([torch.arange(kk * w, (kk + 1) * w, device=DEVICE)
                      for kk in plan.live_panels])
     a_g = kron_mask(a, plan.a_mask)[:, idx].contiguous()
     b_g = kron_mask(b, plan.b_mask)[idx].contiguous()
-    cols = torch.as_tensor(plan.local_cols[0, 0], device=DEVICE)
+    walk, flops, live_blocks = bsmm_walk(plan)
+    cols = torch.as_tensor(walk, device=DEVICE)
     bm, bk, bn = plan.local_block
     m, n = a.shape[0], b.shape[1]
-    live_blocks = int((plan.local_cols[0, 0] >= 0).sum())
-    flops = bsmm_flops(live_blocks, bm, bk, n)
     nbytes = 4.0 * (live_blocks * bm * bk + b_g.numel() + m * n) + cols.numel() * 4
     ms = cuda_ms(lambda: bsmm_cuda(a_g, b_g, cols, bm=bm, bk=bk, bn=bn), 3)
     plain_ms = cuda_ms(
@@ -2179,13 +2234,26 @@ def time_bsmm(plan, a, b, what: str) -> dict:
     bound_ms, by, bound_text = split_bound(flops, nbytes)
     log(f"  {what} ({m},{a_g.shape[1]}) live blocks {live_blocks} "
         f"({live_blocks / cols.shape[0] / (a_g.shape[1] // bk):.4f} of A's), "
-        f"S={cols.shape[1]}: kernel {ms:.3f} ms ({flops / ms / 1e9:.2f} "
-        f"TFLOP/s of fp32 work), plain {plain_ms:.3f} ms, torch.matmul "
-        f"(dense, masked operands) {lib_ms:.3f} ms, {bound_text}")
+        f"map {tuple(cols.shape)}, FLOP {flops:.17g}: kernel {ms:.3f} ms "
+        f"({flops / ms / 1e9:.2f} TFLOP/s of fp32 work), plain "
+        f"{plain_ms:.3f} ms, torch.matmul (dense, masked operands) "
+        f"{lib_ms:.3f} ms, {bound_text}")
+    out = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=by, flops=flops,
+               live_blocks=live_blocks)
+    if walk.ndim == 3:
+        a_cols = torch.as_tensor(plan.local_cols[0, 0], device=DEVICE)
+        a_flops = bsmm_flops(live_blocks, bm, bk, n)
+        a_ms = cuda_ms(lambda: bsmm_cuda(a_g, b_g, a_cols, bm=bm, bk=bk,
+                                         bn=bn), 3)
+        a_bound, _, a_text = split_bound(a_flops, nbytes)
+        log(f"  {what}, A's map alone (the walk without a B map) "
+            f"{tuple(a_cols.shape)}, FLOP {a_flops:.17g}: kernel "
+            f"{a_ms:.3f} ms ({a_flops / a_ms / 1e9:.2f} TFLOP/s of fp32 "
+            f"work), {a_text}")
+        out["a_map"] = dict(ms=a_ms, bound_ms=a_bound, flops=a_flops)
     del a_g, b_g
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=by, flops=flops,
-                live_blocks=live_blocks)
+    return out
 
 
 def _time_grouped(plan, r_pad, b) -> dict:
@@ -4908,9 +4976,15 @@ def dry_bsmm(a_mask, b_mask) -> dict:
          f"{tiled_flops(N, BLOCK, N):.17g}")
     plan = mm.plan(N, N, N, a_mask=a_mask, b_mask=b_mask)
     bm, bk, _ = plan.local_block
-    live = int((plan.local_cols[0, 0] >= 0).sum())
-    return hold_dry(what, card, (mwc, mmem),
-                    {"bsmm": bsmm_flops(live, bm, bk, N)})
+    _, flops, _ = bsmm_walk(plan)
+    # B's mask blocks are the kernel's 256-column tiles, so the tile map
+    # multiplies each live block triple of the masks once
+    triples = int((a_mask.astype(np.int64) @ b_mask.astype(np.int64)).sum())
+    hold(BLOCK == TILE_COLS and flops == bsmm_flops(triples, bm, bk,
+                                                    TILE_COLS),
+         f"{what}: phase 7's figure {flops:.17g} == the masks' live block "
+         f"triples {triples} x 2 bm bk {TILE_COLS}")
+    return hold_dry(what, card, (mwc, mmem), {"bsmm": flops})
 
 
 def phase_dryrun(a_mask, b_mask) -> dict:

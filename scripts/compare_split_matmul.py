@@ -22,9 +22,13 @@ three rounds; the least time is kept) at the main path's launch, fp32:
 
 - ``tiled``: one SUMMA panel product, A a (32768 x 256) column slice of
   a 32768² shard (row stride 32768) times B (256 x 32768);
-- ``bsmm``: the block-sparse product at block fill 0.3 as the planner
-  hands it over: A's 52 live K-panels gathered (32768 x 13312), the
-  plan's column map (4916 live 256 x 256 blocks), B (13312 x 32768);
+- ``bsmm``: the block-sparse product with A and B at block fill 0.3 as
+  the planner hands it over: A's 128 live K-panels gathered (32768 x
+  32768), B's dead blocks zeroed (as the executor masks them), once
+  with the plan's column map of A alone (4916 live 256 x 256 blocks,
+  S = 52) and once with the map the executor walks, a list a block row
+  and 256-column tile (``core.summa._bsmm_walk``: A's blocks whose block
+  of B is live, 188,897 of them; ``tiles`` after the variant's name);
 
 beside ``torch.matmul`` over the same operands (for ``bsmm`` the dense
 product of the gathered operands) and, where ``source`` runs, beside the
@@ -55,6 +59,7 @@ from repro_torch.core.sparsity import (  # noqa: E402
     block_csr_from_mask,
     random_block_mask,
 )
+from repro_torch.core import summa  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.bsmm import bsmm_cuda  # noqa: E402
 from repro_torch.kernels.tiled_matmul import tiled_matmul_cuda  # noqa: E402
@@ -168,8 +173,9 @@ def run_bsmm(lib, a, b, cols, bm, bk) -> torch.Tensor:
     c = torch.empty((m, n), dtype=torch.float32, device="cuda")
     err = lib.bsmm_launch(
         a.data_ptr(), b.data_ptr(), cols.data_ptr(), c.data_ptr(), m, n,
-        a.stride(0), b.stride(0), cols.shape[1], k // bk, bm, bk,
-        _build.dtype_code(a.dtype), _build.dtype_code(torch.float32),
+        a.stride(0), b.stride(0), cols.shape[-1], k // bk, bm, bk,
+        int(cols.dim() == 3), _build.dtype_code(a.dtype),
+        _build.dtype_code(torch.float32),
         _build.stream_handle(a.device))
     if err:
         raise RuntimeError(f"bsmm_launch: CUDA error {err}")
@@ -271,34 +277,54 @@ def time_bsmm(libs, gen, failed) -> None:
     width = len(plan.live_panels) * plan.kb_width
     cols_np = plan.local_cols[0, 0]
     cols = torch.as_tensor(cols_np, device="cuda")
+    tiles_np, (_, useful) = summa._bsmm_walk(plan, 0, 0, plan.n_pad)
+    tiles = torch.as_tensor(tiles_np, device="cuda")
     a = torch.randn((plan.m_pad, width), generator=gen, device="cuda")
     b = torch.randn((width, plan.n_pad), generator=gen, device="cuda")
+    b_keep = torch.as_tensor(plan.b_mask[list(plan.live_panels)],
+                             device="cuda")
+    b *= b_keep.repeat_interleave(bk, 0).repeat_interleave(
+        plan.n_pad // plan.b_mask.shape[1], 1)
+    del b_keep
     live = int((cols_np >= 0).sum())
     print(f"bsmm main: A ({plan.m_pad},{width}), blocks ({bm},{bk}), "
-          f"S={cols_np.shape[1]}, {live} live blocks", flush=True)
+          f"S={cols_np.shape[1]}, {live} live blocks; tile map "
+          f"{tuple(tiles_np.shape)}, {useful} useful block products",
+          flush=True)
+    maps = {"": cols, "tiles": tiles}
     if "source" in libs:
         mask = np.zeros((plan.m_pad // bm, width // bk), bool)
         rows = np.repeat(np.arange(mask.shape[0]), cols_np.shape[1])
         flat = cols_np.reshape(-1)
         mask[rows[flat >= 0], flat[flat >= 0]] = True
         want = _masked(a, mask, bm, bk).double() @ b.double()
-        ratio = worst_share(run_bsmm(libs["source"], a, b, cols, bm, bk),
-                            want, width, 1e-4)
-        print(f"  bsmm source at the main call: worst element {ratio:.4f} of "
-              f"the fp32 hold", flush=True)
-        if not ratio <= 1.0:
-            failed.append(("bsmm", "main"))
+        for label, m in maps.items():
+            ratio = worst_share(run_bsmm(libs["source"], a, b, m, bm, bk),
+                                want, width, 1e-4)
+            print(f"  bsmm source {label or 'A map'} at the main call: worst "
+                  f"element {ratio:.4f} of the fp32 hold", flush=True)
+            if not ratio <= 1.0:
+                failed.append(("bsmm", "main", label))
         del want
         torch.cuda.empty_cache()
-    fns = {name: (lambda lib=lib: run_bsmm(lib, a, b, cols, bm, bk))
-           for name, lib in libs.items()}
+    fns = {}
+    for name, lib in libs.items():
+        for label, m in maps.items():
+            fns[f"{name} {label}".strip()] = (
+                lambda lib=lib, m=m: run_bsmm(lib, a, b, m, bm, bk))
     if "source" in libs:
-        fns["wrapper"] = lambda: bsmm_cuda(a, b, cols, bm=bm, bk=bk, bn=bk)
+        for label, m in maps.items():
+            fns[f"wrapper {label}".strip()] = (
+                lambda m=m: bsmm_cuda(a, b, m, bm=bm, bk=bk, bn=bk))
     times = in_turns(fns, 2)
     lib_ms = ms(lambda: torch.matmul(a, b), 1)
-    flop = 2.0 * live * bm * bk * plan.n_pad
-    print("bsmm ms a launch (least of 6 in turns), fp32: " + ", ".join(
-              f"{name} {v:.4f} ms ({flop / v / 1e9:.1f} TFLOP/s)"
+    flop = {"": 2.0 * live * bm * bk * plan.n_pad,
+            "tiles": 2.0 * useful * bm * bk * 256}
+    print("bsmm ms a launch (least of 6 in turns), fp32; TFLOP/s of the "
+          "products each map lists: " + ", ".join(
+              f"{name} {v:.4f} ms "
+              f"({flop['tiles' if name.endswith('tiles') else ''] / v / 1e9:.1f}"
+              " TFLOP/s)"
               for name, v in times.items())
           + f", torch.matmul (dense, gathered operands) {lib_ms:.4f} ms",
           flush=True)

@@ -506,16 +506,19 @@ def _k_shard(x_loc, cfg, *, k_dim: int) -> torch.Tensor:
 
 
 def _exec_sparse_bsmm(a_loc, b_loc, cols_loc, plan, *, blocks,
-                      cols_dev=None):
+                      cols_dev=None, columns=None):
     """Per-device block-sparse rank-k update through the BSMM kernel.
 
     Gathers the globally-live panels (same broadcast traffic as the DAG
     executor), then runs ONE kernel over the gathered operands with this
-    rank's CSR column map (the planner's numpy ``plan.local_cols`` entry,
-    checked on the host by ``bsmm_cols``; ``cols_dev`` is its copy on the
-    operands' device): blocks dead for this grid row/column are never
-    loaded nor multiplied, so local FLOPs follow the per-device fill-in
-    the planner computed.  ``blocks`` is ``_bsmm_blocks``' count, added
+    rank's column map (``_bsmm_walk``'s: the planner's ``plan.local_cols``
+    entry, or where B's mask kills some of its products that map
+    intersected with B's, a list a 256-column tile; checked and counted on
+    the host by ``bsmm_cols``, unless the caller holds its copy on the
+    operands' device, ``cols_dev``, and its count, ``columns``):
+    blocks dead for this grid row/column, and blocks of B dead under a
+    tile, are never loaded nor multiplied, so local FLOPs follow the
+    useful block products.  ``blocks`` is ``_bsmm_walk``'s count, added
     to the recorder's counters.
     """
     from repro_torch.kernels.ops import bsmm_cols
@@ -531,7 +534,7 @@ def _exec_sparse_bsmm(a_loc, b_loc, cols_loc, plan, *, blocks,
     bm, bk, bn = plan.local_block
     return bsmm_cols(
         a_g, b_g, cols_loc, bm=bm, bk=bk, bn=bn, out_dtype=cfg.accum_dtype,
-        device_cols=cols_dev,
+        device_cols=cols_dev, columns=columns,
     )
 
 
@@ -967,8 +970,10 @@ def _plan_constants(plan, a_shape, b_shape, device, *,
     """What an execution of ``plan`` derives from the plan alone, on
     ``device``: the block-mask selectors of this rank's operand tiles (A's,
     or with ``factors`` U's, of ``a_shape``, and B's) and of C, and
-    ``bsmm``'s column map of this rank with its count of block products
-    (``_bsmm_blocks``)."""
+    ``bsmm``'s column map of this rank (``walk``, on the host; ``cols``, on
+    ``device``), checked and counted once (``columns``, from
+    ``kernels.ops.bsmm_columns``), with its count of block products
+    (``_bsmm_walk``)."""
     cfg = plan.cfg
     row = cfg.grid.axis_index(cfg.row_axis)
     col = cfg.grid.axis_index(cfg.col_axis)
@@ -997,30 +1002,37 @@ def _plan_constants(plan, a_shape, b_shape, device, *,
             (row * m_loc, col * n_loc), device,
         )
     if plan.local_impl == "bsmm" and not factors:
-        out["cols"] = torch.as_tensor(
-            np.asarray(plan.local_cols[row, col], np.int32), device=device
-        )
-        out["blocks"] = _bsmm_blocks(plan, row, col, n_loc)
+        from repro_torch.kernels.ops import bsmm_columns
+
+        out["walk"], out["blocks"] = _bsmm_walk(plan, row, col, n_loc)
+        out["cols"] = torch.as_tensor(out["walk"], device=device)
+        k_blocks = len(plan.live_panels) * plan.kb_width // plan.local_block[1]
+        out["columns"] = bsmm_columns(out["walk"], k_blocks, n_loc)
     return out
 
 
-def _bsmm_blocks(plan, row: int, col: int, n_loc: int) -> tuple[int, int]:
-    """The block products ``bsmm`` runs on rank ``(row, col)``, and those
-    of them whose block of B is live: ``(multiplied, useful)``.
+def _bsmm_walk(plan, row: int, col: int, n_loc: int):
+    """``bsmm``'s column map on rank ``(row, col)``, and its count of block
+    products: ``(map, (multiplied, useful))``.
 
-    The kernel multiplies each live entry of the rank's column map (A's
-    block row ``i``, gathered panel ``l``) by every one of the
-    ``n_loc / bn`` column tiles of the gathered B; such a product is
-    useful when the ``(kb_width, bn)`` block of B it reads meets a live
-    block of ``plan.b_mask``."""
-    cols = np.asarray(plan.local_cols[row, col])
-    _, width, bn = plan.local_block
-    tiles = -(-n_loc // bn)
-    entries = cols[np.cumprod(cols >= 0, axis=-1).astype(bool)]
-    per_panel = np.bincount(entries, minlength=len(plan.live_panels))
-    multiplied = int(per_panel.sum()) * tiles
+    A product is an entry of the rank's map (A's block row ``i``, gathered
+    panel ``l``) times one of the kernel's 256-column tiles of the gathered
+    B (``TILE_COLS``); it is useful when the ``(kb_width, 256)`` block of B
+    it reads meets a live block of ``plan.b_mask``.  Where some is not,
+    the map is the intersected one, (mb_loc, tiles, S'): each block row's
+    list for each tile keeps the useful entries, so the kernel multiplies
+    the useful products alone.  Where every product is useful (no B mask,
+    an all-live one, or one whose dead blocks no entry meets), the map is
+    the plan's ``local_cols`` entry, one list a block row."""
+    from repro_torch.kernels.bsmm import TILE_COLS, tile_lists
+
+    cols = np.asarray(plan.local_cols[row, col], np.int32)
+    width = plan.kb_width
+    tiles = -(-n_loc // TILE_COLS)
+    valid = np.logical_and.accumulate(cols >= 0, axis=-1)
+    multiplied = int(valid.sum()) * tiles
     if plan.b_mask is None:
-        return multiplied, multiplied
+        return cols, (multiplied, multiplied)
     b = np.asarray(plan.b_mask, bool)
     rb, cb = plan.k_pad // b.shape[0], plan.n_pad // b.shape[1]
     # live blocks of B in rows [r0, r1) and columns [c0, c1) of its mask,
@@ -1028,19 +1040,21 @@ def _bsmm_blocks(plan, row: int, col: int, n_loc: int) -> tuple[int, int]:
     area = np.zeros((b.shape[0] + 1, b.shape[1] + 1), np.int64)
     area[1:, 1:] = b.cumsum(0).cumsum(1)
     k0 = np.asarray(plan.live_panels) * width
-    n0 = col * n_loc + np.arange(tiles) * bn
-    n1 = np.minimum(n0 + bn, (col + 1) * n_loc)
+    n0 = col * n_loc + np.arange(tiles) * TILE_COLS
+    n1 = np.minimum(n0 + TILE_COLS, (col + 1) * n_loc)
     r0, r1 = (k0 // rb)[:, None], (-(-(k0 + width) // rb))[:, None]
     c0, c1 = n0 // cb, -(-n1 // cb)
     live = (area[r1, c1] - area[r0, c1] - area[r1, c0] + area[r0, c0]) > 0
-    return multiplied, int(per_panel @ live.sum(axis=1))
+    useful = int(live[cols[valid]].sum())
+    if useful == multiplied:
+        return cols, (multiplied, useful)
+    walk = tile_lists(cols, live)
+    return walk, (int((walk >= 0).sum()), useful)
 
 
 def _run_plan(a_loc, b_loc, plan, out_dtype, consts) -> torch.Tensor:
     """The plan interpreter (``execute_plan``'s body)."""
     cfg = plan.cfg
-    row = cfg.grid.axis_index(cfg.row_axis)
-    col = cfg.grid.axis_index(cfg.col_axis)
     if "a" in consts:
         # Zero masked blocks so padded/garbage data cannot contribute.
         with span("exec.mask", device=a_loc.device, operand="a"):
@@ -1051,8 +1065,9 @@ def _run_plan(a_loc, b_loc, plan, out_dtype, consts) -> torch.Tensor:
     if plan.stationarity != "C":
         c = _exec_stationary(a_loc, b_loc, plan)
     elif plan.local_impl == "bsmm":
-        c = _exec_sparse_bsmm(a_loc, b_loc, plan.local_cols[row, col], plan,
+        c = _exec_sparse_bsmm(a_loc, b_loc, consts["walk"], plan,
                               cols_dev=consts["cols"],
+                              columns=consts["columns"],
                               blocks=consts["blocks"])
     elif plan.local_impl in ("masked", "ranksparse"):
         # Rank plans given dense-stored operands run the masked DAG, as in

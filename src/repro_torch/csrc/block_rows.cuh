@@ -7,10 +7,15 @@
 //
 // A's rows fall into block rows of bm rows; the dense product is one
 // block row of all m rows.  Block row i's live k-ranges are
-// [kk bk, kk bk + bk) for the entries kk of row i of a padded CSR column
-// map `cols` ((m / bm) x s_steps, int32), read up to the first entry
+// [kk bk, kk bk + bk) for the entries kk of its list in a padded column
+// map `cols` (int32, each list s_steps long), read up to the first entry
 // outside [0, k_blocks); the dense product has no map and one range
-// [0, k).  A block row is cut into 64-row units (the last one shorter
+// [0, k).  The map holds one list a block row ((m / bm) x s_steps, A's
+// live blocks, the same for every column tile) or one list a block row
+// and 256-column tile ((m / bm) x col_tiles x s_steps, A's live blocks
+// whose (bk x 256) block of B is live too): an item reads its list at
+// block_row cols_row + tile cols_tile, with cols_tile 0 for the first
+// kind.  A block row is cut into 64-row units (the last one shorter
 // where bm is not a multiple of 64), and its units into pairs (0, 1),
 // (2, 3), ...; a pair without a second unit leaves its second consumer
 // idle, releasing the slabs it does not read.  Rows, columns and k past
@@ -24,20 +29,23 @@
 // tiles.  One persistent block a multiprocessor takes the items
 // blockIdx.x, + gridDim.x, ...  Where kColGroup divides gridDim.x, the
 // kColGroup blocks that start on one pair's items take one pair in every
-// round: they walk the same rows of A over the same k-ranges, item for
-// item of equal length, so they tend to keep pace and read A from L2
-// after the first of them; the group's slices of B serve every pair in
-// flight.  A block row with no live block stores zeros.
+// round: with one list a block row they walk the same rows of A over the
+// same k-ranges, item for item of equal length, so they tend to keep
+// pace and read A from L2 after the first of them; with a list a tile
+// they walk the blocks each tile's B keeps, and share those of A that
+// both lists hold.  The group's slices of B serve every pair in flight.
+// An item whose list is empty (a block row with no live block, or no
+// live block of B under the tile) stores zeros.
 //
 // Long sums.  The tensor cores' fp32 accumulation loses more than an
 // fp32 add at every wgmma step, so the error of one accumulator grows
 // faster than the reference's hold (atol 1e-4 sqrt(K)): on an H100 a
 // 52-block row (K = 13312) put the worst element at 0.89-0.94 of the
 // hold, against 0.14-0.20 at K <= 1280.  So where C is fp32 the
-// accumulator takes kSumSlabs slabs at a time, and C keeps the running
-// sum, each part added to it in fp32 by the thread that computed it:
-// that row then sits at 0.23.  A bf16 C keeps one accumulator (its own
-// rounding is far coarser than the loss).
+// accumulator takes kSumSlabs slabs at a time of those the item's list
+// walks, and C keeps the running sum, each part added to it in fp32 by
+// the thread that computed it: that row then sits at 0.23.  A bf16 C
+// keeps one accumulator (its own rounding is far coarser than the loss).
 #pragma once
 
 #include "split_gemm.cuh"
@@ -52,7 +60,10 @@ namespace sg = split_gemm;
 constexpr int kSumSlabs = 64;
 
 struct Params {
-  const int* cols;  // (m / bm, s_steps) column map; null: the dense product
+  const int* cols;  // the column map (header note); null: the dense product
+  // entries between two block rows' lists and between two column tiles'
+  // lists of one block row (0: one list a block row)
+  int64_t cols_row, cols_tile;
   int64_t m, n, lda, ldb;
   int64_t bm, bk;       // dense: bm = m, bk = k
   int s_steps, k_blocks;
@@ -62,8 +73,8 @@ struct Params {
 };
 
 // Item `item` of a launch (header note): its pair's first row, the rows
-// of its two units (<= 0: none), its column tile, its block row's map
-// entries (null for dense) and its count of live blocks.
+// of its two units (<= 0: none), its column tile, its list of the map
+// (null for dense) and its count of live blocks.
 struct Item {
   int64_t row0, col0;
   int rows_a, rows_b;
@@ -81,8 +92,9 @@ __device__ __forceinline__ Item item_at(const Params& p, int64_t item) {
   const int64_t pair = rem / cols_here;
   const int64_t block_row = pair / p.pairs_per_row;
   const int64_t first = 2 * sg::kRows * (pair % p.pairs_per_row);
+  const int64_t tile = group * kColGroup + rem % cols_here;
   Item it;
-  it.col0 = (group * kColGroup + rem % cols_here) * sg::kCols;
+  it.col0 = tile * sg::kCols;
   it.row0 = block_row * p.bm + first;
   const int64_t left_a = p.bm - first;
   const int64_t left_b = left_a - sg::kRows;
@@ -94,7 +106,7 @@ __device__ __forceinline__ Item item_at(const Params& p, int64_t item) {
     it.cols = nullptr;
     it.n_live = p.s_steps > 0 && p.slabs_per_block > 0;
   } else {
-    it.cols = p.cols + block_row * p.s_steps;
+    it.cols = p.cols + block_row * p.cols_row + tile * p.cols_tile;
     int n = 0;
     while (n < p.s_steps) {
       const int kk = __ldg(it.cols + n);
@@ -234,12 +246,14 @@ inline bool aligned(const void* ptr, uintptr_t bytes) {
 }
 
 // The launch's parameters; the dense product has no map (cols null,
-// bm = m, bk = k, s_steps = k_blocks = 1).  in_size and out_size are the
-// element sizes in bytes.
+// bm = m, bk = k, s_steps = k_blocks = 1).  tile_lists: the map holds a
+// list a block row and column tile (header note).  in_size and out_size
+// are the element sizes in bytes.
 inline Params make_params(const void* a, const void* b, const int* cols,
                           void* c, int64_t m, int64_t n, int64_t lda,
                           int64_t ldb, int64_t bm, int64_t bk, int s_steps,
-                          int k_blocks, int in_size, int out_size) {
+                          int k_blocks, bool tile_lists, int in_size,
+                          int out_size) {
   Params p{};
   p.cols = cols;
   p.m = m;
@@ -253,6 +267,8 @@ inline Params make_params(const void* a, const void* b, const int* cols,
   p.pairs_per_row = (bm + 2 * sg::kRows - 1) / (2 * sg::kRows);
   p.n_pairs = (m / bm) * p.pairs_per_row;
   p.col_tiles = (n + sg::kCols - 1) / sg::kCols;
+  p.cols_tile = tile_lists ? s_steps : 0;
+  p.cols_row = tile_lists ? p.col_tiles * s_steps : s_steps;
   p.slabs_per_block = static_cast<int>((bk + sg::kSlabK - 1) / sg::kSlabK);
   // 16-byte copies of B's 8-column chunks, 8- (fp32) or 4-byte (bf16)
   // loads of A's column pairs (every range starting at an even k), and

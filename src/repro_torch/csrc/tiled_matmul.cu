@@ -47,7 +47,7 @@ cudaError_t launch(const void* a, const void* b, void* c, int64_t m,
                    int64_t n, int64_t k, int64_t lda, int64_t ldb,
                    cudaStream_t stream) {
   const br::Params p = br::make_params(
-      a, b, nullptr, c, m, n, lda, ldb, m, k, 1, 1,
+      a, b, nullptr, c, m, n, lda, ldb, m, k, 1, 1, false,
       static_cast<int>(sizeof(TIn)), static_cast<int>(sizeof(TOut)));
   return br::launch<TIn, TOut>(tiled_matmul_kernel<TIn, TOut>, a, b, c, p,
                                stream);

@@ -43,8 +43,10 @@ _f32 = ctypes.c_float
 _SIGNATURES = {
     "tiled_matmul_launch": [_ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _i64,
                             _int, _int, _ptr],
+    # a, b, cols, c; M, N, lda, ldb; S, K/bk, bm, bk, tile lists; in and
+    # out dtype, stream
     "bsmm_launch": [_ptr, _ptr, _ptr, _ptr, _i64, _i64, _i64, _i64, _int,
-                    _int, _int, _int, _int, _int, _ptr],
+                    _int, _int, _int, _int, _int, _int, _ptr],
     # x, w, tile_expert, pairs, y; T, F, D, ldx, expert stride, ldw; bt,
     # E; pairs; in and out dtype, stream
     "grouped_gemm_launch": [_ptr] * 5 + [_i64] * 6 + [_int, _int, _i64,

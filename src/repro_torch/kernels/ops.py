@@ -24,7 +24,8 @@ then an empty result of the kernel's shape and dtype, so a step can be
 counted without a card (``analysis.cost``).  Each wrapper reports its
 function's work to the active ``analysis.cost.CostCounter`` and suspends
 it inside, so the three routes count the same: ``tiled_matmul`` 2·M·N·K
-FLOP, ``bsmm`` 2·bm·bk·N per live block of its column map,
+FLOP, ``bsmm`` 2·bm·bk·N per live block of its column map (2·bm·bk
+per column of the tile a list of a tile map covers),
 ``grouped_gemm`` 2·bt·D·F per tile, ``flash_attention`` 4·B·H·Sq·Sk·Dh
 (the plain route's two products); bytes, the operands and the result.
 """
@@ -136,6 +137,24 @@ def tiled_matmul(
     return c
 
 
+def bsmm_columns(cols: np.ndarray, k_blocks: int, n: int) -> float:
+    """The columns of C that ``bsmm`` multiplies over a column map, summed
+    over its listed entries (each list's prefix of valid entries: N for a
+    list of A's block row, the width of its tile for a list of a tile
+    map); 2·bm·bk times this is the kernel's FLOP.  Refuses, on the host,
+    a map that names a block column at or past ``k_blocks`` (it would
+    read past A)."""
+    cols = np.asarray(cols, dtype=np.int32)
+    if cols.size and int(cols.max()) >= k_blocks:
+        raise ValueError(f"col map names a block column >= K/bk={k_blocks}")
+    listed = np.logical_and.accumulate(cols >= 0, axis=-1)
+    if cols.ndim == 3:
+        width = np.minimum(_bsmm.TILE_COLS,
+                           n - _bsmm.TILE_COLS * np.arange(cols.shape[1]))
+        return float(listed.sum(axis=(0, 2)) @ width)
+    return float(listed.sum()) * n
+
+
 def bsmm_cols(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -146,27 +165,26 @@ def bsmm_cols(
     bn: int,
     out_dtype: torch.dtype | None = None,
     device_cols: torch.Tensor | None = None,
+    columns: float | None = None,
 ) -> torch.Tensor:
     """Block-sparse C = A @ B over a padded CSR column map (the call
-    ``core.summa._exec_sparse_bsmm`` makes with ``plan.local_cols``).
+    ``core.summa._exec_sparse_bsmm`` makes with this rank's map): one list
+    a block row, (M/bm, S), or one a block row and 256-column tile of C,
+    (M/bm, ceil(N/256), S).
 
-    ``cols`` is a host array (numpy or a CPU tensor); it is checked here,
-    on the host, and moved to ``a``'s device, unless the caller holds that
-    copy already (``device_cols``: int32, on ``a``'s device)."""
+    ``cols`` is a host array (numpy or a CPU tensor); it is checked and
+    counted here, on the host (``bsmm_columns``), and moved to ``a``'s
+    device, unless the caller holds both already: that copy
+    (``device_cols``: int32, on ``a``'s device) and ``bsmm_columns``'
+    count of the same map (``columns``)."""
     run = _route(a, bsmm_cuda, bsmm_plain, _bsmm_meta)
-    cols = np.asarray(cols, dtype=np.int32)
-    k_blocks = a.shape[1] // bk
-    if cols.size and int(cols.max()) >= k_blocks:  # would read past A
-        raise ValueError(f"col map names a block column >= K/bk={k_blocks}")
-    if device_cols is None:
-        device_cols = torch.as_tensor(cols, device=a.device)
-    # the blocks the kernel multiplies: each row's prefix of valid entries
-    valid = (cols >= 0) & (cols < k_blocks)
-    live = int(np.cumprod(valid, axis=-1).sum()) if cols.size else 0
+    if device_cols is None or columns is None:
+        columns = bsmm_columns(cols, a.shape[1] // bk, b.shape[1])
+        device_cols = torch.as_tensor(np.asarray(cols, dtype=np.int32),
+                                      device=a.device)
     with kernel_call("bsmm", a.device) as call:
         c = run(a, b, device_cols, bm=bm, bk=bk, bn=bn, out_dtype=out_dtype)
-        call.report(2.0 * live * bm * bk * b.shape[1], (a, b, device_cols),
-                    (c,))
+        call.report(2.0 * bm * bk * columns, (a, b, device_cols), (c,))
     return c
 
 

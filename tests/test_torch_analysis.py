@@ -317,11 +317,13 @@ def _wrapper_cases():
     b = torch.randn(64, 40, generator=g)
     mask = np.array([[1, 0], [1, 1], [0, 0]], bool)  # 3 live blocks
     cols = np.array([[1, -1], [0, 1]], np.int32)  # 3 live entries
+    tiles = np.array([[[1, -1], [0, 1]], [[-1, -1], [0, -1]]], np.int32)
     x = torch.randn(48, 32, generator=g)
     w = torch.randn(3, 32, 24, generator=g)
     te = np.array([2, 0, 2], np.int32)
     q = torch.randn(2, 4, 20, 8, generator=g).to(torch.bfloat16)
     k = torch.randn(2, 2, 20, 8, generator=g).to(torch.bfloat16)
+    b300 = torch.randn(64, 300, generator=g)
     return {
         "tiled_matmul": (lambda d: ops.tiled_matmul(a.to(d), b.to(d)),
                          2.0 * 96 * 40 * 64, 4 * (96 * 64 + 64 * 40 + 96 * 40)),
@@ -331,6 +333,12 @@ def _wrapper_cases():
         "bsmm_cols": (lambda d: ops.bsmm_cols(
             a[:64].to(d), b.to(d), cols, bm=32, bk=32, bn=8),
             2.0 * 3 * 32 * 32 * 40, 4 * (64 * 64 + 64 * 40 + 2 * 2 + 64 * 40)),
+        # a tile map over N = 300: tiles of 256 and 44 columns; lists of 1
+        # and 2 entries in block row 0, 0 and 1 in block row 1
+        "bsmm_tile_cols": (lambda d: ops.bsmm_cols(
+            a[:64].to(d), b300.to(d), tiles, bm=32, bk=32, bn=4),
+            2.0 * 32 * 32 * (256 + 2 * 44 + 44),
+            4 * (64 * 64 + 64 * 300 + 2 * 2 * 2 + 64 * 300)),
         "grouped_gemm": (lambda d: ops.grouped_gemm(
             x.to(d), w.to(d), te, bt=16, out_dtype=torch.bfloat16),
             2.0 * 48 * 32 * 24, 4 * (48 * 32 + 3 * 32 * 24 + 3) + 2 * 48 * 24),
@@ -347,7 +355,7 @@ def test_wrapper_meta_route_counts_as_the_plain_version(case):
     the same reported work (one call, its FLOP and bytes) as on the
     CPU."""
     fn, flops, nbytes = _wrapper_cases()[case]
-    name = case.removesuffix("_cols")
+    name = "bsmm" if case.startswith("bsmm") else case
     outs, costs = {}, {}
     for device in ("cpu", "meta"):
         out, wc, _ = cost.analyze_step(fn, device, device=device)

@@ -17,7 +17,7 @@ import torch
 from repro.core.sparsity import random_block_mask
 from repro.kernels import ops as ref_ops
 from repro_torch.kernels import ops
-from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain
+from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain, tile_lists
 from repro_torch.kernels.tiled_matmul import tiled_matmul_cuda, tiled_matmul_plain
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -151,6 +151,55 @@ def test_plain_versions_on_views_and_sentinels():
     got = bsmm_plain(a, b, past, bm=8, bk=16, bn=8)  # walk ends at K/bk = 2
     np.testing.assert_allclose(got[:8].numpy(), want, rtol=1e-5, atol=1e-5)
     assert torch.all(got[8:] == 0)
+
+
+@pytest.mark.parametrize("fill", [0.1, 0.3, 0.7])
+def test_bsmm_plain_tile_map_reads_only_the_listed_blocks(fill):
+    """A tile map (one list a block row and 256-column tile, N = 556 off
+    the tile) against float64: every dead block of A, and every block of
+    B that no list of its tile names, holds NaN, and C is finite and
+    equals the product of the listed blocks.  ``tile_lists`` keeps a
+    block row's entries, in order, where B's block under the tile is
+    live; a tile whose lists are all empty gives zero columns."""
+    rng = np.random.default_rng(int(fill * 10))
+    bm, bk, mb, kb, n = 8, 16, 4, 6, 556
+    a_mask = rng.random((mb, kb)) < fill
+    a_mask[0] = True
+    live = rng.random((kb, 3)) < fill
+    live[:, 1] = False
+    cols = np.full((mb, kb), -1, np.int32)
+    for i in range(mb):
+        row = np.flatnonzero(a_mask[i])
+        cols[i, :len(row)] = row
+    tiles = tile_lists(cols, live)
+    assert tiles.shape[:2] == (mb, 3) and tiles.dtype == np.int32
+    for i in range(mb):
+        for t in range(3):
+            want = [kk for kk in np.flatnonzero(a_mask[i]) if live[kk, t]]
+            got = tiles[i, t]
+            assert list(got[:len(want)]) == want
+            assert (got[len(want):] == -1).all()
+    a = rng.normal(size=(mb * bm, kb * bk))
+    b = rng.normal(size=(kb * bk, n))
+    a[~np.kron(a_mask, np.ones((bm, bk), bool))] = np.nan
+    read = np.zeros((kb, n), bool)
+    for t in range(3):
+        read[:, 256 * t:256 * (t + 1)] = (live[:, t] & a_mask.any(0))[:, None]
+    b[~np.repeat(read, bk, axis=0)] = np.nan
+    got = bsmm_plain(torch.from_numpy(a).float(), torch.from_numpy(b).float(),
+                     torch.from_numpy(tiles), bm=bm, bk=bk, bn=4)
+    assert torch.isfinite(got).all()
+    want = np.zeros((mb * bm, n))
+    for t in range(3):
+        cs = slice(256 * t, 256 * (t + 1))
+        for i in range(mb):
+            for kk in tiles[i, t][tiles[i, t] >= 0]:
+                want[i * bm:(i + 1) * bm, cs] += (
+                    a[i * bm:(i + 1) * bm, kk * bk:(kk + 1) * bk]
+                    @ b[kk * bk:(kk + 1) * bk, cs])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                               atol=1e-4 * (kb * bk) ** 0.5)
+    assert torch.all(got[:, 256:512] == 0)
 
 
 def test_wrappers_route_by_device():

@@ -28,7 +28,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_cuda,
     flash_attention_plain,
 )
-from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain
+from repro_torch.kernels.bsmm import bsmm_cuda, bsmm_plain, tile_lists
 from repro_torch.kernels.grouped_gemm import grouped_gemm_cuda, grouped_gemm_plain
 from repro_torch.kernels.tiled_matmul import tiled_matmul_cuda, tiled_matmul_plain
 from repro_torch.models.model import forward, init_model
@@ -240,6 +240,49 @@ def test_bsmm_split_kernel_long_row(cuda, pair):
     got = bsmm_cuda(a, b, cols, bm=bm, bk=bk, bn=256, out_dtype=out)
     _close(got, bsmm_plain(a, b, cols, bm=bm, bk=bk, bn=256, out_dtype=out),
            _pair_name(pair), 52 * bk)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("fill", [0.1, 0.3, 0.7])
+@pytest.mark.parametrize("bm", [64, 128, 256])
+def test_bsmm_split_kernel_tile_map(cuda, bm, fill, name):
+    """A map a block row and 256-column tile (``tile_lists``): the kernel
+    against the plain version on the same map, bm = bk, N = 812 off the
+    tile.  Every dead block of A and every block of B that no list of its
+    tile names holds NaN, so a finite C shows they are never read.  Block
+    row 0 is live throughout and tile 0's B too, so its list sums K = 3072
+    (past the fp32 parts of K = 2048); tile 2's B is dead (every list
+    empty: zero columns) and so is the last block row of A."""
+    bk, mb, n = bm, 3, 812
+    kb = 3072 // bk
+    rng = np.random.default_rng(bm + int(fill * 10))
+    a_mask = rng.random((mb, kb)) < fill
+    a_mask[0], a_mask[-1] = True, False
+    live = rng.random((kb, 4)) < fill
+    live[:, 0], live[:, 2] = True, False
+    cols = np.full((mb, kb), -1, np.int32)
+    for i in range(mb):
+        row = np.flatnonzero(a_mask[i])
+        cols[i, :len(row)] = row
+    tiles = tile_lists(cols, live)
+    read = np.zeros((kb, n), bool)
+    for t in range(4):
+        read[:, 256 * t:256 * (t + 1)] = (live[:, t] & a_mask.any(0))[:, None]
+    a = _rand((mb * bm, kb * bk), name, bm, cuda)
+    b = _rand((kb * bk, n), name, bm + 1, cuda)
+    nan = torch.tensor(float("nan"), dtype=a.dtype, device=cuda)
+    a = torch.where(torch.as_tensor(np.kron(a_mask, np.ones((bm, bk), bool)),
+                                    device=cuda), a, nan)
+    b = torch.where(torch.as_tensor(np.repeat(read, bk, axis=0),
+                                    device=cuda), b, nan)
+    t_map = torch.as_tensor(tiles, device=cuda)
+    before = bsmm_cuda.launches
+    got = bsmm_cuda(a, b, t_map, bm=bm, bk=bk, bn=4)
+    assert bsmm_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _close(got, bsmm_plain(a, b, t_map, bm=bm, bk=bk, bn=4), name, kb * bk)
+    assert torch.all(got[:, 512:768] == 0) and torch.all(got[-bm:] == 0)
 
 
 @pytest.mark.parametrize("name", list(DTYPES))

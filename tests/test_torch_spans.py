@@ -186,24 +186,30 @@ def test_spans_sit_in_the_profiler_trace(tmp_path):
 
 
 def _block_count(a_mask, b_mask, rows, cols, block):
-    """Numpy's count of (multiplied, useful) block products of the rank
-    owning A's block rows ``rows`` and C's block columns ``cols`` (B's
-    mask blocks ``block`` columns wide), B's columns cut in tiles of 256."""
+    """Numpy's count of the block products of the rank owning A's block
+    rows ``rows`` and C's block columns ``cols`` (B's mask blocks
+    ``block`` columns wide), B's columns cut in the kernel's tiles of 256:
+    ``(a_only, useful)``, the products over A's map alone (each live block
+    of A whose panel meets the rank's B, times every tile) and those whose
+    block of B under the tile is live."""
     a = a_mask[rows].astype(np.int64)
     g = math.gcd(256, block)
     b = np.repeat(b_mask[:, cols], block // g, axis=1)
     tiles = b.reshape(b.shape[0], -1, 256 // g).any(-1)
-    multiplied = int((a * tiles.any(1)).sum()) * tiles.shape[1]
+    a_only = int((a * tiles.any(1)).sum()) * tiles.shape[1]
     useful = int((a @ tiles.sum(1)).sum())
-    return multiplied, useful
+    return a_only, useful
 
 
 @pytest.mark.parametrize("n, nb", [(1024, 4), (1024, 8), (2048, 4)])
 @pytest.mark.parametrize("grid", [(1, 1), (2, 2)])
 def test_bsmm_block_counters_equal_a_count_of_the_masks(grid, n, nb):
-    """``_bsmm_blocks`` on each rank of a planning grid, and on the 1x1
-    grid the counters a product adds, against numpy's count: B's tiles of
-    ``bn`` = 256 columns span one, two or four blocks of its mask."""
+    """``_bsmm_walk``'s count on each rank of a planning grid, and on the
+    1x1 grid the counters a product adds, against numpy's count: the
+    kernel's tiles of 256 columns span one, two or four blocks of B's
+    mask.  B's mask kills some of A's products on every rank, so the
+    kernel walks the map intersected with B's: it multiplies the useful
+    products alone, fewer than A's map would have it multiply."""
     p_row, p_col = grid
     am, bm = _masks(8, nb, n + nb)
     mm = DistributedMatmul(Grid(sizes=grid, device="cpu"),
@@ -215,8 +221,10 @@ def test_bsmm_block_counters_equal_a_count_of_the_masks(grid, n, nb):
         for j in range(p_col):
             rows = slice(i * 8 // p_row, (i + 1) * 8 // p_row)
             cols = slice(j * nb // p_col, (j + 1) * nb // p_col)
-            want = _block_count(am, bm, rows, cols, block)
-            assert summa._bsmm_blocks(plan, i, j, n_loc) == want
+            a_only, useful = _block_count(am, bm, rows, cols, block)
+            walk, blocks = summa._bsmm_walk(plan, i, j, n_loc)
+            assert blocks == (useful, useful) and useful < a_only
+            assert walk.ndim == 3
     if grid != (1, 1):
         return
     mm = DistributedMatmul(Grid.local("cpu"), local_matmul="pallas")
@@ -225,10 +233,97 @@ def test_bsmm_block_counters_equal_a_count_of_the_masks(grid, n, nb):
         mm(a, b, a_mask=am, b_mask=bm)
         mm(a, b, a_mask=am, b_mask=bm)
         counters = spans.summary()["counters"]
-    want = _block_count(am, bm, slice(None), slice(None), block)
+    a_only, useful = _block_count(am, bm, slice(None), slice(None), block)
     assert (counters["bsmm.blocks_multiplied"],
-            counters["bsmm.blocks_useful"]) == (2 * want[0], 2 * want[1])
-    assert want[1] < want[0]
+            counters["bsmm.blocks_useful"]) == (2 * useful, 2 * useful)
+    assert useful < a_only
+
+
+def _tile_map(plan, am, bm, i, j, n_loc, block):
+    """Numpy's walk of the masks: rank ``(i, j)``'s list for each local
+    block row and 256-column tile, the gathered panels (positions in
+    ``plan.live_panels``) where A's block is live and some block of B's
+    mask under the tile is; ``None`` where that keeps every entry of A's
+    map (A's map alone is walked then)."""
+    mb_loc = am.shape[0] // plan.p_row
+    tiles = -(-n_loc // 256)
+    lists, a_lists = {}, {}
+    for ib in range(mb_loc):
+        gb = i * mb_loc + ib
+        a_lists[ib] = [pos for pos, kk in enumerate(plan.live_panels)
+                       if am[gb, kk] and bm[kk, j * n_loc // block:
+                                            (j + 1) * n_loc // block].any()]
+        for t in range(tiles):
+            lo = j * n_loc + 256 * t
+            hi = min(lo + 256, (j + 1) * n_loc)
+            under = bm[:, lo // block:-(-hi // block)]
+            lists[ib, t] = [pos for pos in a_lists[ib]
+                            if under[plan.live_panels[pos]].any()]
+    if all(lists[ib, t] == a_lists[ib] for ib, t in lists):
+        return None
+    s = max(len(v) for v in lists.values())
+    out = np.full((mb_loc, tiles, s), -1, np.int32)
+    for (ib, t), v in lists.items():
+        out[ib, t, :len(v)] = v
+    return out
+
+
+@pytest.mark.parametrize("n, nb", [(1024, 4), (1024, 8), (1024, 16),
+                                   (2048, 4)])
+@pytest.mark.parametrize("grid", [(1, 1), (2, 2)])
+def test_bsmm_tile_map_equals_a_walk_of_the_masks(grid, n, nb):
+    """The intersected map ``_plan_constants`` uploads equals numpy's walk
+    of the masks on every rank of a planning grid: B's mask blocks of 256,
+    128, 64 and 512 columns, so a tile is skipped only when every block of
+    B's mask under it is dead (128 and 64: finer than the tile)."""
+    p_row, p_col = grid
+    am, bm = _masks(8, nb, n + nb, fill=0.3)
+    mm = DistributedMatmul(Grid(sizes=grid, device="cpu"),
+                           local_matmul="pallas")
+    plan = mm.plan(64, 128, n, a_mask=am, b_mask=bm)
+    n_loc = n // p_col
+    for i in range(p_row):
+        for j in range(p_col):
+            want = _tile_map(plan, am, bm, i, j, n_loc, n // nb)
+            walk, _ = summa._bsmm_walk(plan, i, j, n_loc)
+            if want is None:
+                np.testing.assert_array_equal(walk, plan.local_cols[i, j])
+            else:
+                assert walk.dtype == np.int32 and walk.flags.c_contiguous
+                np.testing.assert_array_equal(walk, want)
+    if grid == (1, 1):
+        consts = summa._plan_constants(plan, (64, 128), (128, n),
+                                       torch.device("cpu"))
+        assert consts["walk"].ndim == 3
+        np.testing.assert_array_equal(consts["cols"].numpy(), consts["walk"])
+        assert consts["cols"].dtype == torch.int32
+        # counted once a plan: each listed entry by its tile's 256 columns
+        assert consts["columns"] == 256.0 * int((consts["walk"] >= 0).sum())
+
+
+@pytest.mark.parametrize("b_mask", ["none", "all_live"])
+def test_bsmm_without_a_b_map_walks_a_map_alone(b_mask):
+    """With no B mask, or an all-live one, the executor hands ``bsmm`` the
+    plan's map of A alone, one list a block row, and C is the product of
+    that map, bitwise: the walk the kernel took before B's map."""
+    am, bm = _masks(8, 4, 3)
+    b_mask = None if b_mask == "none" else np.ones_like(bm)
+    mm = DistributedMatmul(Grid.local("cpu"), local_matmul="pallas")
+    a, b = _normal((64, 128), 4), _normal((128, 1024), 5)
+    plan = mm.plan(64, 128, 1024, a_mask=am, b_mask=b_mask)
+    consts = summa._plan_constants(plan, (64, 128), (128, 1024),
+                                   torch.device("cpu"))
+    assert consts["walk"] is not None and consts["walk"].ndim == 2
+    np.testing.assert_array_equal(consts["walk"], plan.local_cols[0, 0])
+    multiplied, useful = consts["blocks"]
+    assert multiplied == useful == int((plan.local_cols >= 0).sum()) * 4
+    assert consts["columns"] == int((plan.local_cols >= 0).sum()) * 1024.0
+    got = mm(a, b, a_mask=am, b_mask=b_mask)
+    a_m = summa._apply_block_mask(a, plan.a_mask, keep=consts["a"])
+    b_m = summa._apply_block_mask(b, plan.b_mask, keep=consts["b"])
+    want = summa._exec_sparse_bsmm(a_m, b_m, plan.local_cols[0, 0], plan,
+                                   blocks=consts["blocks"])
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("cell", ["u32k.bsp30", "u32k.dense", "nu32k.dense",

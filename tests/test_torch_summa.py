@@ -23,6 +23,7 @@ from repro_torch.core.sparsity import BlockRankMap, random_block_mask
 from repro_torch.core.summa import (
     SummaConfig,
     _apply_block_mask,
+    _plan_constants,
     execute_plan,
     reference_blocksparse_matmul,
     reference_matmul,
@@ -115,6 +116,43 @@ def test_c_mask_filter_and_padding_match_reference(local_matmul):
         dense(a, b).numpy(), a.astype(np.float64) @ b, atol=ORACLE_ATOL,
         rtol=ORACLE_RTOL,
     )
+
+
+def _tile_map_case(seed=11):
+    """A and B block-sparse at fill 0.3, (64 x 128) @ (128 x 1024): B's
+    mask blocks are 16 x 128, finer than ``bsmm``'s 256-column tile, and
+    its dead blocks kill some of A's products under every tile."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(64, 128)).astype(np.float32)
+    b = rng.normal(size=(128, 1024)).astype(np.float32)
+    a_mask = random_block_mask(8, 8, 0.3, seed=seed)
+    b_mask = random_block_mask(8, 8, 0.3, seed=seed + 1)
+    ref = ((a * np.kron(a_mask, np.ones((8, 16)))).astype(np.float64)
+           @ (b * np.kron(b_mask, np.ones((16, 128)))))
+    return dict(a=a, b=b, a_mask=a_mask, b_mask=b_mask, ref=ref)
+
+
+@pytest.mark.parametrize("compiled", [True, False])
+def test_bsmm_tile_map_matches_float64_1x1(compiled):
+    """Where B's mask kills some of A's products, the plan's constants
+    hold a map a 256-column tile and the product through it equals the
+    float64 product of the masked operands."""
+    case = _tile_map_case()
+    mm = DistributedMatmul(Grid.local("cpu"), local_matmul="pallas")
+    kw = dict(a_mask=case["a_mask"], b_mask=case["b_mask"])
+    plan = mm.plan(64, 128, 1024, **kw)
+    assert plan.local_impl == "bsmm"
+    consts = _plan_constants(plan, (64, 128), (128, 1024),
+                             torch.device("cpu"))
+    assert consts["walk"].shape[:2] == (plan.local_cols.shape[2], 4)
+    a_pad = torch.from_numpy(case["a"])
+    got = execute_plan(a_pad, torch.from_numpy(case["b"]), plan,
+                       compiled=compiled)
+    np.testing.assert_allclose(got.numpy(), case["ref"], atol=ORACLE_ATOL,
+                               rtol=ORACLE_RTOL)
+    np.testing.assert_allclose(mm(case["a"], case["b"], **kw).numpy(),
+                               case["ref"], atol=ORACLE_ATOL,
+                               rtol=ORACLE_RTOL)
 
 
 def test_plan_cache_and_bfloat16_operands():
@@ -327,7 +365,8 @@ out = {}
 for name, mm_kw, call_kw, masked in json.loads(spec):
     mm = DistributedMatmul(grid, k_blocks=8, **mm_kw)
     kw = dict(call_kw, **(masks if masked else {}))
-    plan = mm.plan(64, 128, 96, **kw)
+    m, k = case["a"].shape
+    plan = mm.plan(m, k, case["b"].shape[1], **kw)
     with spans.recording():
         c = mm(case["a"], case["b"], **kw)
         recs = spans.records()
@@ -344,6 +383,18 @@ for name, mm_kw, call_kw, masked in json.loads(spec):
     out[name + "-recv"] = np.array([r[0] for r in recv])
     out[name + "-spans"] = np.array([r[1:] for r in recv])
     out[name + "-steps"] = np.array([len(plan.live_panels), plan.k_steps])
+    # bsmm's block counters and the rank of its map (3: a list a tile)
+    walk = []
+    if plan.local_impl == "bsmm":
+        n_loc = plan.n_pad // plan.p_col
+        walk = [sum(r.counters.get("bsmm.blocks_" + what, 0) for r in recs)
+                for what in ("multiplied", "useful")]
+        walk.append(summa._bsmm_walk(plan, grid.axis_index(plan.cfg.row_axis),
+                                     grid.axis_index(plan.cfg.col_axis),
+                                     n_loc)[0].ndim)
+    walks = [None] * 4
+    dist.all_gather_object(walks, walk)
+    out[name + "-walk"] = np.array(walks)
     if plan.stationarity != "C":
         new_k_shard, summa._k_shard = summa._k_shard, parent_k_shard
         out[name + "-parent"] = mm(case["a"], case["b"], **kw).numpy()
@@ -364,6 +415,9 @@ _ENGINE = [("xla", "taskbased"), ("pallas", "taskbased"),
 
 def _runs(family):
     """(name, DistributedMatmul kwargs, call kwargs, masked) of a family."""
+    if family == "tile_map":
+        return [(f"{route}-tile_map", dict(local_matmul=route), {}, True)
+                for route in ("xla", "pallas")]
     if family in ("dense", "banded"):
         return [(f"{route}-{strategy}",
                  dict(strategy=strategy, local_matmul=route), {}, True)
@@ -403,13 +457,16 @@ def _stationary_traffic(stationarity):
 
 
 @pytest.mark.parametrize("family", ["dense", "banded", "pull", "stationary_A",
-                                    "stationary_B", "tuned"])
+                                    "stationary_B", "tuned", "tile_map"])
 def test_2x2_gloo_grid_matches_oracle(tmp_path, family):
     """Four gloo processes form the 2x2 grid: panel broadcasts along grid
     rows and columns, the all-gather strategy, and the per-rank BSMM maps
     (banded masks give each rank its own CSR map); the one-sided pull
     route, the A-/B-stationary schedules (their re-layout and
-    reduce-scatter) and tuned plans, on banded masks and unmasked.
+    reduce-scatter) and tuned plans, on banded masks and unmasked; and
+    ``bsmm`` walking each rank's map a 256-column tile where B's mask
+    (blocks finer than the tile) kills some of A's products: it multiplies
+    the useful block products alone, against the float64 product.
 
     The stationary re-layout delivers each rank only its K shard: the
     bytes it receives are the shard the task graph prices for its group
@@ -421,7 +478,11 @@ def test_2x2_gloo_grid_matches_oracle(tmp_path, family):
     spans per panel it multiplies (every K step, or every live panel),
     none on the all-gather and stationary routes, and reads the bytes
     its re-layout received from ``grid.recv_bytes`` in ``grid.exchange``."""
-    case = oracle_case("dense" if family == "dense" else "banded", seed=7)
+    if family == "tile_map":
+        case = _tile_map_case()
+    else:
+        case = oracle_case("dense" if family == "dense" else "banded",
+                           seed=7)
     data = tmp_path / "case.npz"
     masks = {} if case["a_mask"] is None else dict(
         a_mask=case["a_mask"], b_mask=case["b_mask"])
@@ -478,6 +539,10 @@ def test_2x2_gloo_grid_matches_oracle(tmp_path, family):
     if family in ("dense", "banded"):
         want_impl = "dense" if family == "dense" else "bsmm"
         assert str(out["pallas-taskbased-impl"]) == want_impl
+    if family == "tile_map":
+        assert str(out["pallas-tile_map-impl"]) == "bsmm"
+        for multiplied, useful, ndim in out["pallas-tile_map-walk"]:
+            assert multiplied == useful > 0 and ndim == 3
 
 
 # ---------------------------------------------------------------------------
