@@ -130,6 +130,7 @@ class View:
     kernel_work: dict  # kernel -> (FLOP, bytes) per product, by ``count``
     peak: dict | None  # the card's peaks, ``count.PEAKS``
     trace: object = None  # ``trace.Trace`` of the window, with --trace 1
+    cards: int = 1  # the cards the run spans (``multirank``)
 
     def program_device_s(self, names=None, exclude=()) -> float | None:
         """Device seconds the program's calls spent in intervals whose
@@ -429,6 +430,10 @@ def main(argv=None) -> int:
         log(f"{cell.name} needs {cell.chips} CUDA device(s); this machine "
             f"has {torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return 2
+    if cell.chips > 1:
+        from mmbench import multirank
+
+        return multirank.main(cell, args, T0)
     run = run_cell(cell, seed=args.seed, seconds=args.seconds,
                    trace=bool(args.trace), device="cuda", t0=T0)
     out, lines = result_line(cell, run, bool(args.trace))
